@@ -7,13 +7,20 @@ Run from the root of a checkout, on a machine with one NVIDIA GPU::
 
 In order: prints the card, builds every CUDA kernel from ``csrc/`` (one
 ``nvcc`` per source, all at once), holds each kernel against its plain
-PyTorch version on the card, runs ANI-2x energies and forces on the
-10,002-atom periodic water box through the public entry points (counting
-kernel launches), compares the card with the CPU on a ~1,000-atom box, times
-the main path, each kernel and its plain version, and prints a ``kernels``
-JSON line and, last, ``{"ok": true, "device": {...}}``.  Any failed check
-raises, and the script exits non-zero without that last line; so does a
-machine with no CUDA device, or a directory without the package.
+PyTorch version on the card (K3, the fused angular AEV; K1 and K2, the
+bucket refresh's selection and its transpose), runs ANI-2x energies and
+forces on the 10,002-atom periodic water box through the public entry points
+(counting kernel launches), compares the card with the CPU on a ~1,000-atom
+box, then drives the MD main path: `MolecularDynamics` with its defaults,
+`init` at 300 K and 50 NVE steps on the 10,002-atom box (launch counts,
+energy drift), a forced neighbor rebuild, MD forces against single-point
+forces, 10 MD steps on the card against the CPU, and `CachedSinglePoint`.
+It times E+F, the MD step, a rebuild, each kernel, its plain version and the
+PyTorch call that computes the same function, and the bucket refresh against
+the gather refresh, and prints a ``kernels`` JSON line and, last,
+``{"ok": true, "device": {...}}``.  Any failed check raises, and the script
+exits non-zero without that last line; so does a machine with no CUDA
+device, or a directory without the package.  About a minute on an H100.
 """
 
 import json
@@ -37,6 +44,16 @@ ATOL, RTOL = 1e-5, 1e-4
 #: card vs CPU, same model from the same seed: forces and atomic energies
 #: (f32 sums over ~100 neighbours and 8 members taken in another order)
 FORCE_ATOL, ATOMIC_E_ATOL = 1e-5, 5e-5
+#: K2 vs its plain version: |k - p| <= K2_TOL (1 + |p|); the kernel sums with
+#: atomics in shared memory, in an order that changes from run to run.  K1 is
+#: a selection and must differ by exactly 0.
+K2_TOL = 1e-5
+#: MD steps of the main path, and of each timed stretch after it
+MD_STEPS = 50
+#: after a rebuild, MD forces vs one-shot E+F forces at the same coordinates;
+#: card vs CPU after 10 MD steps (rounding grows along a trajectory)
+REBUILD_FORCE_ATOL = 1e-4
+MD_COORD_ATOL, MD_FORCE_ATOL = 1e-4, 1e-4
 
 
 def check(ok: bool, what: str) -> None:
@@ -59,6 +76,24 @@ def cuda_ms(fn, reps: int, warmup: int = 2) -> float:
     return start.elapsed_time(end) / reps
 
 
+def kernels_ms(fn, reps: int) -> float:
+    """Device time of the kernels that ``fn()`` launches, per call, summed
+    by ``torch.profiler`` (no idle time of the stream in it)."""
+    fn()
+    torch.cuda.synchronize()
+    activities = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=activities) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    device_us = sum(
+        e.self_device_time_total
+        for e in prof.key_averages()
+        if e.device_type == torch.autograd.DeviceType.CUDA
+    )
+    return device_us / reps / 1e3
+
+
 def kernel_errors(out: torch.Tensor, ref: torch.Tensor, what: str) -> float:
     err = (out - ref).abs()
     max_abs = float(err.max())
@@ -67,6 +102,24 @@ def kernel_errors(out: torch.Tensor, ref: torch.Tensor, what: str) -> float:
     check(bool(torch.isfinite(out).all()), f"{what}: kernel output finite")
     check(bool((err <= ATOL + RTOL * ref.abs()).all()), f"{what}: within tolerance")
     return max_abs
+
+
+def select_bound_ms(lanes: int, g: int, c: int, adds: bool) -> tuple:
+    """Least time for K1 or K2: the occupied lanes' keys (4 bytes) and
+    positions or cotangents (12 bytes), the (G, 27, C, 3) candidate table and
+    the (G,) lane counts, each moved once; K2 also does 3 adds a lane."""
+    nbytes = 16 * lanes + g * 27 * c * 12 + 4 * g
+    by_bytes = nbytes / PEAK_HBM_BYTES * 1e3
+    by_ops = (3 * lanes if adds else 0) / PEAK_F32_FLOPS * 1e3
+    return max(by_bytes, by_ops), "operations" if by_ops > by_bytes else "bytes", nbytes
+
+
+def total_energy(md, state) -> float:
+    """Potential plus kinetic energy of an MD state, in Hartree."""
+    from torchani_tpu_torch.md import ACCEL_UNIT
+
+    kinetic = 0.5 * torch.sum(md.masses[:, None].double() * state.velocities.double() ** 2)
+    return float(state.energy) + float(kinetic) / ACCEL_UNIT
 
 
 def random_angular_inputs(n: int, ka: int, s: int, seed: int):
@@ -103,9 +156,25 @@ def main() -> int:
     from torchani_tpu_torch import csrc
     from torchani_tpu_torch.aev.kernels import angular_aev, angular_aev_reference
     from torchani_tpu_torch.aev.terms import ANIAngular
+    from torchani_tpu_torch.bucket_refresh import (
+        _cand_table,
+        _flat_index,
+        _occupied_lanes,
+        _statics,
+        bucket_select_bwd,
+        bucket_select_bwd_reference,
+        bucket_select_fwd,
+        bucket_select_reference,
+    )
     from torchani_tpu_torch.grad import energies_and_forces, single_point
+    from torchani_tpu_torch.md import (
+        CachedSinglePoint,
+        MolecularDynamics,
+        _refresh_neighbors,
+        kinetic_temperature,
+    )
     from torchani_tpu_torch.models import ANI2x
-    from torchani_tpu_torch.neighbors import CellList
+    from torchani_tpu_torch.neighbors import CellList, _static_grid_shape
     from torchani_tpu_torch.profiling import peak_gib, wall_times_ms
     from torchani_tpu_torch.testing import make_water_box
 
@@ -130,7 +199,8 @@ def main() -> int:
     cell = torch.as_tensor(cell_np, device=dev)
     pbc = torch.ones(3, dtype=torch.bool, device=dev)
     num_atoms = species_np.shape[1]
-    print(f"water box: {num_atoms} atoms, cell {float(cell_np[0, 0]):.3f} A")
+    print(f"water box: {num_atoms} atoms, cell {float(cell_np[0, 0]):.3f} A; single-point "
+          f"cell list at {model.cutoff} A: grid {_static_grid_shape(cell_np, model.cutoff)}")
 
     elem = model._convert(species)
     nbrs = model.neighborlist(model.cutoff, elem, coords, cell, pbc)
@@ -160,6 +230,60 @@ def main() -> int:
                   "K3 ANI-1x smooth random lanes vs plain")
     check(bool((small[::7] == 0).all()), "fully masked rows give exact zeros")
 
+    # K1 and K2 at the water box's own MD tables (from `MolecularDynamics.init`)
+    md0 = MolecularDynamics(model, species, cell=cell, pbc=True)
+    state0 = md0.init(coords, temperature=300.0, generator=torch.Generator().manual_seed(0))
+    check(not bool(state0.overflow), "the MD cache of the water box does not overflow")
+    tables = state0.bucket
+    check(tables is not None, "the bucket refresh is on for the periodic water box")
+    grid, g_, c_, k_ = _statics(tables.atom_of_slot, tables.keys, tables.wrapshift)
+    r_ = c_ * k_
+    print(f"MD tables: grid {grid} (G={g_}), C={c_} slots, K={k_} lanes, R={r_}; "
+          f"angular prefix {md0._ang_prefix} lanes")
+    canon = md0._to_internal(state0.coords) - tables.wrap_offset
+    cand = _cand_table(canon, tables.atom_of_slot, tables.wrapshift, grid, c_)
+    nlanes = _occupied_lanes(tables.atom_of_slot, num_atoms, g_, c_, k_)
+    lanes = int(nlanes.sum())
+    real_lanes = int(state0.nbr_mask.sum())
+    print(f"occupied lanes: {lanes} of {g_ * r_} ({lanes / (g_ * r_):.1%}); "
+          f"{real_lanes} of them hold a neighbor")
+    occupied = torch.arange(r_, device=dev)[None, :] < nlanes[:, None]
+    k1_out = bucket_select_fwd(cand, tables.keys, nlanes)
+    torch.cuda.synchronize()
+    k1_ref = bucket_select_reference(cand, tables.keys, nlanes)
+    k1_err = float((k1_out - k1_ref)[occupied].abs().max())
+    print(f"K1 water-box tables vs plain: max abs err {k1_err:.3e} over occupied lanes")
+    check(k1_err == 0.0, "K1 is an exact selection")
+    g_rows = torch.randn((g_, r_, 3), device=dev, generator=torch.Generator(dev).manual_seed(1))
+    k2_out = bucket_select_bwd(g_rows, tables.keys, c_, nlanes)
+    torch.cuda.synchronize()
+    k2_ref = bucket_select_bwd_reference(g_rows, tables.keys, c_, nlanes)
+    k2_err = float((k2_out - k2_ref).abs().max())
+    print(f"K2 water-box tables vs plain: max abs err {k2_err:.3e} "
+          f"({int((k2_ref != 0).any(-1).sum())} candidates receive a sum)")
+    check(bool(torch.isfinite(k2_out).all()), "K2 output finite")
+    check(bool(((k2_out - k2_ref).abs() <= K2_TOL * (1 + k2_ref.abs())).all()),
+          "K2 within tolerance")
+
+    # small random keys with repeats and sentinels, C = 256 (83 KB of shared memory)
+    rng = np.random.RandomState(3)
+    sg, sc, sk = 5, 256, 5
+    sec = np.where(rng.rand(sg, sc * sk) < 0.75, rng.randint(0, 27, (sg, sc * sk)), 27)
+    rank = np.where(sec < 27, rng.randint(0, sc, (sg, sc * sk)), 0)
+    skeys = torch.as_tensor(((sec << 8) | rank).astype(np.int32), device=dev)
+    scand = torch.as_tensor(rng.randn(sg, 27, sc, 3).astype(np.float32) * 20, device=dev)
+    sgout = torch.as_tensor(rng.randn(sg, sc * sk, 3).astype(np.float32), device=dev)
+    s1 = bucket_select_fwd(scand, skeys)
+    s2 = bucket_select_bwd(sgout, skeys, sc)
+    torch.cuda.synchronize()
+    s1_err = float((s1 - bucket_select_reference(scand, skeys)).abs().max())
+    s2_ref = bucket_select_bwd_reference(sgout, skeys, sc)
+    s2_err = float((s2 - s2_ref).abs().max())
+    print(f"K1, K2 random keys (C=256) vs plain: max abs err {s1_err:.3e}, {s2_err:.3e}")
+    check(s1_err == 0.0, "K1 exact on random keys")
+    check(bool(((s2 - s2_ref).abs() <= K2_TOL * (1 + s2_ref.abs())).all()),
+          "K2 within tolerance on random keys")
+
     # ---- 3. the main path: ANI-2x E+F on the water box ----
     angular_aev.launches = 0
     torch.cuda.synchronize()
@@ -168,13 +292,13 @@ def main() -> int:
     torch.cuda.synchronize()
     first_s = time.perf_counter() - t0
     launches = {"angular_aev": angular_aev.launches}
-    print(f"main path: E = {float(energies[0]):.6f} Ha, first call {first_s:.3f} s, "
+    print(f"E+F main path: E = {float(energies[0]):.6f} Ha, first call {first_s:.3f} s, "
           f"launches {launches}")
     check(tuple(energies.shape) == (1,), "energies shape (1,)")
     check(tuple(forces.shape) == (1, num_atoms, 3), "forces shape (1, A, 3)")
     check(bool(torch.isfinite(energies).all()), "energies finite")
     check(bool(torch.isfinite(forces).all()), "forces finite")
-    check(all(v > 0 for v in launches.values()), "every kernel launched on the main path")
+    check(all(v > 0 for v in launches.values()), "every kernel launched on the E+F path")
 
     # ---- 4. card vs CPU, same model from the same seed ----
     sp_s, co_s, cell_s = make_water_box(1002)
@@ -199,44 +323,232 @@ def main() -> int:
     check(df <= FORCE_ATOL, "forces agree with the CPU")
     check(dae <= ATOMIC_E_ATOL, "atomic energies agree with the CPU")
 
-    # ---- 5. timings ----
+    # ---- 5. the MD main path: init at 300 K and 50 NVE steps ----
+    kernels_fn = {
+        "angular_aev": angular_aev,
+        "bucket_select_fwd": bucket_select_fwd,
+        "bucket_select_bwd": bucket_select_bwd,
+    }
+    for fn in kernels_fn.values():
+        fn.launches = 0
+    md_model = ANI2x(pretrained=False, seed=0)
+    md = MolecularDynamics(md_model, species, cell=cell, pbc=True)
+    md_start = md.init(coords, temperature=300.0, generator=torch.Generator().manual_seed(0))
+    e_start = total_energy(md, md_start)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state = md.run_nve(md_start, MD_STEPS)
+    torch.cuda.synchronize()
+    run1_ms = (time.perf_counter() - t0) * 1e3 / MD_STEPS
+    md_launches = {name: fn.launches for name, fn in kernels_fn.items()}
+    e_end = total_energy(md, state)
+    drift = e_end - e_start
+    temps = [float(kinetic_temperature(st.velocities, md.masses)) for st in (md_start, state)]
+    print(f"MD main path: {MD_STEPS} NVE steps at 1 fs, E_pot {float(state.energy):.6f} Ha, "
+          f"total-energy drift {drift:.6f} Ha of {e_start:.3f}, kinetic temperature "
+          f"{temps[0]:.1f} -> {temps[1]:.1f} K (random weights), rebuilds {state.rebuilds}, "
+          f"launches {md_launches}")
+    check(state.step == MD_STEPS, f"state.step == {MD_STEPS}")
+    check(not bool(state.overflow), "no overflow along the MD run")
+    for name, t in (("energy", state.energy), ("forces", state.forces),
+                    ("coords", state.coords), ("velocities", state.velocities)):
+        check(bool(torch.isfinite(t).all()), f"MD {name} finite")
+    check(tuple(state.forces.shape) == (num_atoms, 3), "MD forces shape (A, 3)")
+    check(all(v >= MD_STEPS for v in md_launches.values()),
+          f"K1, K2 and K3 each launched at least {MD_STEPS} times on the MD path")
+    check(abs(drift) <= 5e-3 * abs(e_start) + 0.05, "total energy drift bounded")
+
+    # ---- 6. a forced rebuild ----
+    before = state.rebuilds
+    state = md.step_nve(state.replace(ref_coords=state.ref_coords + 1.0))
+    torch.cuda.synchronize()
+    check(state.rebuilds == before + 1, "a displaced reference rebuilds the cache")
+    check(not bool(state.overflow), "no overflow after the rebuild")
+    check(bool(torch.isfinite(state.forces).all()), "forces finite after the rebuild")
+    _, f_ref = energies_and_forces(model, species, state.coords[None], cell, pbc)
+    df = float((state.forces - f_ref[0]).abs().max())
+    print(f"after a forced rebuild: max |dF| vs one-shot E+F {df:.3e} Ha/A")
+    check(df <= REBUILD_FORCE_ATOL, "forces after the rebuild equal one-shot E+F forces")
+
+    # ---- 7. MD against single point on the card ----
+    df = float((state0.forces - forces[0]).abs().max())
+    de = abs(float(state0.energy) - float(energies[0]))
+    print(f"MD init vs single point: max |dF| {df:.3e} Ha/A, |dE| {de:.3e} Ha")
+    check(df <= FORCE_ATOL, "MD forces equal single-point forces")
+
+    # ---- 8. card vs CPU for MD: 10 NVE steps from the same velocities ----
+    vel_s = (np.random.RandomState(7).randn(sp_s.shape[1], 3) * 0.005).astype(np.float32)
+    ends = {}
+    for where in ("cuda", "cpu"):
+        m = ANI2x(pretrained=False, seed=0, device=where)
+        runner = MolecularDynamics(m, sp_s, cell=cell_s, pbc=True, device=where)
+        start = runner.init(co_s)
+        check(start.bucket is not None, f"bucket refresh on for the small box ({where})")
+        start = start.replace(velocities=torch.as_tensor(vel_s, device=where))
+        ends[where] = runner.run_nve(start, 10)
+    dc = float((ends["cuda"].coords.cpu() - ends["cpu"].coords).abs().max())
+    df = float((ends["cuda"].forces.cpu() - ends["cpu"].forces).abs().max())
+    print(f"MD card vs CPU, {sp_s.shape[1]} atoms, 10 steps: max |dx| {dc:.3e} A, "
+          f"max |dF| {df:.3e} Ha/A")
+    check(dc <= MD_COORD_ATOL, "MD coordinates agree with the CPU")
+    check(df <= MD_FORCE_ATOL, "MD forces agree with the CPU")
+
+    # ---- 9. CachedSinglePoint at three nearby geometries ----
+    cached = CachedSinglePoint(model, species, cell=cell, pbc=True)
+    noise = torch.randn(coords[0].shape, device=dev, generator=torch.Generator(dev).manual_seed(2))
+    geoms = [coords[0], coords[0] + 0.02 * noise, coords[0] - 0.03 * noise]
+    for geom in geoms:
+        e_c, f_c = cached(geom)
+    e_1, f_1 = energies_and_forces(model, species, geoms[-1][None], cell, pbc)
+    df = float((f_c - f_1[0]).abs().max())
+    print(f"CachedSinglePoint, 3 geometries: E {float(e_c):.6f} Ha, max |dF| vs one-shot "
+          f"{df:.3e} Ha/A, rebuilds {cached._state.rebuilds}, overflow {cached.overflow}")
+    check(not cached.overflow, "CachedSinglePoint does not overflow")
+    check(bool(torch.isfinite(f_c).all()) and bool(torch.isfinite(e_c)), "cached E+F finite")
+    check(df <= REBUILD_FORCE_ATOL, "cached forces equal one-shot forces")
+
+    # ---- 10. timings ----
     def ef():
         energies_and_forces(model, species, coords, cell, pbc)
 
     times = wall_times_ms(ef, reps=10)
-    print(f"E+F {num_atoms} atoms: median {np.median(times):.3f} ms, "
+    print(f"{card}: E+F {num_atoms} atoms: median {np.median(times):.3f} ms, "
           f"min {np.min(times):.3f} ms, max {np.max(times):.3f} ms "
           f"over {len(times)} calls (host clock, each ending in a synchronize)")
-    print(f"E+F peak device memory: {peak_gib(ef):.3f} GiB")
+    print(f"{card}: E+F peak device memory: {peak_gib(ef):.3f} GiB")
 
     k3_ms = cuda_ms(lambda: angular_aev(*k3_in, **k3_kw), reps=20)
     plain_ms = cuda_ms(lambda: angular_aev_reference(*k3_in, **k3_kw), reps=5, warmup=1)
-    mask = k3_in[2]
-    lanes = mask.sum(1).to(torch.float64)
-    pairs = float((lanes * (lanes - 1) / 2).sum())
+    k3_lanes = k3_in[2].sum(1).to(torch.float64)
+    pairs = float((k3_lanes * (k3_lanes - 1) / 2).sum())
     num_z = len(k3_kw["shifts"]) * len(k3_kw["sections"])
     ops = pairs * (num_z * OPS_PER_TERM + OPS_PER_PAIR)
     nbytes = sum(t.numel() * t.element_size() for t in k3_in) + out.numel() * 4
     bound_ops_ms = ops / PEAK_F32_FLOPS * 1e3
     bound_bytes_ms = nbytes / PEAK_HBM_BYTES * 1e3
-    print(f"K3 alone: {k3_ms:.4f} ms; plain version {plain_ms:.3f} ms; "
+    print(f"{card}: K3 alone: {k3_ms:.4f} ms; plain version {plain_ms:.3f} ms; "
           f"{pairs:.0f} valid pairs ({pairs / n:.1f} per atom); bound "
           f"{bound_ops_ms:.4f} ms by operations, {bound_bytes_ms:.4f} ms by bytes "
           f"({nbytes / 1e6:.1f} MB)")
 
-    kernels = [{
-        "name": "angular_aev",
-        "route": "cuda",
-        "source": "torchani_tpu_torch/csrc/angular_aev.cu",
-        "replaces": "torchani_tpu/aev/pallas_kernels.py:186",
-        "launches": launches["angular_aev"],
-        "max_abs_err": k3_err,
-        "ms": k3_ms,
-        "plain_ms": plain_ms,
-        "bound_ms": max(bound_ops_ms, bound_bytes_ms),
-        "bound_by": "operations" if bound_ops_ms >= bound_bytes_ms else "bytes",
-        "library_ms": None,
-    }]
+    # MD: the main path's 50 steps again from the same start, step by step
+    # (each ending in a synchronize), and a third time as one run.  The same
+    # trajectory each time: with random weights the box heats up, and a
+    # longer run would leave the capacities measured at the start
+    state = md_start
+    step_ms = []
+    for _ in range(MD_STEPS):
+        t0 = time.perf_counter()
+        state = md.step_nve(state)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+    check(not bool(state.overflow) and bool(torch.isfinite(state.forces).all()),
+          "MD stays finite over the second stretch")
+    t0 = time.perf_counter()
+    state = md.run_nve(md_start, MD_STEPS)
+    torch.cuda.synchronize()
+    run3_ms = (time.perf_counter() - t0) * 1e3 / MD_STEPS
+    check(not bool(state.overflow) and bool(torch.isfinite(state.forces).all()),
+          "MD stays finite over the third stretch")
+    md_ms = float(np.median(step_ms))
+    print(f"{card}: MD step {num_atoms} atoms: median {md_ms:.3f} ms, min {np.min(step_ms):.3f}, "
+          f"max {np.max(step_ms):.3f} over {MD_STEPS} steps (host clock, each ending in a "
+          f"synchronize); as one run {run1_ms:.3f} ms/step (first {MD_STEPS}) and "
+          f"{run3_ms:.3f} ms/step (third {MD_STEPS}); {state.rebuilds} rebuilds in "
+          f"{MD_STEPS} steps")
+    print(f"{card}: MD {86.4 / md_ms:.3f} ns/day at 1 fs (from the median step)")
+    print(f"{card}: MD step peak device memory: {peak_gib(lambda: md.step_nve(state)):.3f} GiB")
+    sp_ms = wall_times_ms(lambda: [cached(geom) for geom in geoms[1:]], reps=5)
+    print(f"{card}: CachedSinglePoint {np.median(sp_ms) / 2:.3f} ms per call "
+          f"(median of 5 pairs of calls)")
+    rebuild_ms = wall_times_ms(lambda: md._build_cache(state.coords), reps=5)
+    print(f"{card}: neighbor rebuild (cell list at {md.build_radius:.2f} A, lane sort, "
+          f"tables): median {np.median(rebuild_ms):.3f} ms")
+
+    # K1 and K2 alone, their plain versions and the one PyTorch call that
+    # computes the same function (over every lane: it cannot skip the
+    # unoccupied ones)
+    index3 = _flat_index(tables.keys, c_)[:, :, None].expand(-1, -1, 3)
+    flat = torch.nn.functional.pad(cand.reshape(g_, 27 * c_, 3), (0, 0, 0, c_))
+    d_flat = torch.empty((g_, 28 * c_, 3), device=dev)
+    # device time of the kernels alone (torch.profiler), and the time between
+    # CUDA events around back-to-back calls, which also holds the host's
+    # dispatch where that is slower than the kernel
+    def both_ms(fn):
+        return kernels_ms(fn, reps=20), cuda_ms(fn, reps=20)
+
+    k1_ms, k1_ev = both_ms(lambda: bucket_select_fwd(cand, tables.keys, nlanes))
+    k1_plain_ms, k1_plain_ev = both_ms(
+        lambda: bucket_select_reference(cand, tables.keys, nlanes)
+    )
+    k1_lib_ms, k1_lib_ev = both_ms(lambda: torch.gather(flat, 1, index3))
+    k2_ms, k2_ev = both_ms(lambda: bucket_select_bwd(g_rows, tables.keys, c_, nlanes))
+    k2_plain_ms, k2_plain_ev = both_ms(
+        lambda: bucket_select_bwd_reference(g_rows, tables.keys, c_, nlanes)
+    )
+    k2_lib_ms, k2_lib_ev = both_ms(lambda: d_flat.zero_().scatter_add_(1, index3, g_rows))
+    k1_bound, k1_by, k1_bytes = select_bound_ms(lanes, g_, c_, adds=False)
+    k2_bound, k2_by, k2_bytes = select_bound_ms(lanes, g_, c_, adds=True)
+    print(f"{card}: K1 alone: {k1_ms:.4f} ms ({k1_ev:.4f} between events); plain version "
+          f"{k1_plain_ms:.4f} ms ({k1_plain_ev:.4f}); torch.gather {k1_lib_ms:.4f} ms "
+          f"({k1_lib_ev:.4f}); bound {k1_bound:.4f} ms by {k1_by} ({k1_bytes / 1e6:.1f} MB)")
+    print(f"{card}: K2 alone: {k2_ms:.4f} ms ({k2_ev:.4f} between events); plain version "
+          f"{k2_plain_ms:.4f} ms ({k2_plain_ev:.4f}); zero_ + scatter_add_ {k2_lib_ms:.4f} ms "
+          f"({k2_lib_ev:.4f}); bound {k2_bound:.4f} ms by {k2_by} ({k2_bytes / 1e6:.1f} MB)")
+
+    # the whole refresh, forward and backward: bucket (K1, K2) against gather
+    # (index_select, index_add) on the same cached topology
+    with torch.no_grad():
+        ci = md0._to_internal(state0.coords)
+        nb = _refresh_neighbors(state0, state0.coords)
+        nbr_pos = ci.index_select(0, state0.nbr_idx.reshape(-1)).reshape(nb.diff.shape)
+        shift = torch.where(
+            state0.nbr_mask[..., None], nb.diff - (nbr_pos - ci[:, None, :]), 0.0
+        )
+    gather_state = state0.replace(bucket=None, nbr_shift=shift)
+    weights = torch.randn(nb.diff.shape, device=dev, generator=torch.Generator(dev).manual_seed(4))
+
+    def refresh(st):
+        c = state0.coords.detach().requires_grad_(True)
+        diff = _refresh_neighbors(st, c).diff
+        return diff.detach(), torch.autograd.grad((diff * weights).sum(), c)[0]
+
+    (diff_b, grad_b), (diff_g, grad_g) = refresh(state0), refresh(gather_state)
+    d_diff = float((diff_b - diff_g).abs().max())
+    d_grad = float((grad_b - grad_g).abs().max() / grad_g.abs().max())
+    print(f"bucket vs gather refresh: max |d diff| {d_diff:.3e} A, relative gradient "
+          f"difference {d_grad:.3e}")
+    check(d_diff <= 2e-4, "bucket refresh reproduces the gather refresh")
+    check(d_grad <= 1e-5, "bucket refresh gradient equals the gather refresh's")
+    bucket_ms = cuda_ms(lambda: refresh(state0), reps=20)
+    gather_ms = cuda_ms(lambda: refresh(gather_state), reps=20)
+    bucket_kernels = kernels_ms(lambda: refresh(state0), reps=10)
+    gather_kernels = kernels_ms(lambda: refresh(gather_state), reps=10)
+    print(f"{card}: refresh forward+backward at (A={num_atoms}, K={k_}): bucket "
+          f"{bucket_kernels:.4f} ms of kernels ({bucket_ms:.4f} ms between CUDA events, "
+          f"the host's dispatch included), gather {gather_kernels:.4f} ms of kernels "
+          f"({gather_ms:.4f} ms between events)")
+
+    def entry(name, source, replaces, err, ms, plain, bound, by, library):
+        return {
+            "name": name, "route": "cuda", "source": source, "replaces": replaces,
+            "launches": md_launches[name],
+            "launches_by_path": {"ef": launches.get(name, 0), "md": md_launches[name]},
+            "max_abs_err": err, "ms": ms, "plain_ms": plain, "bound_ms": bound,
+            "bound_by": by, "library_ms": library,
+        }
+
+    select_cu = "torchani_tpu_torch/csrc/bucket_select.cu"
+    kernels = [
+        entry("angular_aev", "torchani_tpu_torch/csrc/angular_aev.cu",
+              "torchani_tpu/aev/pallas_kernels.py:186", k3_err, k3_ms, plain_ms,
+              max(bound_ops_ms, bound_bytes_ms),
+              "operations" if bound_ops_ms >= bound_bytes_ms else "bytes", None),
+        entry("bucket_select_fwd", select_cu, "torchani_tpu/bucket_refresh.py:504",
+              k1_err, k1_ms, k1_plain_ms, k1_bound, k1_by, k1_lib_ms),
+        entry("bucket_select_bwd", select_cu, "torchani_tpu/bucket_refresh.py:544",
+              k2_err, k2_ms, k2_plain_ms, k2_bound, k2_by, k2_lib_ms),
+    ]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({
         "ok": True,

@@ -15,11 +15,12 @@ import torchani_tpu as tt
 from conftest import load_golden
 from torchani_tpu.aev.computer import _angular_rows
 from torchani_tpu.aev.pallas_kernels import angular_aev_pallas
+from torchani_tpu.neighbors import Neighbors as JNeighbors
 from torchani_tpu.neighbors import all_pairs as j_all_pairs
 from torchani_tpu.neighbors import narrow_to_cutoff as j_narrow
 from torchani_tpu_torch.aev import AEVComputer, angular_aev, angular_aev_reference
 from torchani_tpu_torch.cutoffs import CutoffSmooth
-from torchani_tpu_torch.neighbors import all_pairs
+from torchani_tpu_torch.neighbors import Neighbors, all_pairs, lane_permute
 
 torch.set_num_threads(2)
 CPU = "cpu"
@@ -215,3 +216,43 @@ def test_padding_and_isolated_atoms(goldens):
     assert np.abs(padded[:, elem.shape[1]:]).max() == 0.0
     lone = aevc(torch.tensor([[0]]), torch.zeros((1, 1, 3))).numpy()
     assert np.abs(lone).max() == 0.0
+
+
+@pytest.mark.parametrize("prefix", [24, 32, 200])
+def test_angular_preslice_matches_jax(prefix):
+    """A distance-sorted table of a dense cluster (49 lanes, past the 40 at
+    which the angular table is repacked): cutting the angular table to a lane
+    prefix first gives the JAX computer's AEVs with the same prefix.  32
+    lanes hold every angular neighbor (at most 26 a row), so that AEV is the
+    unsliced one; 24 lanes drop some (both packages the same); 200 is no
+    cut."""
+    rng = np.random.RandomState(3)
+    a = 49
+    elem = rng.randint(0, 7, (1, a))
+    coords = (rng.rand(1, a, 3) * 7.0).astype(np.float32)
+    nb = all_pairs(5.2, torch.as_tensor(elem), torch.as_tensor(coords))
+    assert nb.capacity == 49
+    order = torch.sort(torch.where(nb.mask, nb.dist, torch.inf), dim=-1, stable=True).indices[0]
+    idx, mask, diff, dist, nelem = lane_permute(
+        (nb.idx[0], nb.mask[0], nb.diff[0], nb.dist[0], nb.elem[0]), order
+    )
+    table = Neighbors(idx[None], mask[None], diff[None], dist[None], nb.overflow, nelem[None])
+    jtable = JNeighbors(
+        *(jnp.asarray(x.numpy()) for x in (table.idx, table.mask, table.diff, table.dist)),
+        overflow=jnp.asarray(False), elem=jnp.asarray(table.elem.numpy()),
+    )
+    in_reach = int((mask & (dist <= 3.5)).sum(-1).max())
+    assert 24 < in_reach <= 28 and int(mask[:, 32:].sum()) > 0
+
+    aevc = AEVComputer.like_2x(device=CPU, angular_preslice=prefix)
+    out = aevc.compute_from_neighbors(torch.as_tensor(elem), None, table).numpy()
+    jaevc = tt.AEVComputer.like_2x().replace(angular_preslice=prefix)
+    ref = np.asarray(jaevc.compute_from_neighbors(jnp.asarray(elem), None, jtable))
+    np.testing.assert_allclose(out, ref, atol=ATOL, rtol=RTOL)
+    full = AEVComputer.like_2x(device=CPU).compute_from_neighbors(
+        torch.as_tensor(elem), None, table
+    ).numpy()
+    if prefix == 24:
+        assert np.abs(out - full).max() > 1e-3
+    else:
+        np.testing.assert_allclose(out, full, atol=ATOL, rtol=RTOL)

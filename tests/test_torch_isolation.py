@@ -12,12 +12,15 @@ import torchani_tpu_torch
 from torchani_tpu_torch import csrc, models
 from torchani_tpu_torch.aev import AEVComputer
 from torchani_tpu_torch.aev.terms import ANIRadial
+from torchani_tpu_torch.interop import load_jax_md_state
+from torchani_tpu_torch.md import CachedSinglePoint, MolecularDynamics
 from torchani_tpu_torch.sae import SelfEnergy
 from torchani_tpu_torch.utils import resolve_device
 
 REPO = pathlib.Path(__file__).resolve().parent.parent
 PORT_FILES = sorted((REPO / "torchani_tpu_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "torchani_tpu")
+WATER = np.array([[8, 1, 1]])
 
 
 def _imported_modules(path: pathlib.Path):
@@ -26,6 +29,12 @@ def _imported_modules(path: pathlib.Path):
             yield from (a.name for a in node.names)
         elif isinstance(node, ast.ImportFrom) and node.level == 0:
             yield node.module
+
+
+def test_new_modules_are_covered():
+    names = {str(p.relative_to(REPO)) for p in PORT_FILES}
+    for module in ("md.py", "bucket_refresh.py", "interop.py", "profiling.py"):
+        assert f"torchani_tpu_torch/{module}" in names
 
 
 @pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: str(p.relative_to(REPO)))
@@ -49,8 +58,14 @@ def no_cuda(monkeypatch):
         lambda: ANIRadial.like_2x(),
         lambda: SelfEnergy(("H",), [0.5]),
         lambda: resolve_device("cuda"),
+        lambda: MolecularDynamics(models.ANI2x(model_index=0, device="cpu"), WATER),
+        lambda: CachedSinglePoint(models.ANI2x(model_index=0, device="cpu"), WATER),
+        lambda: load_jax_md_state({}),
     ],
-    ids=["ANI2x", "ANI2x-cuda", "AEVComputer", "ANIRadial", "SelfEnergy", "resolve_device"],
+    ids=[
+        "ANI2x", "ANI2x-cuda", "AEVComputer", "ANIRadial", "SelfEnergy", "resolve_device",
+        "MolecularDynamics", "CachedSinglePoint", "load_jax_md_state",
+    ],
 )
 def test_default_device_raises_without_cuda(no_cuda, entry):
     with pytest.raises(RuntimeError, match="device='cpu'"):
@@ -72,8 +87,18 @@ def test_tf32_is_off():
     assert torch.get_float32_matmul_precision() == "highest"
 
 
+def test_md_wants_the_models_device():
+    """A CPU model under `MolecularDynamics` that was not asked for the CPU is refused,
+    not moved."""
+    if torch.cuda.is_available():
+        with pytest.raises(ValueError, match="model is on"):
+            MolecularDynamics(models.ANI2x(model_index=0, device="cpu"), WATER)
+    md = MolecularDynamics(models.ANI2x(model_index=0, device="cpu"), WATER, device="cpu")
+    assert md.device == torch.device("cpu")
+
+
 def test_kernel_build_settings():
-    assert "angular_aev" in csrc.sources()
+    assert set(csrc.sources()) == {"angular_aev", "bucket_select"}
     flags = " ".join(csrc.NVCC_FLAGS)
     assert "arch=compute_90a,code=sm_90a" in flags
     assert "fast-math" not in flags and "fast_math" not in flags

@@ -1,13 +1,19 @@
-"""PyTorch port: the angular-AEV wrapper and, on the card, its CUDA kernel.
+"""PyTorch port: the kernels' wrappers and, on the card, the CUDA kernels:
+the fused angular AEV (K3) and the bucket refresh's selection and its
+transpose (K1, K2).
 
 This file imports no JAX, so the tests marked ``cuda`` also run on a
 machine with a GPU and no JAX::
 
     python -m pytest --noconftest -m cuda tests/test_torch_kernels.py
 
-Kernel against plain version: atol 1e-5, rtol 1e-4 (f32 sums over the
-neighbour pairs in another order, as in tests/test_pallas.py).
+K3 against its plain version: atol 1e-5, rtol 1e-4 (f32 sums over the
+neighbour pairs in another order, as in tests/test_pallas.py).  K1 is a
+selection: exactly equal.  K2 sums with atomics in shared memory, in an
+order that changes from run to run: atol 1e-5 + 1e-5 |p|.
 """
+
+import dataclasses
 
 import numpy as np
 import pytest
@@ -15,9 +21,18 @@ import torch
 
 from torchani_tpu_torch.aev import AEVComputer, angular_aev, angular_aev_reference
 from torchani_tpu_torch.aev.terms import ANIAngular
+from torchani_tpu_torch.bucket_refresh import (
+    bucket_nbr_pos,
+    bucket_select_bwd,
+    bucket_select_bwd_reference,
+    bucket_select_fwd,
+    bucket_select_reference,
+    make_wrapshift,
+    tables_from_cell_aux,
+)
 from torchani_tpu_torch.grad import energies_and_forces
 from torchani_tpu_torch.models import ANI2x
-from torchani_tpu_torch.neighbors import CellList
+from torchani_tpu_torch.neighbors import CellList, _static_grid_shape, cell_list
 from torchani_tpu_torch.testing import make_water_box
 
 torch.set_num_threads(2)
@@ -117,3 +132,146 @@ def test_kernel_strategy_gradients_on_card():
     np.testing.assert_allclose(e_k.cpu().numpy(), e_p.cpu().numpy(), rtol=1e-6)
     np.testing.assert_allclose(f_k.cpu().numpy(), f_p.cpu().numpy(), atol=1e-5)
     assert isinstance(model.aev_computer, AEVComputer)
+
+
+# ---- K1 and K2 ----
+
+
+def _select_inputs(g: int, c: int, k: int, seed: int, with_nlanes: bool, device: str):
+    """Random candidates, cotangents and keys with repeats: a quarter
+    sentinels, or (with ``nlanes``) sentinels exactly past a random number of
+    occupied slot rows per bucket, one bucket empty and one full."""
+    rng = np.random.RandomState(seed)
+    r = c * k
+    cand = (rng.randn(g, 27, c, 3) * 20.0).astype(np.float32)
+    gout = rng.randn(g, r, 3).astype(np.float32)
+    sec = rng.randint(0, 27, (g, r))
+    rank = rng.randint(0, c, (g, r))
+    nlanes = None
+    if with_nlanes:
+        occ = rng.randint(0, c + 1, g)
+        occ[0], occ[-1] = 0, c
+        nlanes = (occ * k).astype(np.int32)
+        sec = np.where(np.arange(r)[None, :] < nlanes[:, None], sec, 27)
+    else:
+        sec = np.where(rng.rand(g, r) < 0.75, sec, 27)
+    keys = ((sec << 8) | np.where(sec < 27, rank, 0)).astype(np.int32)
+    to = lambda x: None if x is None else torch.as_tensor(x, device=device)  # noqa: E731
+    return to(cand), to(gout), to(keys), to(nlanes)
+
+
+def _occupied(keys, nlanes):
+    r = keys.shape[1]
+    if nlanes is None:
+        return torch.ones_like(keys, dtype=torch.bool)
+    return torch.arange(r, device=keys.device)[None, :] < nlanes[:, None]
+
+
+def test_select_wrappers_check_their_arguments_on_cpu():
+    cand, gout, keys, _ = _select_inputs(2, 16, 3, seed=0, with_nlanes=False, device="cpu")
+    with pytest.raises(ValueError):
+        bucket_select_fwd(cand.to("meta"), keys.to("meta"))
+    with pytest.raises(ValueError):
+        bucket_select_bwd(gout.to("meta"), keys.to("meta"), 16)
+
+
+SELECT_SHAPES = [(5, 16, 8), (7, 64, 17), (3, 256, 5)]  # C = 256: 83 KB of shared memory
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("with_nlanes", [False, True])
+@pytest.mark.parametrize("g,c,k", SELECT_SHAPES)
+def test_select_kernel_matches_plain_on_card(g, c, k, with_nlanes):
+    _cuda()
+    cand, _, keys, nlanes = _select_inputs(g, c, k, 4, with_nlanes, "cuda")
+    before = bucket_select_fwd.launches
+    out = bucket_select_fwd(cand, keys, nlanes)
+    torch.cuda.synchronize()
+    assert bucket_select_fwd.launches == before + 1
+    ref = bucket_select_reference(cand, keys, nlanes)
+    occupied = _occupied(keys, nlanes)
+    assert torch.equal(out[occupied], ref[occupied])
+    assert (out[occupied & (keys >> 8 == 27)] == 0).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("with_nlanes", [False, True])
+@pytest.mark.parametrize("g,c,k", SELECT_SHAPES)
+def test_select_bwd_kernel_matches_plain_on_card(g, c, k, with_nlanes):
+    _cuda()
+    _, gout, keys, nlanes = _select_inputs(g, c, k, 5, with_nlanes, "cuda")
+    before = bucket_select_bwd.launches
+    out = bucket_select_bwd(gout, keys, c, nlanes)
+    torch.cuda.synchronize()
+    assert bucket_select_bwd.launches == before + 1
+    ref = bucket_select_bwd_reference(gout, keys, c, nlanes)
+    assert out.shape == (g, 27, c, 3)
+    np.testing.assert_allclose(out.cpu().numpy(), ref.cpu().numpy(), atol=1e-5, rtol=1e-5)
+    if with_nlanes:
+        assert (out[0] == 0).all()  # an empty bucket still starts from zeros
+
+
+@pytest.mark.cuda
+def test_select_wrappers_check_on_card():
+    _cuda()
+    cand, gout, keys, nlanes = _select_inputs(4, 16, 6, 6, True, "cuda")
+    with pytest.raises(TypeError):
+        bucket_select_fwd(cand.double(), keys, nlanes)
+    with pytest.raises(TypeError):
+        bucket_select_fwd(cand, keys.long(), nlanes)
+    with pytest.raises(ValueError):
+        bucket_select_fwd(cand[:, :26], keys, nlanes)
+    with pytest.raises(ValueError):
+        bucket_select_fwd(cand, keys.t().contiguous().t(), nlanes)
+    with pytest.raises(ValueError):
+        bucket_select_fwd(cand, keys, nlanes[:2])
+    with pytest.raises(ValueError):
+        bucket_select_bwd(gout[:, :-1], keys, 16, nlanes)
+    with pytest.raises(ValueError):
+        bucket_select_bwd(gout, keys.cpu(), 16, nlanes)
+    with pytest.raises(ValueError):
+        bucket_select_bwd(gout, keys, 272, nlanes)
+
+
+@pytest.mark.cuda
+def test_bucket_nbr_pos_gradient_on_card_matches_cpu():
+    """The whole refresh and its gradient on a random periodic system whose
+    atoms drift out of the box: card (K1, K2) against CPU (plain versions)."""
+    _cuda()
+    rng = np.random.RandomState(5)
+    a, box, cutoff, c = 400, 24.0, 5.2, 32
+    coords = (rng.rand(a, 3) * box + rng.randint(-2, 3, (a, 3)) * box).astype(np.float32)
+    cell = np.eye(3, dtype=np.float32) * box
+    weights = rng.randn(a, 64, 3).astype(np.float32)
+    grid = _static_grid_shape(cell, cutoff)
+    # one topology, built on the CPU, for both devices
+    crd0 = torch.as_tensor(coords)
+    nbrs, aux = cell_list(
+        cutoff, torch.zeros((1, a), dtype=torch.int64), crd0[None],
+        torch.as_tensor(cell), torch.ones(3, dtype=torch.bool),
+        capacity=64, bucket_capacity=c, bucket_aux=True,
+    )
+    assert not bool(nbrs.overflow)
+    tables = tables_from_cell_aux(
+        aux["keys"], nbrs.mask[0], aux["atom_of_slot"], aux["slot_of_atom"],
+        crd0 - aux["central"], torch.as_tensor(make_wrapshift(grid, cell)), c,
+    )
+    results = {}
+    for dev in ("cuda", "cpu"):
+        t = {f.name: getattr(tables, f.name).to(dev) for f in dataclasses.fields(tables)}
+        mask = nbrs.mask[0].to(dev)
+        crd = crd0.to(dev).requires_grad_(True)
+        canon = crd - t["wrap_offset"]
+        launches = (bucket_select_fwd.launches, bucket_select_bwd.launches)
+        nbr = bucket_nbr_pos(
+            canon, t["keys"], t["atom_of_slot"], t["slot_of_atom"], t["wrapshift"]
+        )
+        diff = torch.where(mask[..., None], nbr - canon[:, None, :], 0.0)
+        (grad,) = torch.autograd.grad((diff * torch.as_tensor(weights, device=dev)).sum(), crd)
+        rose = (bucket_select_fwd.launches - launches[0], bucket_select_bwd.launches - launches[1])
+        assert rose == ((1, 1) if dev == "cuda" else (0, 0))
+        assert (diff.detach().cpu() - nbrs.diff[0]).abs().max() < 2e-4
+        results[dev] = (diff.detach().cpu().numpy(), grad.cpu().numpy())
+    np.testing.assert_array_equal(results["cuda"][0], results["cpu"][0])
+    scale = np.abs(results["cpu"][1]).max()
+    np.testing.assert_allclose(results["cuda"][1] / scale, results["cpu"][1] / scale, atol=1e-5)

@@ -138,6 +138,47 @@ def test_networks_match_jax(zoo, single):
         np.testing.assert_allclose(out.detach().numpy(), ref, atol=1e-5)
 
 
+def test_one_member_model_matches_jax(water):
+    """`ANI2x(model_index=3)`: the JAX factory's one-member model through the
+    weight bridge, and the same member cut from the port's ensemble."""
+    inputs, _, ensemble = water
+    jmodel = jzoo.ANI2x(model_index=3, pretrained=False).replace(neighborlist=JCellList())
+    ref = j_single_point(jmodel, *(jnp.asarray(x) for x in inputs), forces=True)
+    pmodel = models.ANI2x(model_index=3, device=CPU)
+    assert isinstance(pmodel.neural_networks, AtomicNetworks)
+    assert pmodel.neural_networks.weights[0].shape == (7, 1008, 256)
+    load_jax_arrays(pmodel, _jax_arrays(jmodel))
+    pmodel.neighborlist = CellList()
+    out = single_point(pmodel, *inputs, forces=True)
+    np.testing.assert_allclose(out["forces"].numpy(), np.asarray(ref["forces"]), atol=1e-5, rtol=0)
+    np.testing.assert_allclose(out["energies"].numpy(), np.asarray(ref["energies"]), rtol=1e-6)
+    # the JAX models of this module share one seed, so member 3 of the bridged
+    # ensemble is this model; `member` copies, it does not alias
+    member = ensemble.neural_networks.member(3)
+    for w, v in zip(member.weights, pmodel.neural_networks.weights):
+        assert torch.equal(w, v)
+    assert member.weights[0].data_ptr() != ensemble.neural_networks.weights[0][3].data_ptr()
+    with pytest.raises(IndexError):
+        ensemble.neural_networks.member(8)
+
+
+def test_species_ranges_give_the_same_energies(water):
+    """Networks and AEVs told the (sorted) species rows on the host equal
+    the ones that read them from the tensor."""
+    _, _, pmodel = water
+    rng = np.random.RandomState(3)
+    elem = np.sort(rng.choice([-1, 0, 3, 5], 30))[None]
+    aevs = torch.as_tensor(rng.rand(1, 30, 1008).astype(np.float32))
+    vals, starts = np.unique(elem[0], return_index=True)
+    stops = list(starts[1:]) + [30]
+    ranges = tuple((int(v), int(s), int(e)) for v, s, e in zip(vals, starts, stops) if v >= 0)
+    nets = pmodel.neural_networks
+    out = nets(torch.as_tensor(elem), aevs, atomic=True, species_ranges=ranges)
+    ref = nets(torch.as_tensor(elem), aevs, atomic=True)
+    np.testing.assert_allclose(out.detach().numpy(), ref.detach().numpy(), atol=1e-6)
+    assert (out[0, : starts[1]] == 0).all()  # padding atoms
+
+
 def test_random_init_is_seeded():
     a = models.ANI2x(seed=3, device=CPU).neural_networks.weights[0]
     b = models.ANI2x(seed=3, device=CPU).neural_networks.weights[0]

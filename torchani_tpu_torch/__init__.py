@@ -3,8 +3,9 @@
 
 Models are ``torch.nn.Module``s, everything else plain functions on tensors.
 Entry points run on CUDA unless the caller passes ``device="cpu"``; without a
-CUDA device such a call raises.  The angular AEV runs on a hand-written CUDA
-kernel (``csrc/angular_aev.cu``), built by ``nvcc`` at its first use.
+CUDA device such a call raises.  The angular AEV and the MD loop's per-step
+neighbor refresh run on hand-written CUDA kernels (``csrc/angular_aev.cu``,
+``csrc/bucket_select.cu``), built by ``nvcc`` at their first use.
 
 TF32 is switched off at import: it degrades ANI energies and forces far
 beyond their tolerances.
@@ -18,10 +19,12 @@ torch.set_float32_matmul_precision("highest")
 
 from torchani_tpu_torch import (  # noqa: E402
     aev,
+    bucket_refresh,
     constants,
     cutoffs,
     grad,
     interop,
+    md,
     models,
     neighbors,
     nn,
@@ -33,6 +36,13 @@ from torchani_tpu_torch import (  # noqa: E402
 from torchani_tpu_torch.aev import AEVComputer  # noqa: E402
 from torchani_tpu_torch.arch import ANI, Assembler  # noqa: E402
 from torchani_tpu_torch.grad import energies_and_forces, single_point  # noqa: E402
+from torchani_tpu_torch.md import (  # noqa: E402
+    CachedSinglePoint,
+    MDState,
+    MolecularDynamics,
+    kinetic_temperature,
+    maxwell_boltzmann_velocities,
+)
 from torchani_tpu_torch.nn import AtomicNetworks, Ensemble, SpeciesConverter  # noqa: E402
 from torchani_tpu_torch.sae import SelfEnergy  # noqa: E402
 
@@ -41,16 +51,23 @@ __all__ = [
     "ANI",
     "Assembler",
     "AtomicNetworks",
+    "CachedSinglePoint",
     "Ensemble",
+    "MDState",
+    "MolecularDynamics",
     "SelfEnergy",
     "SpeciesConverter",
     "energies_and_forces",
+    "kinetic_temperature",
+    "maxwell_boltzmann_velocities",
     "single_point",
     "aev",
+    "bucket_refresh",
     "constants",
     "cutoffs",
     "grad",
     "interop",
+    "md",
     "models",
     "neighbors",
     "nn",

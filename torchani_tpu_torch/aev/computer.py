@@ -142,6 +142,12 @@ class AEVComputer(torch.nn.Module):
         neighborlist: neighborlist used when called on raw coordinates
         atom_block: atoms per block of the plain angular path (memory knob);
             None sizes a block to hold at most 2 GiB on any device
+        angular_preslice: static lane prefix that the angular table is cut
+            to before it is narrowed to the angular cutoff.  Only valid for
+            a table whose lanes are sorted by distance, with every lane that
+            can come within the angular cutoff inside the prefix: `MolecularDynamics`
+            sets it on its own copy of the computer and verifies the
+            bound at every rebuild
     """
 
     def __init__(
@@ -152,6 +158,7 @@ class AEVComputer(torch.nn.Module):
         strategy: str = "auto",
         neighborlist: NeighborlistArg = "all_pairs",
         atom_block: tp.Optional[int] = None,
+        angular_preslice: tp.Optional[int] = None,
     ) -> None:
         super().__init__()
         if not angular.cutoff_fn.is_same(radial.cutoff_fn):
@@ -169,6 +176,7 @@ class AEVComputer(torch.nn.Module):
         self.strategy = strategy
         self.neighborlist = parse_neighborlist(neighborlist)
         self.atom_block = atom_block
+        self.angular_preslice = angular_preslice
         self._kernel_kwargs: tp.Optional[tp.Dict[str, tp.Any]] = None
         self._kernel_kwargs_key: tp.Optional[tp.Tuple] = None
 
@@ -243,10 +251,16 @@ class AEVComputer(torch.nn.Module):
         elem_idxs: Tensor,  # (C, A)
         coords: tp.Optional[Tensor],
         neighbors: Neighbors,  # (C, A, K)
+        present: tp.Optional[tp.Tuple[int, ...]] = None,
     ) -> Tensor:
-        """AEVs from a padded neighbor table; NaN if the table overflowed."""
+        """AEVs from a padded neighbor table; NaN if the table overflowed.
+
+        ``present`` names the species of ``elem_idxs`` for a caller that
+        knows them; by default they are read from the tensor, which waits
+        for the device."""
         c, a = elem_idxs.shape
-        present = self._present_species(elem_idxs)
+        if present is None:
+            present = self._present_species(elem_idxs)
         radial_nbrs, angular_nbrs, overflow = self.flat_tables(elem_idxs, neighbors)
         # silent truncation would give plausibly-wrong physics: poison instead
         poison = torch.where(overflow, math.nan, 1.0).to(neighbors.dist.dtype)
@@ -258,11 +272,23 @@ class AEVComputer(torch.nn.Module):
     ) -> tp.Tuple[Neighbors, Neighbors, Tensor]:
         """Radial ``(N, K)`` and angular ``(N, Ka)`` tables over the flattened
         atoms (``N = C * A``, neighbor indices offset per molecule), and the
-        overflow flag of both.  The angular table is narrowed to the angular
-        cutoff and, for large tables, repacked to `_angular_capacity`."""
+        overflow flag of both.  The angular table is cut to
+        ``angular_preslice`` lanes (if set), narrowed to the angular cutoff
+        and, for large tables, repacked to `_angular_capacity`."""
         c, a = elem_idxs.shape
         radial_nbrs = narrow_to_cutoff(neighbors, self.radial.cutoff)
-        angular_nbrs = narrow_to_cutoff(neighbors, self.angular.cutoff)
+        angular_src = neighbors
+        lslice = self.angular_preslice
+        if lslice is not None and lslice < neighbors.capacity:
+            angular_src = Neighbors(
+                idx=neighbors.idx[..., :lslice],
+                mask=neighbors.mask[..., :lslice],
+                diff=neighbors.diff[..., :lslice, :],
+                dist=neighbors.dist[..., :lslice],
+                overflow=neighbors.overflow,
+                elem=None if neighbors.elem is None else neighbors.elem[..., :lslice],
+            )
+        angular_nbrs = narrow_to_cutoff(angular_src, self.angular.cutoff)
         cap = self._angular_capacity(neighbors.capacity)
         if cap < angular_nbrs.capacity:
             angular_nbrs = repack_to_capacity(angular_nbrs, cap)

@@ -20,7 +20,7 @@ from torchani_tpu_torch.neighbors import (
     parse_neighborlist,
 )
 from torchani_tpu_torch.nn import AtomicNetworks, Ensemble, SpeciesConverter
-from torchani_tpu_torch.nn.containers import layer_dims_for
+from torchani_tpu_torch.nn.containers import SpeciesRanges, layer_dims_for
 from torchani_tpu_torch.potentials import NNPotential, Potential
 from torchani_tpu_torch.sae import SelfEnergy
 from torchani_tpu_torch.tuples import SpeciesEnergies
@@ -121,7 +121,12 @@ class ANI(torch.nn.Module):
         neighbors: Neighbors,
         atomic: bool = False,
         ensemble_values: bool = False,
+        species_ranges: tp.Optional[SpeciesRanges] = None,
     ) -> SpeciesEnergies:
+        """Energies from a neighbor table.  ``species_ranges`` is for a caller
+        whose flattened ``elem_idxs`` is sorted by species and known on the
+        host (`MolecularDynamics`): no potential then reads the species back from
+        the device."""
         energies = None
         for name in sorted(self.potentials):
             pot = self.potentials[name]
@@ -133,6 +138,7 @@ class ANI(torch.nn.Module):
             e = pot.compute_from_neighbors(
                 elem_idxs, coords, pot_neighbors,
                 atomic=atomic, ensemble_values=ensemble_values,
+                species_ranges=species_ranges,
             ).energies
             energies = e if energies is None else energies + e
         energies = energies + self.energy_shifter(elem_idxs, atomic=atomic)

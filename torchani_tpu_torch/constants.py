@@ -6,6 +6,7 @@ files the JAX package bundles.
 """
 
 import json
+import math
 import typing as tp
 
 from torchani_tpu_torch.paths import resources_dir
@@ -13,6 +14,8 @@ from torchani_tpu_torch.paths import resources_dir
 __all__ = [
     "ATOMIC_CONSTANTS",
     "ATOMIC_NUMBER",
+    "ATOMIC_MASS",
+    "MASS",
     "PERIODIC_TABLE",
     "GSAES",
 ]
@@ -43,4 +46,17 @@ ATOMIC_NUMBER: tp.Dict[str, int] = {
 #: (index 0 is the empty string)
 PERIODIC_TABLE: tp.Tuple[str, ...] = ("",) + tuple(
     s for s, _ in sorted(ATOMIC_NUMBER.items(), key=lambda kv: kv[1])
+)
+
+#: symbol -> atomic mass (AMU)
+ATOMIC_MASS: tp.Dict[str, float] = {
+    s: float(v["mass"])
+    for s, v in ATOMIC_CONSTANTS.items()
+    if s and v.get("mass") is not None
+}
+
+#: ``MASS[z]`` is the mass (AMU) of atomic number ``z`` (index 0 is NaN, as
+#: are elements the table has no mass for)
+MASS: tp.Tuple[float, ...] = tuple(
+    ATOMIC_MASS.get(s, math.nan) if s else math.nan for s in PERIODIC_TABLE
 )

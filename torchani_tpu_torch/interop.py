@@ -1,4 +1,5 @@
-"""The weight bridge: load a JAX model's arrays into the port's model.
+"""The weight and state bridge: load a JAX model's arrays into the port's
+model, and a JAX MD state's arrays into the port's `MDState`.
 
 The JAX package's `ANI` is a pytree whose leaves sit at paths such as
 ``.potentials['nnp'].neural_networks.weights[0]`` (as
@@ -10,6 +11,11 @@ never imports JAX: the caller flattens the JAX model, e.g.::
 
     arrays = {jax.tree_util.keystr(p): np.asarray(x)
               for p, x in jax.tree_util.tree_flatten_with_path(jax_model)[0]}
+
+The JAX package's ``MDState`` flattens the same way (leaves ``.coords``,
+``.nbr_idx``, ``.bucket.keys``, ...), and `load_jax_md_state` puts the
+port's `MolecularDynamics` on that cached topology, so that the two can be
+compared lane for lane.
 """
 
 import re
@@ -18,7 +24,12 @@ import typing as tp
 import numpy as np
 import torch
 
-__all__ = ["load_jax_arrays"]
+from torchani_tpu_torch.annotations import DeviceArg
+from torchani_tpu_torch.bucket_refresh import BucketTables
+from torchani_tpu_torch.md import MDState
+from torchani_tpu_torch.utils import resolve_device
+
+__all__ = ["load_jax_arrays", "load_jax_md_state"]
 
 _TOKEN = re.compile(r"\.(\w+)|\['([^']*)'\]|\[(\d+)\]")
 
@@ -73,3 +84,69 @@ def load_jax_arrays(
     if missing:
         raise KeyError(f"no value given for {missing}")
     return model
+
+
+#: leaves of the JAX ``MDState`` that the port's state has no field for: the
+#: partner-lane map (the port's gather refresh needs none) and the PRNG key
+_IGNORED_STATE_LEAVES = (".nbr_rev", ".key")
+_STATE_DTYPES = {
+    ".coords": torch.float32,
+    ".velocities": torch.float32,
+    ".forces": torch.float32,
+    ".energy": torch.float32,
+    ".nbr_idx": torch.int64,
+    ".nbr_mask": torch.bool,
+    ".nbr_shift": torch.float32,
+    ".nbr_elem": torch.int64,
+    ".ref_coords": torch.float32,
+    ".overflow": torch.bool,
+    ".nbr_perm": torch.int64,
+}
+_BUCKET_DTYPES = {
+    "keys": torch.int32,
+    "atom_of_slot": torch.int64,
+    "slot_of_atom": torch.int64,
+    "wrap_offset": torch.float32,
+    "wrapshift": torch.float32,
+}
+
+
+def load_jax_md_state(
+    arrays: tp.Mapping[str, np.ndarray], device: DeviceArg = None
+) -> MDState:
+    """The port's `MDState` from the leaves of a JAX ``MDState`` (numpy
+    arrays keyed by ``jax.tree_util.keystr``), bucket tables included.
+
+    ``nbr_rev`` and ``key`` are ignored.  A state that carries what the port
+    does not have yet (the atom-packed tables, ``pair_aux``, ``scale``,
+    ``nhc``) is refused.
+    """
+    dev = resolve_device(device)
+    known = set(_STATE_DTYPES) | {".rebuilds", ".step"} | set(_IGNORED_STATE_LEAVES)
+    known |= {f".bucket.{name}" for name in _BUCKET_DTYPES}
+    unknown = sorted(set(arrays) - known)
+    if unknown:
+        raise KeyError(f"MD state leaves the port has no field for: {unknown}")
+
+    def tensor(path: str, dtype: torch.dtype) -> torch.Tensor:
+        return torch.as_tensor(np.array(arrays[path]), device=dev).to(dtype)
+
+    fields = {
+        path[1:]: tensor(path, dtype)
+        for path, dtype in _STATE_DTYPES.items()
+        if path in arrays
+    }
+    missing = [p for p in _STATE_DTYPES if p not in arrays and p != ".nbr_perm"]
+    if missing:
+        raise KeyError(f"no value given for {missing}")
+    bucket = None
+    if any(path.startswith(".bucket.") for path in arrays):
+        bucket = BucketTables(
+            **{name: tensor(f".bucket.{name}", dt) for name, dt in _BUCKET_DTYPES.items()}
+        )
+    return MDState(
+        **fields,
+        rebuilds=int(arrays[".rebuilds"]),
+        step=int(arrays[".step"]),
+        bucket=bucket,
+    )

@@ -31,6 +31,7 @@ __all__ = [
     "cell_list",
     "adaptive_list",
     "narrow_to_cutoff",
+    "lane_permute",
     "repack_to_capacity",
     "estimate_capacity",
     "pbc_repeats",
@@ -304,6 +305,20 @@ def narrow_to_cutoff(neighbors: Neighbors, cutoff: float) -> Neighbors:
     )
 
 
+def lane_permute(values: tp.Sequence[Tensor], top: Tensor) -> tp.List[Tensor]:
+    """Apply a per-row lane permutation ``top (R, C)`` to ``(R, K[, ...])``
+    tensors: ``out[r, c] = x[r, top[r, c]]``.
+
+    A plain ``take_along_dim``; the JAX package contracts with a one-hot
+    selector instead, because per-row lane gathers are slow on its device.
+    """
+    out = []
+    for x in values:
+        index = top.reshape(top.shape + (1,) * (x.dim() - 2))
+        out.append(torch.take_along_dim(x, index.expand(top.shape + x.shape[2:]), dim=1))
+    return out
+
+
 def repack_to_capacity(neighbors: Neighbors, capacity: int) -> Neighbors:
     """Re-pack a (narrowed) table into a smaller static capacity, keeping
     each row's valid lanes in order as a prefix; sets the overflow flag when
@@ -355,6 +370,21 @@ def _static_grid_shape(cell: np.ndarray, cutoff: float) -> tp.Tuple[int, int, in
     return (int(shape[0]), int(shape[1]), int(shape[2]))
 
 
+def rank_in_bucket(bucket_id: Tensor) -> Tensor:
+    """Rank of each atom within its bucket, in atom order (stable sort and
+    segment starts)."""
+    a = bucket_id.shape[0]
+    pos = torch.arange(a, device=bucket_id.device)
+    order = torch.argsort(bucket_id, stable=True)
+    sorted_bucket = bucket_id[order]
+    is_new = torch.ones(a, dtype=torch.bool, device=bucket_id.device)
+    is_new[1:] = sorted_bucket[1:] != sorted_bucket[:-1]
+    seg_start = torch.cummax(torch.where(is_new, pos, 0), dim=0).values
+    rank = torch.empty_like(pos)
+    rank[order] = pos - seg_start
+    return rank
+
+
 @functools.lru_cache(maxsize=16)
 def _bucket_neighborhood(
     grid: tp.Tuple[int, int, int], periodic: bool, device: torch.device
@@ -398,7 +428,9 @@ def cell_list(
     pbc: tp.Optional[Tensor] = None,
     capacity: tp.Optional[int] = None,
     bucket_capacity: tp.Optional[int] = None,
-) -> Neighbors:
+    grid_shape: tp.Optional[tp.Tuple[int, int, int]] = None,
+    bucket_aux: bool = False,
+) -> tp.Union[Neighbors, tp.Tuple[Neighbors, tp.Dict[str, Tensor]]]:
     """O(A) neighbor table via a 3D bucket grid with static capacities.
 
     Atoms go into a ``(G, B)`` bucket table (static bucket capacity ``B``);
@@ -407,7 +439,20 @@ def cell_list(
     image shift.  A bucket that overflows sets the overflow flag, as does a
     row with more than ``capacity`` neighbors.  A periodic cell with fewer
     than 3 buckets along an axis falls back to `all_pairs`, as in the JAX
-    package.
+    package.  ``grid_shape`` fixes the bucket grid (and spares reading the
+    cell on the host); by default it follows from the cell and the cutoff.
+
+    ``bucket_aux=True`` (periodic cells with at least 3 buckets per axis)
+    returns ``(nbrs, aux)``, where ``aux`` holds the bucket structure that
+    the MD bucket refresh needs (`torchani_tpu_torch.bucket_refresh`): each
+    lane's packed candidate position is its ``(section, rank)`` key.
+    ``keys`` ``(A, K)`` int32 ``(section << 8) | rank`` with the sentinel
+    section 27 in masked lanes, ``atom_of_slot`` ``(G * B,)`` with the
+    sentinel ``A``, ``slot_of_atom`` ``(A,)`` with -1 for dummy and
+    overflowed atoms, and ``central`` ``(A, 3)``, the coordinates mapped
+    into the cell.  In this mode ``diff`` and ``dist`` carry no gradient:
+    the Verlet cache reads them for lane-sort keys and skin checks only,
+    and forces flow through the per-step refresh.
     """
     squeeze = elem_idxs.dim() == 2
     if squeeze:
@@ -428,9 +473,14 @@ def cell_list(
     else:
         origin_coords, used_cell = compute_bounding_cell(coords, eps=1e-3)
 
-    grid_shape = _static_grid_shape(used_cell.detach().cpu().numpy(), cutoff)
+    if grid_shape is None:
+        grid_shape = _static_grid_shape(used_cell.detach().cpu().numpy(), cutoff)
     gx, gy, gz = (max(g, 1) for g in grid_shape)
+    if bucket_aux and not periodic:
+        raise ValueError("bucket_aux requires a periodic cell")
     if periodic and min(gx, gy, gz) < 3:
+        if bucket_aux:
+            raise ValueError("bucket_aux needs >= 3 buckets per axis (cell too small)")
         return all_pairs(
             cutoff, elem_idxs[None], coords[None], cell, pbc, capacity=capacity
         )
@@ -456,15 +506,8 @@ def cell_list(
     bucket_id = (idx3[:, 0] * gy + idx3[:, 1]) * gz + idx3[:, 2]
     bucket_id = torch.where(real, bucket_id, g)  # dummies into a trash bucket
 
-    # rank of each atom within its bucket (stable sort + segment start)
     pos = torch.arange(a, device=dev)
-    order = torch.argsort(bucket_id, stable=True)
-    sorted_bucket = bucket_id[order]
-    is_new = torch.ones(a, dtype=torch.bool, device=dev)
-    is_new[1:] = sorted_bucket[1:] != sorted_bucket[:-1]
-    seg_start = torch.cummax(torch.where(is_new, pos, 0), dim=0).values
-    rank = torch.empty_like(pos)
-    rank[order] = pos - seg_start
+    rank = rank_in_bucket(bucket_id)
 
     in_table = real & (rank < b)
     bucket_overflow = torch.any(real & (rank >= b))
@@ -501,19 +544,40 @@ def cell_list(
     valid_a = valid.reshape(g * b, n)[atom_row] & real[:, None]
     top, mask, overflow = _pack_positions(valid_a, capacity)
     g_of_atom = torch.where(real, bucket_id, 0)[:, None]
-    idx = cand_idx_b.reshape(g * n)[g_of_atom * n + top]
-    shift = None
-    if periodic:
-        shift = shift_cart_b[g_of_atom, top // b]  # (A, K, 3)
-        shift = shift[None]
-    nbrs = _finalize(
-        origin_coords[None], idx[None], mask[None], shift,
-        overflow | bucket_overflow,
-    )
+    # an atom that found no slot in its (overflowed) bucket reads another
+    # row's candidates: keep its indices in range, the flag reports it
+    idx = cand_idx_b.reshape(g * n)[g_of_atom * n + top].clamp(max=a - 1)
+    if bucket_aux:
+        # topology and build-time distances only: straight from the screened
+        # (detached, shifted) candidate positions
+        idx = torch.where(mask, idx, 0)
+        diff = cand_pos_b.reshape(g * n, 3)[g_of_atom * n + top] - spos[:, None, :]
+        diff = torch.where(mask[..., None], diff, torch.zeros_like(diff))
+        nbrs = Neighbors(
+            idx=idx[None], mask=mask[None], diff=diff[None],
+            dist=_safe_norm(diff, mask)[None], overflow=overflow | bucket_overflow,
+        )
+    else:
+        shift = None
+        if periodic:
+            shift = shift_cart_b[g_of_atom, top // b]  # (A, K, 3)
+            shift = shift[None]
+        nbrs = _finalize(
+            origin_coords[None], idx[None], mask[None], shift,
+            overflow | bucket_overflow,
+        )
     if not squeeze:
         nbrs = nbrs.replace(
             idx=nbrs.idx[0], mask=nbrs.mask[0], diff=nbrs.diff[0], dist=nbrs.dist[0]
         )
+    if bucket_aux:
+        aux = {
+            "keys": torch.where(mask, ((top // b) << 8) | (top % b), 27 << 8).to(torch.int32),
+            "atom_of_slot": table.reshape(-1),
+            "slot_of_atom": torch.where(in_table, bucket_id * b + rank, -1),
+            "central": origin_coords.detach(),
+        }
+        return nbrs, aux
     return nbrs
 
 

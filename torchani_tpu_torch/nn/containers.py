@@ -24,6 +24,7 @@ __all__ = [
     "SpeciesConverter",
     "parse_activation",
     "DIMS_2X",
+    "SpeciesRanges",
     "layer_dims_for",
 ]
 
@@ -40,6 +41,9 @@ DIMS_2X: tp.Dict[str, tp.Tuple[int, ...]] = {
 _DEFAULT_DIMS = (160, 128, 96)
 
 LayerDims = tp.Tuple[tp.Tuple[int, ...], ...]
+#: ``(species, start, stop)`` row ranges of a flat element array that is
+#: sorted by species, in row order; rows outside every range are padding
+SpeciesRanges = tp.Tuple[tp.Tuple[int, int, int], ...]
 
 
 def parse_activation(name: str) -> tp.Callable[[Tensor], Tensor]:
@@ -152,34 +156,68 @@ class Ensemble(torch.nn.Module):
             layer_dims, tuple(symbols),
         )
 
-    def member_values(self, elem_idxs: Tensor, aevs: Tensor) -> Tensor:
+    def member(self, idx: int) -> "AtomicNetworks":
+        """One member as a plain `AtomicNetworks` (with its own copy of the
+        member's weights)."""
+        weights, biases = self._stacks()
+        if not 0 <= idx < weights[0].shape[0]:
+            raise IndexError(f"Idx {idx} should be 0 <= idx < {weights[0].shape[0]}")
+        return AtomicNetworks(
+            [w[idx].detach().clone() for w in weights],
+            None if biases is None else [b[idx].detach().clone() for b in biases],
+            self.layer_dims, self.symbols, self.activation,
+        )
+
+    def _species_mlp(self, s: int, x: Tensor) -> Tensor:
+        """Rows ``x (n, in)`` of species ``s`` through its MLP at its true
+        widths, all members at once: ``(E, n, out_dim)``."""
+        act = parse_activation(self.activation)
+        weights, biases = self._stacks()
+        num_layers = len(weights)
+        dims = self.layer_dims[s]
+        for li in range(num_layers):
+            w = weights[li][:, s, : dims[li], : dims[li + 1]]
+            x = torch.matmul(x, w)  # (E, n_s, out)
+            if biases is not None:
+                x = x + biases[li][:, s, None, : dims[li + 1]]
+            if li + 1 < num_layers:
+                x = act(x)
+        return x
+
+    def member_values(
+        self,
+        elem_idxs: Tensor,
+        aevs: Tensor,
+        species_ranges: tp.Optional[SpeciesRanges] = None,
+    ) -> Tensor:
         """Per-member atomic scalars ``(E, C, A, out_dim)``; padding atoms 0.
 
-        Each present species' rows go through that species' MLP at its true
-        widths, all members at once.
+        Each present species' rows go through that species' MLP.  By default
+        the rows are found from ``elem_idxs``, which waits for the device.
+        A caller whose flattened element array is sorted by species passes
+        its ``species_ranges``: the rows are then slices, and nothing is
+        read from the tensor.
         """
-        act = parse_activation(self.activation)
         c, a = elem_idxs.shape
-        elem = elem_idxs.reshape(-1)
         x0 = aevs.reshape(c * a, aevs.shape[-1])
-        weights, biases = self._stacks()
-        e = weights[0].shape[0]
+        e = self._stacks()[0][0].shape[0]
+        if species_ranges is not None:
+            pieces, pos = [], 0
+            for s, start, stop in species_ranges:
+                if start > pos:
+                    pieces.append(x0.new_zeros((e, start - pos, self.out_dim)))
+                pieces.append(self._species_mlp(s, x0[start:stop]))
+                pos = stop
+            if pos < c * a:
+                pieces.append(x0.new_zeros((e, c * a - pos, self.out_dim)))
+            return torch.cat(pieces, dim=1).reshape(e, c, a, self.out_dim)
+        elem = elem_idxs.reshape(-1)
         out = x0.new_zeros((e, c * a, self.out_dim))
-        num_layers = len(weights)
         for s in torch.unique(elem).tolist():
             if not 0 <= s < self.num_species:
                 continue
             rows = torch.nonzero(elem == s).squeeze(1)
-            dims = self.layer_dims[s]
-            x = x0.index_select(0, rows)
-            for li in range(num_layers):
-                w = weights[li][:, s, : dims[li], : dims[li + 1]]
-                x = torch.matmul(x, w)  # (E, n_s, out)
-                if biases is not None:
-                    x = x + biases[li][:, s, None, : dims[li + 1]]
-                if li + 1 < num_layers:
-                    x = act(x)
-            out = out.index_copy(1, rows, x)
+            out = out.index_copy(1, rows, self._species_mlp(s, x0.index_select(0, rows)))
         return out.reshape(e, c, a, self.out_dim)
 
     def forward(
@@ -188,8 +226,9 @@ class Ensemble(torch.nn.Module):
         aevs: Tensor,
         atomic: bool = False,
         ensemble_values: bool = False,
+        species_ranges: tp.Optional[SpeciesRanges] = None,
     ) -> Tensor:
-        scalars = self.member_values(elem_idxs, aevs)  # (E, C, A, out)
+        scalars = self.member_values(elem_idxs, aevs, species_ranges)  # (E, C, A, out)
         if self.out_dim == 1:
             scalars = scalars[..., 0]
         if not ensemble_values:
@@ -230,8 +269,9 @@ class AtomicNetworks(Ensemble):
         aevs: Tensor,
         atomic: bool = False,
         ensemble_values: bool = False,
+        species_ranges: tp.Optional[SpeciesRanges] = None,
     ) -> Tensor:
-        return super().forward(elem_idxs, aevs, atomic=atomic)
+        return super().forward(elem_idxs, aevs, atomic=atomic, species_ranges=species_ranges)
 
 
 class SpeciesConverter:

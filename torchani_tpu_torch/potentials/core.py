@@ -9,6 +9,7 @@ import torch
 
 from torchani_tpu_torch.annotations import Symbols, Tensor
 from torchani_tpu_torch.neighbors import Neighbors
+from torchani_tpu_torch.nn.containers import SpeciesRanges
 from torchani_tpu_torch.tuples import EnergiesScalars
 
 __all__ = ["Potential"]
@@ -33,5 +34,6 @@ class Potential(torch.nn.Module):
         neighbors: Neighbors,
         atomic: bool = False,
         ensemble_values: bool = False,
+        species_ranges: tp.Optional[SpeciesRanges] = None,
     ) -> EnergiesScalars:
         raise NotImplementedError("Must be implemented by subclasses")

@@ -7,6 +7,7 @@ from torchani_tpu_torch.aev import AEVComputer
 from torchani_tpu_torch.annotations import Tensor
 from torchani_tpu_torch.neighbors import Neighbors
 from torchani_tpu_torch.nn import Ensemble
+from torchani_tpu_torch.nn.containers import SpeciesRanges
 from torchani_tpu_torch.potentials.core import Potential
 from torchani_tpu_torch.tuples import EnergiesScalars
 
@@ -33,9 +34,16 @@ class NNPotential(Potential):
         neighbors: Neighbors,
         atomic: bool = False,
         ensemble_values: bool = False,
+        species_ranges: tp.Optional[SpeciesRanges] = None,
     ) -> EnergiesScalars:
-        aevs = self.aev_computer.compute_from_neighbors(elem_idxs, coords, neighbors)
+        present = None
+        if species_ranges is not None:
+            present = tuple(s for s, _, _ in species_ranges)
+        aevs = self.aev_computer.compute_from_neighbors(
+            elem_idxs, coords, neighbors, present=present
+        )
         energies = self.neural_networks(
-            elem_idxs, aevs, atomic=atomic, ensemble_values=ensemble_values
+            elem_idxs, aevs, atomic=atomic, ensemble_values=ensemble_values,
+            species_ranges=species_ranges,
         )
         return EnergiesScalars(energies)

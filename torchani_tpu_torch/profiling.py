@@ -1,4 +1,5 @@
-"""Where the time and memory of one energies-and-forces call go, on the card.
+"""Where the time and memory of one energies-and-forces call and of one MD
+step go, on the card.
 
 Run on a machine with an NVIDIA GPU, from the root of a checkout::
 
@@ -11,7 +12,15 @@ a synchronize); E+F time and peak device memory with the angular backward
 recompute in 1 to 4 atom blocks and with the default block size, and the
 recompute's bytes per grid element that follow from them; the same for a
 30,000-atom box; and, from ``torch.profiler`` over 10 calls, the device-busy
-share and the CUDA kernels that take the most device time.
+share and the CUDA kernels that take the most device time.  Then, for
+`MolecularDynamics` with its defaults on the same box (`MolecularDynamics`, 300 K, 1 fs):
+the step's wall time, the wall time of each stage run alone (refresh, AEV,
+networks, the whole forward, forward and backward, integrator, a neighbor
+rebuild), and, from ``torch.profiler`` over 20 steps, the device-busy share,
+kernel launches and host waits per step and the top kernels; the kernels of
+the bucket refresh and of the gather refresh, forward and backward, on the
+same cached topology; and how long the box lasts under random weights (it
+heats up until a static capacity overflows).
 """
 
 import math
@@ -22,8 +31,14 @@ import numpy as np
 import torch
 
 from torchani_tpu_torch.grad import energies_and_forces
+from torchani_tpu_torch.md import (
+    MolecularDynamics,
+    _batch1,
+    _refresh_neighbors,
+    kinetic_temperature,
+)
 from torchani_tpu_torch.models import ANI2x
-from torchani_tpu_torch.neighbors import CellList
+from torchani_tpu_torch.neighbors import CellList, narrow_to_cutoff
 from torchani_tpu_torch.testing import make_water_box
 
 #: the headline box (``bench.py``'s) and the box for memory past many blocks
@@ -32,6 +47,12 @@ ATOMS, LARGE_ATOMS = 10002, 30000
 STEPS = 10
 #: numbers of angular recompute blocks swept at ATOMS
 BLOCK_COUNTS = (1, 2, 3, 4)
+#: MD steps in the profiled window
+MD_STEPS = 20
+#: CUDA runtime calls on which the host waits for the device
+HOST_WAITS = (
+    "cudaStreamSynchronize", "cudaDeviceSynchronize", "cudaEventSynchronize", "cudaMemcpy",
+)
 
 
 def wall_times_ms(fn: tp.Callable[[], tp.Any], reps: int) -> tp.List[float]:
@@ -119,38 +140,170 @@ def main() -> None:
           f"{peak_gib(lambda: energies_and_forces(model, *large)):.3f} GiB")
     del large
 
+    _profile("E+F", stages["E+F"], STEPS)
+    del stages, nbrs, aevs
+    md_report(model, species, coords, cell)
+
+
+def _profile(
+    what: str, fn: tp.Callable[[], tp.Any], reps: int, top: int = 20, host_ops: bool = True
+) -> None:
+    """Print, from ``torch.profiler`` over ``reps`` calls of ``fn()``: the
+    device-busy share of the window, kernel launches, host waits and copies
+    per call, the ``top`` kernels by device time and (with ``host_ops``) the
+    host operations that take the most time."""
     activities = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-    stages["E+F"]()
+    fn()
     torch.cuda.synchronize()
     with torch.profiler.profile(activities=activities) as prof:
         t0 = time.perf_counter()
-        for _ in range(STEPS):
-            stages["E+F"]()
+        for _ in range(reps):
+            fn()
         torch.cuda.synchronize()
         window_us = (time.perf_counter() - t0) * 1e6
     events = prof.key_averages()
-    device_us = sum(
-        e.self_device_time_total for e in events if e.device_type == torch.autograd.DeviceType.CUDA
-    )
-    print(
-        f"profiled window: {window_us / 1e3 / STEPS:.3f} ms per E+F, device busy "
-        f"{device_us / window_us:.1%} (kernel time / wall time)"
-    )
     rows = sorted(
         (e for e in events if e.device_type == torch.autograd.DeviceType.CUDA),
         key=lambda e: e.self_device_time_total,
         reverse=True,
     )
-    print("device time per E+F by kernel (top 20):")
-    for e in rows[:20]:
-        print(
-            f"  {e.self_device_time_total / STEPS / 1e3:9.4f} ms  "
-            f"{e.count // STEPS:5d}x  {e.key[:100]}"
-        )
+    device_us = sum(e.self_device_time_total for e in rows)
     print(
-        "host ops by self CPU time (top 15):\n"
-        + events.table(sort_by="self_cpu_time_total", row_limit=15)
+        f"profiled window: {window_us / 1e3 / reps:.3f} ms per {what}, device busy "
+        f"{device_us / window_us:.1%} (kernel time / wall time), "
+        f"{device_us / 1e3 / reps:.3f} ms of kernels per {what}"
     )
+    runtime = {e.key: e.count for e in events if e.key.startswith("cuda")}
+    launches = sum(n for key, n in runtime.items() if "Launch" in key)
+    waits = {key: n / reps for key, n in runtime.items() if key.startswith(HOST_WAITS)}
+    # the window's own closing synchronize is not the program's
+    waits["cudaDeviceSynchronize"] = waits.get("cudaDeviceSynchronize", 0) - 1 / reps
+    print(f"per {what}: {launches / reps:.1f} kernel launches; host waits and copies "
+          f"{ {k: round(v, 2) for k, v in sorted(waits.items()) if v > 0} }")
+    print(f"device time per {what} by kernel (top {top}):")
+    for e in rows[:top]:
+        print(
+            f"  {e.self_device_time_total / reps / 1e3:9.4f} ms  "
+            f"{e.count / reps:7.1f}x  {e.key[:100]}"
+        )
+    if host_ops:
+        print(
+            "host ops by self CPU time (top 15):\n"
+            + events.table(sort_by="self_cpu_time_total", row_limit=15)
+        )
+
+
+def md_report(model, species, coords, cell) -> None:
+    """The MD step of `MolecularDynamics` with its defaults: stage times, and
+    the profiled window."""
+    md = MolecularDynamics(model, species, cell=cell, pbc=True)
+    state = md.init(coords, temperature=300.0, generator=torch.Generator().manual_seed(0))
+    state = md.run_nve(state, 5)
+    tables = state.bucket
+    print(f"MD: K = {md.capacity} lanes, C = {md._bucket_c} slots, grid {md.grid_shape}, "
+          f"angular prefix {md._ang_prefix}, bucket refresh {tables is not None}")
+    holder = [state]
+
+    def step():
+        holder[0] = md.step_nve(holder[0])
+
+    times = wall_times_ms(step, MD_STEPS)
+    print(f"MD step: median {np.median(times):.3f} ms, min {np.min(times):.3f}, "
+          f"max {np.max(times):.3f} over {MD_STEPS} steps; rebuilds {holder[0].rebuilds}")
+    state = holder[0]
+    crd = state.coords
+    elem = md.elem_idxs
+    nnp = md.model.potentials["nnp"]
+    ranges = md._species_ranges
+    present = tuple(s for s, _, _ in ranges)
+
+    def tables_of(c):
+        return _batch1(narrow_to_cutoff(_refresh_neighbors(state, c), md.cutoff))
+
+    nbn = tables_of(crd)
+    aevs = nnp.aev_computer.compute_from_neighbors(elem, None, nbn, present=present)
+
+    def forward(c):
+        return md._potential_energy(_refresh_neighbors(state, c), md._to_internal(c))
+
+    def refresh_both_ways():
+        c = crd.detach().requires_grad_(True)
+        torch.autograd.grad(_refresh_neighbors(state, c).diff.sum(), c)
+
+    def integrator():
+        v_half = state.velocities + 0.5 * md.dt * state.forces * md._inv_m
+        return state.coords + md.dt * v_half, v_half + 0.5 * md.dt * state.forces * md._inv_m
+
+    stages = {
+        "refresh (forward)": (lambda: _refresh_neighbors(state, crd), False),
+        "refresh (forward + backward)": (refresh_both_ways, True),
+        "AEV (radial + angular, K3 forward)": (
+            lambda: nnp.aev_computer.compute_from_neighbors(elem, None, nbn, present=present),
+            False,
+        ),
+        "networks (8 members)": (
+            lambda: nnp.neural_networks(elem, aevs, species_ranges=ranges), False
+        ),
+        "forward (energy only)": (lambda: forward(crd), False),
+        "forward + backward (energy and forces)": (
+            lambda: md._energy_and_forces(state, crd), True
+        ),
+        "rebuild decision + integrator": (
+            lambda: (md._maybe_rebuild(state, crd), integrator()), False
+        ),
+        "neighbor rebuild": (lambda: md._build_cache(crd), False),
+    }
+    for name, (fn, grad) in stages.items():
+        with torch.enable_grad() if grad else torch.no_grad():
+            ms = float(np.median(wall_times_ms(fn, STEPS)))
+        print(f"MD {name}: {ms:.3f} ms (median of {STEPS})")
+    _profile("MD step", step, MD_STEPS)
+
+    # the two refreshes on the same cached topology, forward and backward
+    with torch.no_grad():
+        ci = md._to_internal(crd)
+        diff = _refresh_neighbors(state, crd).diff
+        nbr_pos = ci.index_select(0, state.nbr_idx.reshape(-1)).reshape(diff.shape)
+        shift = torch.where(state.nbr_mask[..., None], diff - (nbr_pos - ci[:, None, :]), 0.0)
+    gather_state = state.replace(bucket=None, nbr_shift=shift)
+    weights = torch.randn(diff.shape, device=diff.device)
+
+    def refresh(st):
+        c = crd.detach().requires_grad_(True)
+        nb = _refresh_neighbors(st, c)
+        torch.autograd.grad((nb.diff * weights).sum() + nb.dist.sum(), c)
+
+    for name, st in (("bucket", state), ("gather", gather_state)):
+        _profile(f"{name} refresh (forward + backward)", lambda: refresh(st), STEPS,
+                 top=12, host_ops=False)
+    heating_report(md, coords)
+
+
+def heating_report(md: MolecularDynamics, coords, max_steps: int = 100) -> None:
+    """Run NVE from 300 K until the forces stop being finite (or
+    ``max_steps``) and print, every 10 steps and at the end, what the
+    random weights do to the box: temperature, the closest pair, and the
+    fullest angular row against the AEV's angular capacity."""
+    aevc = md.model.aev_computer
+    r_ang = aevc.angular.cutoff
+    cap = aevc._angular_capacity(md.capacity)
+    state = md.init(coords, temperature=300.0, generator=torch.Generator().manual_seed(0))
+    while state.step < max_steps:
+        state = md.step_nve(state)
+        finite = bool(torch.isfinite(state.forces).all())
+        if finite and state.step % 10:
+            continue
+        nb = _refresh_neighbors(state, state.coords)
+        print(
+            f"heating: step {state.step}, forces finite {finite}, overflow flag "
+            f"{bool(state.overflow)}, T {float(kinetic_temperature(state.velocities, md.masses)):.1f} K, "
+            f"closest pair {float(torch.where(nb.mask, nb.dist, 9.0).min()):.3f} A, fullest "
+            f"angular row {int((nb.mask & (nb.dist <= r_ang)).sum(-1).max())} of {cap} lanes, "
+            f"fullest radial row {int(nb.mask.sum(-1).max())} of {md.capacity}, "
+            f"rebuilds {state.rebuilds}"
+        )
+        if not finite:
+            break
 
 
 if __name__ == "__main__":

@@ -1,12 +1,13 @@
 """Misc utilities: symbol tables, AEV constant construction, cell mapping,
 and device resolution."""
 
+import math
 import typing as tp
 
 import torch
 
 from torchani_tpu_torch.annotations import DeviceArg, Symbols, Tensor
-from torchani_tpu_torch.constants import ATOMIC_NUMBER, PERIODIC_TABLE
+from torchani_tpu_torch.constants import ATOMIC_NUMBER, MASS, PERIODIC_TABLE
 
 __all__ = [
     "SYMBOLS_1X",
@@ -17,6 +18,7 @@ __all__ = [
     "resolve_device",
     "symbols_to_atomic_numbers",
     "atomic_numbers_to_symbols",
+    "get_atomic_masses",
 ]
 
 #: Elements used in the ANI-1x and ANI-1ccx models, in model order
@@ -42,6 +44,16 @@ def symbols_to_atomic_numbers(symbols: tp.Sequence[str]) -> tp.Tuple[int, ...]:
 
 def atomic_numbers_to_symbols(znums: tp.Sequence[int]) -> Symbols:
     return tuple(PERIODIC_TABLE[int(z)] for z in znums)
+
+
+def get_atomic_masses(atomic_numbers: Tensor) -> Tensor:
+    """Masses (AMU) of a tensor of atomic numbers, on its device; -1 padding
+    maps to 0."""
+    table = torch.tensor(
+        [0.0] + [0.0 if math.isnan(m) else m for m in MASS[1:]],
+        dtype=torch.float32, device=atomic_numbers.device,
+    )
+    return table[atomic_numbers.clamp(min=0)]
 
 
 def map_to_central(coords: Tensor, cell: Tensor, pbc: Tensor) -> Tensor:
