@@ -17,10 +17,20 @@ energy drift), a forced neighbor rebuild, MD forces against single-point
 forces, 10 MD steps on the card against the CPU, and `CachedSinglePoint`.
 It times E+F, the MD step, a rebuild, each kernel, its plain version and the
 PyTorch call that computes the same function, and the bucket refresh against
-the gather refresh, and prints a ``kernels`` JSON line and, last,
-``{"ok": true, "device": {...}}``.  Any failed check raises, and the script
-exits non-zero without that last line; so does a machine with no CUDA
-device, or a directory without the package.  About a minute on an H100.
+the gather refresh.  Then the ANI-2dr paths (networks, xTB repulsion and D3
+dispersion): K4f and K4b (the per-lane selection of runtime values, at P = 1
+and P = 5 channels) and K5f and K5b (the atom-packed refresh) against their
+plain versions at the ANI-2dr box's own tables, with their times, bounds,
+plain versions and library calls; ANI-2dr energies and forces on the same
+box; `MolecularDynamics` under ANI-2dr three ways (its defaults, the frozen
+pair window, the atom-packed refresh), each with `init` at 300 K, NVE steps,
+launch counts, energy drift, MD forces against single-point forces, a forced
+rebuild, and frozen and packed forces against the default run's; and the
+card against the CPU on a 2,001-atom box.  It prints a ``kernels`` JSON line
+(all seven kernels) and, last, ``{"ok": true, "device": {...}}``.  Any failed
+check raises, and the script exits non-zero without that last line; so does
+a machine with no CUDA device, or a directory without the package.  About
+two minutes on an H100.
 """
 
 import json
@@ -50,6 +60,16 @@ FORCE_ATOL, ATOMIC_E_ATOL = 1e-5, 5e-5
 K2_TOL = 1e-5
 #: MD steps of the main path, and of each timed stretch after it
 MD_STEPS = 50
+#: the same for each of the three ANI-2dr runs.  Under random weights the
+#: ANI-2dr box heats faster than the ANI-2x one: between steps 20 and 25 an
+#: atom gathers more angular neighbors than the AEV's capacity of 28 holds and
+#: the AEV poisons the forces with NaN, as designed; the stretches stay short
+DR_STEPS = 10
+#: K4b and K5b vs their plain versions, as K2; K4f and K5f are selections
+#: and must differ by exactly 0.  The frozen pair window is exact and the
+#: packed refresh selects the same positions: forces within FORCE_ATOL of the
+#: default run's.
+SUM_TOL = K2_TOL
 #: after a rebuild, MD forces vs one-shot E+F forces at the same coordinates;
 #: card vs CPU after 10 MD steps (rounding grows along a trajectory)
 REBUILD_FORCE_ATOL = 1e-4
@@ -114,6 +134,33 @@ def select_bound_ms(lanes: int, g: int, c: int, adds: bool) -> tuple:
     return max(by_bytes, by_ops), "operations" if by_ops > by_bytes else "bytes", nbytes
 
 
+def vals_bound_ms(lanes: int, g: int, c: int, p: int, adds: bool) -> tuple:
+    """Least time for K4f or K4b at P channels: the occupied lanes' keys (4
+    bytes) and values or cotangents (4 P bytes), the (G, 27, C, P) candidate
+    table and the (G,) lane counts, each moved once; K4b does P adds a lane."""
+    nbytes = (4 + 4 * p) * lanes + g * 27 * c * p * 4 + 4 * g
+    by_bytes = nbytes / PEAK_HBM_BYTES * 1e3
+    by_ops = (p * lanes if adds else 0) / PEAK_F32_FLOPS * 1e3
+    return max(by_bytes, by_ops), "operations" if by_ops > by_bytes else "bytes", nbytes
+
+
+def packed_bound_ms(lanes: int, g: int, c: int, tiles: int, adds: bool) -> tuple:
+    """Least time for K5f or K5b: every lane of every row's keys (4 bytes)
+    and positions or cotangents (12 bytes: all of them are written or read),
+    the (G, 27, C, 3) candidate table and the tile table, each moved once."""
+    nbytes = 16 * lanes + g * 27 * c * 12 + 4 * tiles
+    by_bytes = nbytes / PEAK_HBM_BYTES * 1e3
+    by_ops = (3 * lanes if adds else 0) / PEAK_F32_FLOPS * 1e3
+    return max(by_bytes, by_ops), "operations" if by_ops > by_bytes else "bytes", nbytes
+
+
+def within(out: torch.Tensor, ref: torch.Tensor, tol: float) -> bool:
+    """|out - ref| <= tol (1 + |ref|) everywhere, and out finite."""
+    return bool(torch.isfinite(out).all()) and bool(
+        ((out - ref).abs() <= tol * (1 + ref.abs())).all()
+    )
+
+
 def total_energy(md, state) -> float:
     """Potential plus kinetic energy of an MD state, in Hartree."""
     from torchani_tpu_torch.md import ACCEL_UNIT
@@ -160,12 +207,26 @@ def main() -> int:
         _cand_table,
         _flat_index,
         _occupied_lanes,
+        _slot_sections,
         _statics,
         bucket_select_bwd,
         bucket_select_bwd_reference,
         bucket_select_fwd,
         bucket_select_reference,
+        vals_select_bwd,
+        vals_select_bwd_reference,
+        vals_select_fwd,
+        vals_select_reference,
     )
+    from torchani_tpu_torch.bucket_refresh_packed import (
+        PackedTables,
+        _flat_rows_index,
+        packed_select_bwd,
+        packed_select_bwd_reference,
+        packed_select_fwd,
+        packed_select_reference,
+    )
+    from torchani_tpu_torch.bucket_refresh_packed import _statics as _packed_statics
     from torchani_tpu_torch.grad import energies_and_forces, single_point
     from torchani_tpu_torch.md import (
         CachedSinglePoint,
@@ -173,7 +234,7 @@ def main() -> int:
         _refresh_neighbors,
         kinetic_temperature,
     )
-    from torchani_tpu_torch.models import ANI2x
+    from torchani_tpu_torch.models import ANI2dr, ANI2x
     from torchani_tpu_torch.neighbors import CellList, _static_grid_shape
     from torchani_tpu_torch.profiling import peak_gib, wall_times_ms
     from torchani_tpu_torch.testing import make_water_box
@@ -328,9 +389,20 @@ def main() -> int:
         "angular_aev": angular_aev,
         "bucket_select_fwd": bucket_select_fwd,
         "bucket_select_bwd": bucket_select_bwd,
+        "vals_select_fwd": vals_select_fwd,
+        "vals_select_bwd": vals_select_bwd,
+        "packed_select_fwd": packed_select_fwd,
+        "packed_select_bwd": packed_select_bwd,
     }
-    for fn in kernels_fn.values():
-        fn.launches = 0
+
+    def reset_counts():
+        for fn in kernels_fn.values():
+            fn.launches = 0
+
+    def read_counts():
+        return {name: fn.launches for name, fn in kernels_fn.items()}
+
+    reset_counts()
     md_model = ANI2x(pretrained=False, seed=0)
     md = MolecularDynamics(md_model, species, cell=cell, pbc=True)
     md_start = md.init(coords, temperature=300.0, generator=torch.Generator().manual_seed(0))
@@ -340,7 +412,7 @@ def main() -> int:
     state = md.run_nve(md_start, MD_STEPS)
     torch.cuda.synchronize()
     run1_ms = (time.perf_counter() - t0) * 1e3 / MD_STEPS
-    md_launches = {name: fn.launches for name, fn in kernels_fn.items()}
+    md_launches = read_counts()
     e_end = total_energy(md, state)
     drift = e_end - e_start
     temps = [float(kinetic_temperature(st.velocities, md.masses)) for st in (md_start, state)]
@@ -354,7 +426,8 @@ def main() -> int:
                     ("coords", state.coords), ("velocities", state.velocities)):
         check(bool(torch.isfinite(t).all()), f"MD {name} finite")
     check(tuple(state.forces.shape) == (num_atoms, 3), "MD forces shape (A, 3)")
-    check(all(v >= MD_STEPS for v in md_launches.values()),
+    check(all(md_launches[n] >= MD_STEPS
+              for n in ("angular_aev", "bucket_select_fwd", "bucket_select_bwd")),
           f"K1, K2 and K3 each launched at least {MD_STEPS} times on the MD path")
     check(abs(drift) <= 5e-3 * abs(e_start) + 0.05, "total energy drift bounded")
 
@@ -529,16 +602,265 @@ def main() -> int:
           f"the host's dispatch included), gather {gather_kernels:.4f} ms of kernels "
           f"({gather_ms:.4f} ms between events)")
 
+
+    # ---- 11. ANI-2dr: K4f, K4b, K5f and K5b at the box's own tables ----
+    del cached, md, md0, state0, nb, gather_state, weights, diff_b, diff_g
+    torch.cuda.empty_cache()
+    dr_model = ANI2dr(pretrained=False, seed=0)
+    gen0 = lambda: torch.Generator().manual_seed(0)  # noqa: E731
+    dr_md = {
+        "default": MolecularDynamics(dr_model, species, cell=cell, pbc=True),
+        "frozen": MolecularDynamics(
+            dr_model, species, cell=cell, pbc=True, freeze_pair_window=("dispersion_d3",)
+        ),
+        "packed": MolecularDynamics(dr_model, species, cell=cell, pbc=True, bucket_refresh="packed"),
+    }
+    probe = dr_md["default"].init(coords, temperature=300.0, generator=gen0())
+    check(not bool(probe.overflow), "the ANI-2dr MD cache of the water box does not overflow")
+    dt = probe.bucket
+    check(dt is not None and not isinstance(dt, PackedTables),
+          "the slot-layout bucket refresh is on under ANI-2dr (C <= 256)")
+    dgrid, dg, dc, dk = _statics(dt.atom_of_slot, dt.keys, dt.wrapshift)
+    dr = dc * dk
+    dnl = _occupied_lanes(dt.atom_of_slot, num_atoms, dg, dc, dk)
+    dlanes = int(dnl.sum())
+    print(f"ANI-2dr MD tables: build radius {dr_md['default'].build_radius:.2f} A, grid {dgrid} "
+          f"(G={dg}), C={dc} slots, K={dk} lanes, R={dr}; lane prefixes "
+          f"{dr_md['default']._lane_prefixes}, angular prefix {dr_md['default']._ang_prefix}; "
+          f"occupied lanes {dlanes} of {dg * dr} ({dlanes / (dg * dr):.1%}), "
+          f"{int(probe.nbr_mask.sum())} of them hold a neighbor")
+    docc = torch.arange(dr, device=dev)[None, :] < dnl[:, None]
+    idx_flat = torch.where(probe.nbr_mask, probe.nbr_idx, 0).reshape(-1)
+    k4 = {}
+    for p_ in (1, 5):
+        vals = torch.rand((num_atoms, p_), device=dev, generator=torch.Generator(dev).manual_seed(p_))
+        vcand = _slot_sections(vals, dt.atom_of_slot, dgrid, dc)
+        vout = vals_select_fwd(vcand, dt.keys, dnl)
+        torch.cuda.synchronize()
+        vref = vals_select_reference(vcand, dt.keys, dnl)
+        f_err = float((vout - vref)[docc].abs().max())
+        check(f_err == 0.0, f"K4f is an exact selection at P = {p_}")
+        vg = torch.randn((dg, dr, p_), device=dev, generator=torch.Generator(dev).manual_seed(9))
+        vback = vals_select_bwd(vg, dt.keys, dc, dnl)
+        torch.cuda.synchronize()
+        vbref = vals_select_bwd_reference(vg, dt.keys, dc, dnl)
+        b_err = float((vback - vbref).abs().max())
+        check(within(vback, vbref, SUM_TOL), f"K4b within tolerance at P = {p_}")
+        # the library calls: values[idx] over the (A, K) lanes, and its transpose
+        lane_g = torch.randn((idx_flat.shape[0], p_), device=dev)
+        acc = torch.empty((num_atoms, p_), device=dev)
+        times = dict(
+            f=kernels_ms(lambda: vals_select_fwd(vcand, dt.keys, dnl), reps=20),
+            f_plain=kernels_ms(lambda: vals_select_reference(vcand, dt.keys, dnl), reps=10),
+            f_lib=kernels_ms(lambda: vals.index_select(0, idx_flat), reps=20),
+            b=kernels_ms(lambda: vals_select_bwd(vg, dt.keys, dc, dnl), reps=20),
+            b_plain=kernels_ms(lambda: vals_select_bwd_reference(vg, dt.keys, dc, dnl), reps=10),
+            b_lib=kernels_ms(lambda: acc.zero_().index_add_(0, idx_flat, lane_g), reps=20),
+        )
+        fb = vals_bound_ms(dlanes, dg, dc, p_, adds=False)
+        bb = vals_bound_ms(dlanes, dg, dc, p_, adds=True)
+        k4[p_] = dict(f_err=f_err, b_err=b_err, fb=fb, bb=bb, **times)
+        print(f"{card}: K4f at P={p_}: max abs err {f_err:.3e}; {times['f']:.4f} ms; plain "
+              f"{times['f_plain']:.4f} ms; index_select {times['f_lib']:.4f} ms; bound "
+              f"{fb[0]:.4f} ms by {fb[1]} ({fb[2] / 1e6:.1f} MB)")
+        print(f"{card}: K4b at P={p_}: max abs err {b_err:.3e}; {times['b']:.4f} ms; plain "
+              f"{times['b_plain']:.4f} ms; zero_ + index_add_ {times['b_lib']:.4f} ms; bound "
+              f"{bb[0]:.4f} ms by {bb[1]} ({bb[2] / 1e6:.1f} MB)")
+        del vals, vcand, vout, vref, vg, vback, vbref, lane_g, acc
+    # C = 256 at P = 5: 138 KB of shared memory
+    wcand = torch.randn((3, 27, 256, 5), device=dev) * 20
+    wg = torch.randn((3, 256 * 5, 5), device=dev)
+    check(float((vals_select_fwd(wcand, skeys[:3]) - vals_select_reference(wcand, skeys[:3]))
+                .abs().max()) == 0.0, "K4f exact at C = 256, P = 5")
+    check(within(vals_select_bwd(wg, skeys[:3], 256), vals_select_bwd_reference(wg, skeys[:3], 256),
+                 SUM_TOL), "K4b within tolerance at C = 256, P = 5")
+
+    pprobe = dr_md["packed"].init(coords, temperature=300.0, generator=gen0())
+    pt = pprobe.bucket
+    check(isinstance(pt, PackedTables) and not bool(pprobe.overflow),
+          "the packed run packs its tables without overflow")
+    _, pg, pc, pns, ps_cap, pkl = _packed_statics(pt)
+    planes = pns * ps_cap * pkl
+    print(f"ANI-2dr packed tables: {pns} spans of {pg // pns} bucket(s), S_cap={ps_cap} rows, "
+          f"KL={pkl} lanes: {pns * ps_cap} rows for {num_atoms} atoms ({planes} lanes against the "
+          f"slot layout's {dlanes} occupied)")
+    pcanon = dr_md["packed"]._to_internal(pprobe.coords) - pt.wrap_offset
+    pcand = _cand_table(pcanon, pt.atom_of_slot, pt.wrapshift, dgrid, pc)
+    pout = packed_select_fwd(pcand, pt.keys_flat, pt.tile_bucket)
+    torch.cuda.synchronize()
+    pref = packed_select_reference(pcand, pt.keys_flat, pt.tile_bucket)
+    k5f_err = float((pout - pref).abs().max())
+    check(k5f_err == 0.0, "K5f is an exact selection")
+    pgout = torch.randn(pout.shape, device=dev, generator=torch.Generator(dev).manual_seed(8))
+    pback = packed_select_bwd(pgout, pt.keys_flat, pt.tile_bucket, pc, pg)
+    torch.cuda.synchronize()
+    pbref = packed_select_bwd_reference(pgout, pt.keys_flat, pt.tile_bucket, pc, pg)
+    k5b_err = float((pback - pbref).abs().max())
+    check(within(pback, pbref, SUM_TOL), "K5b within tolerance")
+    pindex = _flat_rows_index(pt.keys_flat, pt.tile_bucket, pg, pc).reshape(-1)
+    pflat = torch.cat([pcand.reshape(-1, 3), pcand.new_zeros((1, 3))])
+    pacc = torch.empty_like(pflat)
+    k5 = dict(
+        f=kernels_ms(lambda: packed_select_fwd(pcand, pt.keys_flat, pt.tile_bucket), reps=20),
+        f_plain=kernels_ms(
+            lambda: packed_select_reference(pcand, pt.keys_flat, pt.tile_bucket), reps=10),
+        f_lib=kernels_ms(lambda: pflat.index_select(0, pindex), reps=20),
+        b=kernels_ms(
+            lambda: packed_select_bwd(pgout, pt.keys_flat, pt.tile_bucket, pc, pg), reps=20),
+        b_plain=kernels_ms(
+            lambda: packed_select_bwd_reference(pgout, pt.keys_flat, pt.tile_bucket, pc, pg),
+            reps=10),
+        b_lib=kernels_ms(lambda: pacc.zero_().index_add_(0, pindex, pgout.reshape(-1, 3)), reps=20),
+    )
+    k5fb = packed_bound_ms(planes, pg, pc, pt.tile_bucket.numel(), adds=False)
+    k5bb = packed_bound_ms(planes, pg, pc, pt.tile_bucket.numel(), adds=True)
+    print(f"{card}: K5f: max abs err {k5f_err:.3e}; {k5['f']:.4f} ms; plain {k5['f_plain']:.4f} "
+          f"ms; index_select {k5['f_lib']:.4f} ms; bound {k5fb[0]:.4f} ms by {k5fb[1]} "
+          f"({k5fb[2] / 1e6:.1f} MB)")
+    print(f"{card}: K5b: max abs err {k5b_err:.3e}; {k5['b']:.4f} ms; plain {k5['b_plain']:.4f} "
+          f"ms; zero_ + index_add_ {k5['b_lib']:.4f} ms; bound {k5bb[0]:.4f} ms by {k5bb[1]} "
+          f"({k5bb[2] / 1e6:.1f} MB)")
+    # K1 and K2 at the same box, for the slot layout against the packed one
+    scanon = dr_md["default"]._to_internal(probe.coords) - dt.wrap_offset
+    scand = _cand_table(scanon, dt.atom_of_slot, dt.wrapshift, dgrid, dc)
+    sgrows = torch.randn((dg, dr, 3), device=dev)
+    k1_dr = kernels_ms(lambda: bucket_select_fwd(scand, dt.keys, dnl), reps=20)
+    k2_dr = kernels_ms(lambda: bucket_select_bwd(sgrows, dt.keys, dc, dnl), reps=20)
+    print(f"{card}: at the same box the slot layout's K1 takes {k1_dr:.4f} ms and K2 "
+          f"{k2_dr:.4f} ms (bound {select_bound_ms(dlanes, dg, dc, adds=False)[0]:.4f} ms)")
+    del pcand, pout, pref, pgout, pback, pbref, pindex, pflat, pacc, scand, sgrows, wcand, wg
+
+    # ---- 12. ANI-2dr energies and forces on the water box ----
+    dr_model.neighborlist = CellList()
+    reset_counts()
+    e_dr, f_dr = energies_and_forces(dr_model, species, coords, cell, pbc)
+    torch.cuda.synchronize()
+    dr_ef_launches = read_counts()
+    print(f"ANI-2dr E+F: E = {float(e_dr[0]):.6f} Ha, launches {dr_ef_launches}")
+    check(tuple(f_dr.shape) == (1, num_atoms, 3), "ANI-2dr forces shape (1, A, 3)")
+    check(bool(torch.isfinite(e_dr).all()) and bool(torch.isfinite(f_dr).all()),
+          "ANI-2dr energies and forces finite")
+    check(dr_ef_launches["angular_aev"] >= 1, "K3 launched on the ANI-2dr E+F path")
+    check(dr_ef_launches["vals_select_fwd"] == 0,
+          "without bucket tables D3 gathers its neighbors' values")
+
+    def dr_ef():
+        energies_and_forces(dr_model, species, coords, cell, pbc)
+
+    dr_ef_ms = wall_times_ms(dr_ef, reps=5)
+    print(f"{card}: ANI-2dr E+F {num_atoms} atoms: median {np.median(dr_ef_ms):.3f} ms, min "
+          f"{np.min(dr_ef_ms):.3f}, max {np.max(dr_ef_ms):.3f} over 5 calls; peak device memory "
+          f"{peak_gib(dr_ef):.3f} GiB")
+
+    # ---- 13. ANI-2dr MD three ways: defaults, frozen pair window, packed ----
+    dr_launches, dr_start, dr_forces = {}, {}, {}
+    for name, runner in dr_md.items():
+        reset_counts()
+        start = runner.init(coords, temperature=300.0, generator=gen0())
+        e0 = total_energy(runner, start)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        end = runner.run_nve(start, DR_STEPS)
+        torch.cuda.synchronize()
+        run_ms = (time.perf_counter() - t0) * 1e3 / DR_STEPS
+        dr_launches[name] = counts = read_counts()
+        drift = total_energy(runner, end) - e0
+        temps = [float(kinetic_temperature(st.velocities, runner.masses)) for st in (start, end)]
+        check(end.step == DR_STEPS and not bool(end.overflow),
+              f"ANI-2dr MD ({name}): {DR_STEPS} steps without overflow")
+        for what, t in (("energy", end.energy), ("forces", end.forces), ("coords", end.coords)):
+            check(bool(torch.isfinite(t).all()), f"ANI-2dr MD ({name}) {what} finite")
+        check(abs(drift) <= 5e-3 * abs(e0) + 0.05, f"ANI-2dr MD ({name}) energy drift bounded")
+        df = float((start.forces - f_dr[0]).abs().max())
+        check(df <= FORCE_ATOL, f"ANI-2dr MD ({name}) init forces equal single-point forces")
+        per_step = {k_: v / (DR_STEPS + 1) for k_, v in counts.items()}
+        want = {"angular_aev"}
+        want |= {"packed_select_fwd", "packed_select_bwd"} if name == "packed" else {
+            "bucket_select_fwd", "bucket_select_bwd", "vals_select_fwd", "vals_select_bwd"}
+        check(all(counts[k_] >= DR_STEPS for k_ in want),
+              f"ANI-2dr MD ({name}): {sorted(want)} launched at least once per step")
+        check(all(v == 0 for k_, v in counts.items() if k_ not in want),
+              f"ANI-2dr MD ({name}): no other kernel launched")
+        # the same stretch again, step by step, for the step's time
+        state, step_ms = start, []
+        for _ in range(DR_STEPS):
+            t0 = time.perf_counter()
+            state = runner.step_nve(state)
+            torch.cuda.synchronize()
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+        check(bool(torch.isfinite(state.forces).all()), f"ANI-2dr MD ({name}) second stretch finite")
+        peak = peak_gib(lambda: runner.step_nve(state))
+        rebuild = wall_times_ms(lambda: runner._build_cache(state.coords), reps=3)
+        moved = runner.step_nve(state.replace(ref_coords=state.ref_coords + 1.0))
+        check(moved.rebuilds == state.rebuilds + 1 and not bool(moved.overflow),
+              f"ANI-2dr MD ({name}): a displaced reference rebuilds the cache")
+        _, f_one = energies_and_forces(dr_model, species, moved.coords[None], cell, pbc)
+        df_rebuild = float((moved.forces - f_one[0]).abs().max())
+        print(f"ANI-2dr MD ({name}) after a forced rebuild at step {moved.step}: max |dF| vs "
+              f"one-shot E+F {df_rebuild:.3e} Ha/A, max |F| {float(f_one.abs().max()):.3e} Ha/A, "
+              f"one-shot forces finite {bool(torch.isfinite(f_one).all())}")
+        check(df_rebuild <= REBUILD_FORCE_ATOL,
+              f"ANI-2dr MD ({name}): forces after a rebuild equal one-shot forces")
+        dr_start[name], dr_forces[name] = start, start.forces
+        print(f"{card}: ANI-2dr MD ({name}): step median {np.median(step_ms):.3f} ms, min "
+              f"{np.min(step_ms):.3f}, max {np.max(step_ms):.3f} over {DR_STEPS} steps "
+              f"({86.4 / np.median(step_ms):.3f} ns/day at 1 fs); as one run {run_ms:.3f} ms/step; "
+              f"{end.rebuilds} rebuilds; rebuild {np.median(rebuild):.3f} ms; step peak memory "
+              f"{peak:.3f} GiB; drift {drift:.6f} Ha of {e0:.3f}, kinetic temperature "
+              f"{temps[0]:.1f} -> {temps[1]:.1f} K (random weights); max |dF| vs single point "
+              f"{df:.3e} at init, {df_rebuild:.3e} Ha/A after a forced rebuild; launches per "
+              f"evaluation { {k_: round(v, 2) for k_, v in per_step.items() if v} }")
+        del start, end, state, moved
+    for name in ("frozen", "packed"):
+        df = float((dr_forces[name] - dr_forces["default"]).abs().max())
+        print(f"ANI-2dr MD: {name} against default forces: max |dF| {df:.3e} Ha/A")
+        check(df <= FORCE_ATOL, f"{name} forces equal the default run's")
+
+    # ---- 14. ANI-2dr MD, card vs CPU: a 2,001-atom box (3 x 3 x 3 buckets) ----
+    sp_m, co_m, cell_m = make_water_box(2001)
+    ends = {}
+    for where, kw in (("cuda", {}), ("cuda", dict(freeze_pair_window=("dispersion_d3",))),
+                      ("cuda", dict(bucket_refresh="packed")), ("cpu", {})):
+        m = ANI2dr(pretrained=False, seed=0, device=where)
+        runner = MolecularDynamics(m, sp_m, cell=cell_m, pbc=True, device=where, **kw)
+        start = runner.init(co_m, temperature=300.0, generator=gen0())
+        check(start.bucket is not None, f"bucket refresh on for the 2,001-atom box ({where})")
+        ends[(where, tuple(kw))] = runner.run_nve(start, 3)
+    ref_end = ends[("cpu", ())]
+    for (where, kw), end in ends.items():
+        if where == "cpu":
+            continue
+        dc_ = float((end.coords.cpu() - ref_end.coords).abs().max())
+        df = float((end.forces.cpu() - ref_end.forces).abs().max())
+        print(f"ANI-2dr MD card {kw or 'default'} vs CPU, {sp_m.shape[1]} atoms, 3 steps: "
+              f"max |dx| {dc_:.3e} A, max |dF| {df:.3e} Ha/A")
+        check(dc_ <= MD_COORD_ATOL and df <= MD_FORCE_ATOL,
+              f"ANI-2dr MD {kw or 'default'} agrees with the CPU")
+
     def entry(name, source, replaces, err, ms, plain, bound, by, library):
         return {
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
-            "launches": md_launches[name],
-            "launches_by_path": {"ef": launches.get(name, 0), "md": md_launches[name]},
+            "launches": main_launches[name],
+            "launches_by_path": {
+                "ef": launches.get(name, 0), "md": md_launches[name],
+                "ani2dr_ef": dr_ef_launches[name],
+                **{f"ani2dr_md_{v}": dr_launches[v][name] for v in dr_launches},
+            },
             "max_abs_err": err, "ms": ms, "plain_ms": plain, "bound_ms": bound,
             "bound_by": by, "library_ms": library,
         }
 
+    # the count of the main path that runs the kernel: the ANI-2x MD run for
+    # K1-K3, the default ANI-2dr MD run for K4 (P = 5; the frozen run's P = 1
+    # is in launches_by_path), the packed one for K5
+    main_launches = dict(md_launches)
+    for name in ("vals_select_fwd", "vals_select_bwd"):
+        main_launches[name] = dr_launches["default"][name]
+    for name in ("packed_select_fwd", "packed_select_bwd"):
+        main_launches[name] = dr_launches["packed"][name]
     select_cu = "torchani_tpu_torch/csrc/bucket_select.cu"
+    vals_cu = "torchani_tpu_torch/csrc/vals_select.cu"
+    packed_cu = "torchani_tpu_torch/csrc/packed_select.cu"
     kernels = [
         entry("angular_aev", "torchani_tpu_torch/csrc/angular_aev.cu",
               "torchani_tpu/aev/pallas_kernels.py:186", k3_err, k3_ms, plain_ms,
@@ -548,7 +870,24 @@ def main() -> int:
               k1_err, k1_ms, k1_plain_ms, k1_bound, k1_by, k1_lib_ms),
         entry("bucket_select_bwd", select_cu, "torchani_tpu/bucket_refresh.py:544",
               k2_err, k2_ms, k2_plain_ms, k2_bound, k2_by, k2_lib_ms),
+        entry("vals_select_fwd", vals_cu, "torchani_tpu/bucket_refresh.py:660",
+              k4[5]["f_err"], k4[5]["f"], k4[5]["f_plain"], k4[5]["fb"][0], k4[5]["fb"][1],
+              k4[5]["f_lib"]),
+        entry("vals_select_bwd", vals_cu, "torchani_tpu/bucket_refresh.py:686",
+              k4[5]["b_err"], k4[5]["b"], k4[5]["b_plain"], k4[5]["bb"][0], k4[5]["bb"][1],
+              k4[5]["b_lib"]),
+        entry("packed_select_fwd", packed_cu, "torchani_tpu/bucket_refresh_packed.py:290",
+              k5f_err, k5["f"], k5["f_plain"], k5fb[0], k5fb[1], k5["f_lib"]),
+        entry("packed_select_bwd", packed_cu, "torchani_tpu/bucket_refresh_packed.py:316",
+              k5b_err, k5["b"], k5["b_plain"], k5bb[0], k5bb[1], k5["b_lib"]),
     ]
+    for p_, name in ((1, "vals_select_fwd"), (1, "vals_select_bwd")):
+        side = "f" if name.endswith("fwd") else "b"
+        next(k_ for k_ in kernels if k_["name"] == name)["at_p1"] = {
+            "max_abs_err": k4[p_][f"{side}_err"], "ms": k4[p_][side],
+            "plain_ms": k4[p_][f"{side}_plain"], "bound_ms": k4[p_][f"{side}b"][0],
+            "library_ms": k4[p_][f"{side}_lib"],
+        }
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({
         "ok": True,

@@ -12,8 +12,10 @@ import torchani_tpu_torch
 from torchani_tpu_torch import csrc, models
 from torchani_tpu_torch.aev import AEVComputer
 from torchani_tpu_torch.aev.terms import ANIRadial
+from torchani_tpu_torch.arch import simple_ani
 from torchani_tpu_torch.interop import load_jax_md_state
 from torchani_tpu_torch.md import CachedSinglePoint, MolecularDynamics
+from torchani_tpu_torch.potentials import RepulsionXTB, RepulsionZBL, TwoBodyDispersionD3
 from torchani_tpu_torch.sae import SelfEnergy
 from torchani_tpu_torch.utils import resolve_device
 
@@ -33,7 +35,11 @@ def _imported_modules(path: pathlib.Path):
 
 def test_new_modules_are_covered():
     names = {str(p.relative_to(REPO)) for p in PORT_FILES}
-    for module in ("md.py", "bucket_refresh.py", "interop.py", "profiling.py"):
+    for module in (
+        "md.py", "bucket_refresh.py", "interop.py", "profiling.py",
+        "bucket_refresh_packed.py", "potentials/core.py", "potentials/repulsion.py",
+        "potentials/dispersion.py",
+    ):
         assert f"torchani_tpu_torch/{module}" in names
 
 
@@ -54,6 +60,12 @@ def no_cuda(monkeypatch):
     [
         lambda: models.ANI2x(),
         lambda: models.ANI2x(seed=1, device="cuda"),
+        lambda: models.ANI2dr(),
+        lambda: models.ANI2xr(model_index=0),
+        lambda: simple_ani(("H", "O"), dispersion=True),
+        lambda: RepulsionXTB(("H", "O")),
+        lambda: RepulsionZBL(("H", "O")),
+        lambda: TwoBodyDispersionD3(("H", "O"), functional="b973c"),
         lambda: AEVComputer.like_2x(),
         lambda: ANIRadial.like_2x(),
         lambda: SelfEnergy(("H",), [0.5]),
@@ -63,7 +75,8 @@ def no_cuda(monkeypatch):
         lambda: load_jax_md_state({}),
     ],
     ids=[
-        "ANI2x", "ANI2x-cuda", "AEVComputer", "ANIRadial", "SelfEnergy", "resolve_device",
+        "ANI2x", "ANI2x-cuda", "ANI2dr", "ANI2xr", "simple_ani", "RepulsionXTB", "RepulsionZBL",
+        "TwoBodyDispersionD3", "AEVComputer", "ANIRadial", "SelfEnergy", "resolve_device",
         "MolecularDynamics", "CachedSinglePoint", "load_jax_md_state",
     ],
 )
@@ -98,7 +111,9 @@ def test_md_wants_the_models_device():
 
 
 def test_kernel_build_settings():
-    assert set(csrc.sources()) == {"angular_aev", "bucket_select"}
+    assert set(csrc.sources()) == {
+        "angular_aev", "bucket_select", "vals_select", "packed_select"
+    }
     flags = " ".join(csrc.NVCC_FLAGS)
     assert "arch=compute_90a,code=sm_90a" in flags
     assert "fast-math" not in flags and "fast_math" not in flags

@@ -1,6 +1,7 @@
 """PyTorch port: the kernels' wrappers and, on the card, the CUDA kernels:
-the fused angular AEV (K3) and the bucket refresh's selection and its
-transpose (K1, K2).
+the fused angular AEV (K3), the bucket refresh's selection and its transpose
+(K1, K2), the same for P channels of runtime values (K4f, K4b) and over
+atom-packed rows (K5f, K5b).
 
 This file imports no JAX, so the tests marked ``cuda`` also run on a
 machine with a GPU and no JAX::
@@ -10,7 +11,8 @@ machine with a GPU and no JAX::
 K3 against its plain version: atol 1e-5, rtol 1e-4 (f32 sums over the
 neighbour pairs in another order, as in tests/test_pallas.py).  K1 is a
 selection: exactly equal.  K2 sums with atomics in shared memory, in an
-order that changes from run to run: atol 1e-5 + 1e-5 |p|.
+order that changes from run to run: atol 1e-5 + 1e-5 |p|.  K4f and K5f are
+selections (exactly equal), K4b and K5b sum as K2 does (the same bound).
 """
 
 import dataclasses
@@ -29,6 +31,18 @@ from torchani_tpu_torch.bucket_refresh import (
     bucket_select_reference,
     make_wrapshift,
     tables_from_cell_aux,
+    vals_select_bwd,
+    vals_select_bwd_reference,
+    vals_select_fwd,
+    vals_select_reference,
+)
+from torchani_tpu_torch.bucket_refresh_packed import (
+    pack_tables,
+    packed_nbr_pos,
+    packed_select_bwd,
+    packed_select_bwd_reference,
+    packed_select_fwd,
+    packed_select_reference,
 )
 from torchani_tpu_torch.grad import energies_and_forces
 from torchani_tpu_torch.models import ANI2x
@@ -271,6 +285,249 @@ def test_bucket_nbr_pos_gradient_on_card_matches_cpu():
         rose = (bucket_select_fwd.launches - launches[0], bucket_select_bwd.launches - launches[1])
         assert rose == ((1, 1) if dev == "cuda" else (0, 0))
         assert (diff.detach().cpu() - nbrs.diff[0]).abs().max() < 2e-4
+        results[dev] = (diff.detach().cpu().numpy(), grad.cpu().numpy())
+    np.testing.assert_array_equal(results["cuda"][0], results["cpu"][0])
+    scale = np.abs(results["cpu"][1]).max()
+    np.testing.assert_allclose(results["cuda"][1] / scale, results["cpu"][1] / scale, atol=1e-5)
+
+
+# ---- K4f and K4b ----
+
+
+def _vals_inputs(g, c, k, p, seed, with_nlanes, device):
+    """`_select_inputs` with P value channels in place of 3."""
+    _, _, keys, nlanes = _select_inputs(g, c, k, seed, with_nlanes, device)
+    rng = np.random.RandomState(seed + 100)
+    cand = torch.as_tensor((rng.randn(g, 27, c, p) * 20.0).astype(np.float32), device=device)
+    gout = torch.as_tensor(rng.randn(g, c * k, p).astype(np.float32), device=device)
+    return cand, gout, keys, nlanes
+
+
+def test_vals_and_packed_wrappers_check_their_arguments_on_cpu():
+    cand, gout, keys, _ = _vals_inputs(2, 16, 3, 2, seed=0, with_nlanes=False, device="cpu")
+    with pytest.raises(ValueError):
+        vals_select_fwd(cand.to("meta"), keys.to("meta"))
+    with pytest.raises(ValueError):
+        vals_select_bwd(gout.to("meta"), keys.to("meta"), 16)
+    with pytest.raises(ValueError):
+        packed_select_fwd(cand.to("meta"), keys.to("meta"), keys.to("meta"))
+    with pytest.raises(ValueError):
+        packed_select_bwd(gout.to("meta"), keys.to("meta"), keys.to("meta"), 16, 2)
+
+
+# C = 256 at P = 5: 138 KB of shared memory; C = 112, P = 5: 60 KB
+VALS_SHAPES = [(5, 16, 8, 1), (7, 64, 17, 2), (4, 112, 9, 5), (3, 256, 5, 5), (3, 256, 3, 1)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("with_nlanes", [False, True])
+@pytest.mark.parametrize("g,c,k,p", VALS_SHAPES)
+def test_vals_select_kernel_matches_plain_on_card(g, c, k, p, with_nlanes):
+    """Random keys with repeats and sentinels; with ``nlanes`` one bucket is
+    empty (its lanes are all sentinels) and one full."""
+    _cuda()
+    cand, _, keys, nlanes = _vals_inputs(g, c, k, p, 4, with_nlanes, "cuda")
+    before = vals_select_fwd.launches
+    out = vals_select_fwd(cand, keys, nlanes)
+    torch.cuda.synchronize()
+    assert vals_select_fwd.launches == before + 1
+    ref = vals_select_reference(cand, keys, nlanes)
+    occupied = _occupied(keys, nlanes)
+    assert out.shape == (g, c * k, p)
+    assert torch.equal(out[occupied], ref[occupied])
+    assert (out[occupied & (keys >> 8 == 27)] == 0).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("with_nlanes", [False, True])
+@pytest.mark.parametrize("g,c,k,p", VALS_SHAPES)
+def test_vals_select_bwd_kernel_matches_plain_on_card(g, c, k, p, with_nlanes):
+    _cuda()
+    _, gout, keys, nlanes = _vals_inputs(g, c, k, p, 5, with_nlanes, "cuda")
+    before = vals_select_bwd.launches
+    out = vals_select_bwd(gout, keys, c, nlanes)
+    torch.cuda.synchronize()
+    assert vals_select_bwd.launches == before + 1
+    ref = vals_select_bwd_reference(gout, keys, c, nlanes)
+    assert out.shape == (g, 27, c, p)
+    np.testing.assert_allclose(out.cpu().numpy(), ref.cpu().numpy(), atol=1e-5, rtol=1e-5)
+    if with_nlanes:
+        assert (out[0] == 0).all()  # an empty bucket still starts from zeros
+
+
+@pytest.mark.cuda
+def test_vals_select_all_sentinels_and_one_repeated_key_on_card():
+    _cuda()
+    g, c, k, p = 3, 32, 4, 5
+    cand, gout, keys, _ = _vals_inputs(g, c, k, p, 6, False, "cuda")
+    keys[0] = 27 << 8  # a bucket of sentinels only
+    keys[1] = (13 << 8) | 7  # every lane of a bucket points at one candidate
+    out = vals_select_fwd(cand, keys)
+    assert (out[0] == 0).all() and torch.equal(out[1], cand[1, 13, 7].expand(c * k, p))
+    d = vals_select_bwd(gout, keys, c)
+    assert (d[0] == 0).all()
+    np.testing.assert_allclose(
+        d[1, 13, 7].cpu().numpy(), gout[1].sum(0).cpu().numpy(), atol=1e-4, rtol=1e-5
+    )
+    assert int((d[1] != 0).any(-1).sum()) == 1
+
+
+@pytest.mark.cuda
+def test_vals_select_wrappers_check_on_card():
+    _cuda()
+    cand, gout, keys, nlanes = _vals_inputs(4, 16, 6, 2, 6, True, "cuda")
+    with pytest.raises(TypeError):
+        vals_select_fwd(cand.double(), keys, nlanes)
+    with pytest.raises(TypeError):
+        vals_select_fwd(cand, keys.long(), nlanes)
+    with pytest.raises(ValueError):
+        vals_select_fwd(cand[:, :26], keys, nlanes)
+    with pytest.raises(ValueError, match="contiguous"):
+        vals_select_fwd(cand.transpose(2, 3).contiguous().transpose(2, 3), keys, nlanes)
+    with pytest.raises(ValueError, match="contiguous"):
+        vals_select_bwd(gout, keys.t().contiguous().t(), 16, nlanes)
+    with pytest.raises(ValueError):
+        vals_select_bwd(gout[:, :-1], keys, 16, nlanes)
+    with pytest.raises(ValueError):
+        vals_select_bwd(gout, keys, 272, nlanes)
+    wide = torch.zeros((1, 27, 256, 9), device="cuda")
+    with pytest.raises(ValueError, match="shared memory"):
+        vals_select_fwd(wide, torch.zeros((1, 256), dtype=torch.int32, device="cuda"))
+
+
+# ---- K5f and K5b ----
+
+
+def _packed_system(device: str, a: int = 400, c: int = 32, sb: int = 2, seed: int = 5):
+    """Slot-row and atom-packed tables of one random periodic system (built
+    on the CPU, moved to ``device``), its coordinates and its mask."""
+    rng = np.random.RandomState(seed)
+    box, cutoff = 24.0, 5.2
+    coords = (rng.rand(a, 3) * box + rng.randint(-2, 3, (a, 3)) * box).astype(np.float32)
+    cell = np.eye(3, dtype=np.float32) * box
+    grid = _static_grid_shape(cell, cutoff)
+    crd = torch.as_tensor(coords)
+    nbrs, aux = cell_list(
+        cutoff, torch.zeros((1, a), dtype=torch.int64), crd[None],
+        torch.as_tensor(cell), torch.ones(3, dtype=torch.bool),
+        capacity=64, bucket_capacity=c, bucket_aux=True,
+    )
+    assert not bool(nbrs.overflow)
+    tables = tables_from_cell_aux(
+        aux["keys"], nbrs.mask[0], aux["atom_of_slot"], aux["slot_of_atom"],
+        crd - aux["central"], torch.as_tensor(make_wrapshift(grid, cell)), c,
+    )
+    g = int(np.prod(grid))
+    occ = (tables.atom_of_slot < a).reshape(g, c).sum(1)
+    padded = ((occ + 7) // 8 * 8).reshape(g // sb, sb).sum(1)
+    packed, overflow = pack_tables(tables, sb, int(padded.max()) + 8)
+    assert not bool(overflow)
+    move = lambda t: type(t)(  # noqa: E731
+        **{f.name: getattr(t, f.name).to(device) for f in dataclasses.fields(t)}
+    )
+    return move(tables), move(packed), crd.to(device), nbrs.mask[0].to(device), g, c
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("sb", [1, 2, 4])
+def test_packed_select_kernels_match_plain_on_card(sb):
+    """Real tables (grid 4 x 4 x 4; empty buckets, pad tiles of sentinels
+    only), random candidates and cotangents."""
+    _cuda()
+    _, packed, _, _, g, c = _packed_system("cuda", sb=sb)
+    gen = torch.Generator("cuda").manual_seed(3)
+    cand = torch.randn((g, 27, c, 3), device="cuda", generator=gen) * 20.0
+    before = packed_select_fwd.launches, packed_select_bwd.launches
+    out = packed_select_fwd(cand, packed.keys_flat, packed.tile_bucket)
+    ref = packed_select_reference(cand, packed.keys_flat, packed.tile_bucket)
+    assert torch.equal(out, ref)
+    gout = torch.randn(out.shape, device="cuda", generator=gen)
+    d = packed_select_bwd(gout, packed.keys_flat, packed.tile_bucket, c, g)
+    torch.cuda.synchronize()
+    assert (packed_select_fwd.launches, packed_select_bwd.launches) == (
+        before[0] + 1, before[1] + 1
+    )
+    d_ref = packed_select_bwd_reference(gout, packed.keys_flat, packed.tile_bucket, c, g)
+    assert d.shape == (g, 27, c, 3)
+    np.testing.assert_allclose(d.cpu().numpy(), d_ref.cpu().numpy(), atol=1e-5, rtol=1e-5)
+
+
+@pytest.mark.cuda
+def test_packed_select_sentinel_rows_repeats_and_wide_tiles_on_card():
+    """Hand-made tables: C = 256 (83 KB of shared memory), a bucket that owns
+    two separate runs of tiles, a span of sentinels only, one repeated key."""
+    _cuda()
+    g, c, ns, n_tiles, kl = 4, 256, 2, 3, 128
+    rng = np.random.RandomState(9)
+    lanes = n_tiles * 8 * kl
+    sec = np.where(rng.rand(ns, lanes) < 0.8, rng.randint(0, 27, (ns, lanes)), 27)
+    keys = (sec << 8) | np.where(sec < 27, rng.randint(0, c, (ns, lanes)), 0)
+    keys[1] = 27 << 8
+    keys[0, : 8 * kl] = (5 << 8) | 200
+    keys_flat = torch.as_tensor(keys.astype(np.int32), device="cuda").reshape(ns, 1, lanes)
+    tile_bucket = torch.tensor([[1, 0, 1], [0, 0, 1]], dtype=torch.int32, device="cuda")
+    cand = torch.as_tensor(rng.randn(g, 27, c, 3).astype(np.float32), device="cuda")
+    out = packed_select_fwd(cand, keys_flat, tile_bucket)
+    assert torch.equal(out, packed_select_reference(cand, keys_flat, tile_bucket))
+    assert (out[1] == 0).all() and torch.equal(out[0, : 8 * kl], cand[1, 5, 200].expand(8 * kl, 3))
+    gout = torch.as_tensor(rng.randn(ns, lanes, 3).astype(np.float32), device="cuda")
+    d = packed_select_bwd(gout, keys_flat, tile_bucket, c, g)
+    d_ref = packed_select_bwd_reference(gout, keys_flat, tile_bucket, c, g)
+    np.testing.assert_allclose(d.cpu().numpy(), d_ref.cpu().numpy(), atol=1e-4, rtol=1e-5)
+    assert (d[2:] == 0).all()
+
+
+@pytest.mark.cuda
+def test_packed_select_wrappers_check_on_card():
+    _cuda()
+    _, packed, _, _, g, c = _packed_system("cuda")
+    cand = torch.zeros((g, 27, c, 3), device="cuda")
+    keys, tiles = packed.keys_flat, packed.tile_bucket
+    gout = torch.zeros((keys.shape[0], keys.shape[2], 3), device="cuda")
+    with pytest.raises(TypeError):
+        packed_select_fwd(cand.double(), keys, tiles)
+    with pytest.raises(TypeError):
+        packed_select_fwd(cand, keys.long(), tiles)
+    with pytest.raises(ValueError):
+        packed_select_fwd(cand, keys[:, 0], tiles)
+    with pytest.raises(ValueError, match="contiguous"):
+        packed_select_fwd(cand, keys, tiles.t().contiguous().t())
+    with pytest.raises(ValueError, match="contiguous"):
+        packed_select_bwd(gout.transpose(0, 1).contiguous().transpose(0, 1), keys, tiles, c, g)
+    with pytest.raises(ValueError):
+        packed_select_bwd(gout[:, :-1], keys, tiles, c, g)
+    with pytest.raises(ValueError):
+        packed_select_bwd(gout, keys, tiles, c, g + 1)
+    with pytest.raises(ValueError):
+        packed_select_fwd(cand, keys.cpu(), tiles)
+
+
+@pytest.mark.cuda
+def test_packed_nbr_pos_on_card_matches_slot_refresh_and_cpu():
+    """The whole packed refresh and its gradient: card (K5f, K5b) against the
+    slot refresh on the card (K1, K2) and against the CPU (plain versions)."""
+    _cuda()
+    results = {}
+    for dev in ("cuda", "cpu"):
+        tables, packed, crd, mask, _, _ = _packed_system(dev)
+        k = mask.shape[1]
+        weights = torch.as_tensor(
+            np.random.RandomState(1).randn(crd.shape[0], k, 3).astype(np.float32), device=dev
+        )
+        crd = crd.requires_grad_(True)
+        canon = crd - packed.wrap_offset
+        launches = packed_select_fwd.launches, packed_select_bwd.launches
+        nbr = packed_nbr_pos(canon, packed)[:, :k]
+        diff = torch.where(mask[..., None], nbr - canon[:, None, :], 0.0)
+        (grad,) = torch.autograd.grad((diff * weights).sum(), crd)
+        rose = (packed_select_fwd.launches - launches[0], packed_select_bwd.launches - launches[1])
+        assert rose == ((1, 1) if dev == "cuda" else (0, 0))
+        slot = bucket_nbr_pos(
+            canon.detach(), tables.keys, tables.atom_of_slot, tables.slot_of_atom,
+            tables.wrapshift,
+        )
+        assert torch.equal(torch.where(mask[..., None], nbr.detach() - slot, 0.0).abs().max(),
+                           torch.zeros((), device=dev))
         results[dev] = (diff.detach().cpu().numpy(), grad.cpu().numpy())
     np.testing.assert_array_equal(results["cuda"][0], results["cpu"][0])
     scale = np.abs(results["cpu"][1]).max()

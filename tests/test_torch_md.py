@@ -327,7 +327,8 @@ def test_callers_model_is_unchanged(both_models, box):
 def test_md_rejects_what_it_cannot_run(both_models, box):
     _, pmodel = both_models
     species, _, cell, _ = box
-    with pytest.raises(NotImplementedError, match="packed"):
-        MolecularDynamics(pmodel, species, cell=cell, pbc=True, bucket_refresh="packed", device=CPU)
+    # the atom-packed layout is ported: `MolecularDynamics` takes it
+    md = MolecularDynamics(pmodel, species, cell=cell, pbc=True, bucket_refresh="packed", device=CPU)
+    assert md._bucket_packed
     with pytest.raises(ValueError, match=r"\(1, A\)"):
         MolecularDynamics(pmodel, species[0], cell=cell, pbc=True, device=CPU)

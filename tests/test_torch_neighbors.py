@@ -273,3 +273,21 @@ def test_lane_permute_matches_jax():
     for o, j, v in zip(out, ref, values):
         np.testing.assert_array_equal(o.numpy(), np.asarray(j))
         assert o.numpy().dtype == v.dtype
+
+
+def test_cell_list_survives_a_non_finite_coordinate():
+    """A NaN coordinate (an MD run whose AEV capacity overflowed poisons its
+    forces) must not index out of range: the atom lands in a valid bucket and
+    pairs with nothing, every other row is as without it."""
+    species, coords, cell = make_water_box(300)
+    elem = torch.zeros((1, species.shape[1]), dtype=torch.int64)
+    pbc = torch.ones(3, dtype=torch.bool)
+    good = pn.cell_list(5.2, elem, torch.as_tensor(coords), torch.as_tensor(cell), pbc)
+    broken = coords.copy()
+    broken[0, 5] = np.nan
+    nbrs = pn.cell_list(5.2, elem, torch.as_tensor(broken), torch.as_tensor(cell), pbc)
+    assert int(nbrs.mask[0, 5].sum()) == 0
+    assert torch.isfinite(nbrs.dist).all()
+    others = good.mask[0].sum(-1) - (good.mask[0] & (good.idx[0] == 5)).sum(-1)
+    others[5] = 0
+    assert torch.equal(nbrs.mask[0].sum(-1), others)

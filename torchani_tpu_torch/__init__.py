@@ -3,9 +3,11 @@
 
 Models are ``torch.nn.Module``s, everything else plain functions on tensors.
 Entry points run on CUDA unless the caller passes ``device="cpu"``; without a
-CUDA device such a call raises.  The angular AEV and the MD loop's per-step
-neighbor refresh run on hand-written CUDA kernels (``csrc/angular_aev.cu``,
-``csrc/bucket_select.cu``), built by ``nvcc`` at their first use.
+CUDA device such a call raises.  The angular AEV, the MD loop's per-step
+neighbor refresh (slot-row or atom-packed) and the per-lane selection of
+runtime per-atom values inside D3 dispersion run on hand-written CUDA kernels
+(``csrc/angular_aev.cu``, ``csrc/bucket_select.cu``, ``csrc/packed_select.cu``,
+``csrc/vals_select.cu``), built by ``nvcc`` at their first use.
 
 TF32 is switched off at import: it degrades ANI energies and forces far
 beyond their tolerances.
@@ -20,6 +22,7 @@ torch.set_float32_matmul_precision("highest")
 from torchani_tpu_torch import (  # noqa: E402
     aev,
     bucket_refresh,
+    bucket_refresh_packed,
     constants,
     cutoffs,
     grad,
@@ -28,13 +31,14 @@ from torchani_tpu_torch import (  # noqa: E402
     models,
     neighbors,
     nn,
+    potentials,
     sae,
     testing,
     units,
     utils,
 )
 from torchani_tpu_torch.aev import AEVComputer  # noqa: E402
-from torchani_tpu_torch.arch import ANI, Assembler  # noqa: E402
+from torchani_tpu_torch.arch import ANI, Assembler, simple_ani  # noqa: E402
 from torchani_tpu_torch.grad import energies_and_forces, single_point  # noqa: E402
 from torchani_tpu_torch.md import (  # noqa: E402
     CachedSinglePoint,
@@ -60,9 +64,11 @@ __all__ = [
     "energies_and_forces",
     "kinetic_temperature",
     "maxwell_boltzmann_velocities",
+    "simple_ani",
     "single_point",
     "aev",
     "bucket_refresh",
+    "bucket_refresh_packed",
     "constants",
     "cutoffs",
     "grad",
@@ -71,6 +77,7 @@ __all__ = [
     "models",
     "neighbors",
     "nn",
+    "potentials",
     "sae",
     "testing",
     "units",

@@ -3,15 +3,18 @@
 
 `ANI` holds a dict of potentials (always including ``"nnp"``), the self
 energies and the species table.  One neighbor table is built at the largest
-cutoff and every potential reads a narrowed view of it.
+cutoff of the enabled potentials and each of them reads a narrowed view of
+it; their energies are summed.
 """
 
+import math
 import typing as tp
 
 import numpy as np
 import torch
 
 from torchani_tpu_torch.aev import AEVComputer
+from torchani_tpu_torch.aev.terms import ANIAngular, ANIRadial
 from torchani_tpu_torch.annotations import DeviceArg, Symbols, Tensor
 from torchani_tpu_torch.neighbors import (
     NeighborlistArg,
@@ -21,12 +24,17 @@ from torchani_tpu_torch.neighbors import (
 )
 from torchani_tpu_torch.nn import AtomicNetworks, Ensemble, SpeciesConverter
 from torchani_tpu_torch.nn.containers import SpeciesRanges, layer_dims_for
-from torchani_tpu_torch.potentials import NNPotential, Potential
+from torchani_tpu_torch.potentials import (
+    NNPotential,
+    Potential,
+    RepulsionXTB,
+    TwoBodyDispersionD3,
+)
 from torchani_tpu_torch.sae import SelfEnergy
 from torchani_tpu_torch.tuples import SpeciesEnergies
 from torchani_tpu_torch.utils import resolve_device
 
-__all__ = ["ANI", "Assembler", "as_tensor"]
+__all__ = ["ANI", "Assembler", "as_tensor", "simple_ani"]
 
 
 def as_tensor(x, dtype: torch.dtype, device: torch.device) -> Tensor:
@@ -68,7 +76,12 @@ class ANI(torch.nn.Module):
 
     @property
     def cutoff(self) -> float:
-        return max(p.cutoff for p in self.potentials.values())
+        return max(p.cutoff for p in self.potentials.values() if p.enabled)
+
+    def set_enabled(self, name: str, enabled: bool = True) -> "ANI":
+        """Switch one potential on or off (in place; returned)."""
+        self.potentials[name].enabled = enabled
+        return self
 
     @property
     def neural_networks(self) -> Ensemble:
@@ -130,6 +143,8 @@ class ANI(torch.nn.Module):
         energies = None
         for name in sorted(self.potentials):
             pot = self.potentials[name]
+            if not pot.enabled:
+                continue
             pot_neighbors = (
                 narrow_to_cutoff(neighbors, pot.cutoff)
                 if pot.cutoff < self.cutoff
@@ -150,16 +165,18 @@ class ANI(torch.nn.Module):
 
 
 class Assembler:
-    """Declarative assembly of ANI-style models, as far as the model
-    factories use it: symbols, AEV terms and self energies, then
-    ``assemble(ensemble_size)`` with ANI-2x network widths and the adaptive
-    neighborlist."""
+    """Declarative assembly of ANI-style models: set symbols, AEV terms, the
+    atomic networks, self energies and extra potentials, then
+    ``assemble(ensemble_size)``."""
 
     def __init__(self) -> None:
         self.symbols: tp.Optional[Symbols] = None
         self._global_cutoff_fn = "smooth"
-        self._aev_terms: tp.Tuple[str, str] = ("ani2x", "ani2x")
+        self._aev_terms: tp.Tuple[tp.Any, tp.Any] = ("ani2x", "ani2x")
+        self._networks: tp.Dict[str, tp.Any] = dict(activation="celu", bias=True)
         self._lot: tp.Optional[str] = None
+        self._extra_potentials: tp.Dict[str, tp.Callable[[torch.device], Potential]] = {}
+        self._neighborlist: NeighborlistArg = "adaptive"
 
     def set_symbols(self, symbols: tp.Sequence[str]) -> "Assembler":
         self.symbols = tuple(symbols)
@@ -169,14 +186,43 @@ class Assembler:
         self._global_cutoff_fn = cutoff_fn
         return self
 
-    def set_aev_computer(
-        self, radial: str = "ani2x", angular: tp.Optional[str] = None
-    ) -> "Assembler":
+    def set_aev_computer(self, radial="ani2x", angular=None) -> "Assembler":
+        """``radial`` and ``angular`` are names (``"ani1x"``, ``"ani2x"``) or
+        functions of a device that build the term there."""
         self._aev_terms = (radial, radial if angular is None else angular)
+        return self
+
+    def set_atomic_networks(
+        self, ctor: str = "ani2x", activation: str = "celu", bias: bool = True
+    ) -> "Assembler":
+        """The per-element networks: ``ctor`` names the layer widths (only
+        ANI-2x's, ``"ani2x"``, are ported)."""
+        if ctor != "ani2x":
+            raise NotImplementedError(
+                f"network constructor {ctor!r} is not ported; only 'ani2x' is"
+            )
+        self._networks = dict(activation=activation, bias=bias)
         return self
 
     def set_gsaes_as_self_energies(self, lot: str) -> "Assembler":
         self._lot = lot
+        return self
+
+    def set_neighborlist(self, neighborlist: NeighborlistArg) -> "Assembler":
+        self._neighborlist = neighborlist
+        return self
+
+    def add_potential(
+        self, name: str, potential: tp.Union[Potential, tp.Callable[[torch.device], Potential]]
+    ) -> "Assembler":
+        """An extra potential, summed with the networks': a `Potential`
+        (moved to the model's device at assembly) or a function of the device
+        that builds it."""
+        if isinstance(potential, Potential):
+            built = potential
+            self._extra_potentials[name] = lambda dev: built.to(dev)
+        else:
+            self._extra_potentials[name] = potential
         return self
 
     def assemble(
@@ -187,8 +233,10 @@ class Assembler:
         if self.symbols is None:
             raise ValueError("Symbols must be set before assembling")
         dev = resolve_device(device)
+        radial, angular = (t(dev) if callable(t) else t for t in self._aev_terms)
         aev = AEVComputer.make(
-            *self._aev_terms,
+            radial,
+            angular,
             num_species=len(self.symbols),
             cutoff_fn=self._global_cutoff_fn,
             device=dev,
@@ -197,18 +245,101 @@ class Assembler:
         generator = torch.Generator().manual_seed(seed)
         if ensemble_size == 1:
             networks: Ensemble = AtomicNetworks.random(
-                self.symbols, layer_dims, generator, dev
+                self.symbols, layer_dims, generator, dev, **self._networks
             )
         else:
             networks = Ensemble.random(
-                ensemble_size, self.symbols, layer_dims, generator, dev
+                ensemble_size, self.symbols, layer_dims, generator, dev, **self._networks
             )
         if self._lot is not None:
             shifter = SelfEnergy.from_lot(self.symbols, self._lot, dev)
         else:
             shifter = SelfEnergy(self.symbols, [0.0] * len(self.symbols), dev)
+        potentials: tp.Dict[str, Potential] = {
+            "nnp": NNPotential(self.symbols, aev, networks)
+        }
+        for name, build in self._extra_potentials.items():
+            potentials[name] = build(dev)
         return ANI(
-            potentials={"nnp": NNPotential(self.symbols, aev, networks)},
+            potentials=potentials,
             energy_shifter=shifter,
             symbols=self.symbols,
+            neighborlist=self._neighborlist,
         )
+
+
+def simple_ani(
+    symbols: tp.Sequence[str],
+    lot: str = "wb97x-631gd",
+    ensemble_size: int = 1,
+    radial_start: float = 0.9,
+    angular_start: float = 0.9,
+    radial_cutoff: float = 5.2,
+    angular_cutoff: float = 3.5,
+    radial_shifts: int = 16,
+    angular_shifts: int = 8,
+    sections: int = 4,
+    radial_precision: float = 19.7,
+    angular_precision: float = 12.5,
+    angular_zeta: float = 14.1,
+    cutoff_fn: str = "smooth",
+    repulsion: bool = True,
+    dispersion: bool = False,
+    container: str = "ANINetworks",
+    container_ctor: str = "default",
+    activation: str = "gelu",
+    bias: bool = False,
+    neighborlist: NeighborlistArg = "all_pairs",
+    repulsion_cutoff: bool = True,
+    seed: int = 0,
+    device: DeviceArg = None,
+) -> ANI:
+    """One-call model factory with the JAX package's defaults: an ANI-2x-like
+    AEV with the smooth cutoff, gelu networks without bias, xTB repulsion
+    enveloped at the radial cutoff and, with ``dispersion``, D3(BJ) dispersion
+    of ``lot``'s functional at 8 A.  Random weights from ``seed``.
+
+    Only the ``"ANINetworks"`` container is ported; ``"SingleNN"`` and
+    ``"ANISharedNetworks"`` raise.
+    """
+    if container != "ANINetworks":
+        raise NotImplementedError(
+            f"network container {container!r} is not ported yet; only 'ANINetworks' is"
+        )
+    symbols = tuple(symbols)
+    asm = Assembler()
+    asm.set_symbols(symbols)
+    asm.set_global_cutoff_fn(cutoff_fn)
+    asm.set_aev_computer(
+        radial=lambda dev: ANIRadial.cover_linearly(
+            start=radial_start, cutoff=radial_cutoff, eta=radial_precision,
+            num_shifts=radial_shifts, cutoff_fn=cutoff_fn, device=dev,
+        ),
+        angular=lambda dev: ANIAngular.cover_linearly(
+            start=angular_start, cutoff=angular_cutoff, eta=angular_precision,
+            zeta=angular_zeta, num_shifts=angular_shifts, num_sections=sections,
+            cutoff_fn=cutoff_fn, device=dev,
+        ),
+    )
+    # the "default" constructor of this container is ANI-2x's widths with
+    # the activation and bias passed here
+    ctor = "ani2x" if container_ctor == "default" else container_ctor
+    asm.set_atomic_networks(ctor=ctor, activation=activation, bias=bias)
+    asm.set_neighborlist(neighborlist)
+    asm.set_gsaes_as_self_energies(lot)
+    if repulsion:
+        asm.add_potential(
+            "repulsion_xtb",
+            lambda dev: RepulsionXTB(
+                symbols, cutoff=radial_cutoff if repulsion_cutoff else math.inf,
+                cutoff_fn=cutoff_fn, device=dev,
+            ),
+        )
+    if dispersion:
+        asm.add_potential(
+            "dispersion_d3",
+            lambda dev: TwoBodyDispersionD3(
+                symbols, functional=lot.split("-")[0], cutoff=8.0, device=dev
+            ),
+        )
+    return asm.assemble(ensemble_size, seed=seed, device=device)

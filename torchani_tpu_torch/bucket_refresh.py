@@ -26,6 +26,12 @@ devices of its hardware and are not carried over.  Layouts here are the
 natural ones: ``cand (G, 27, C, 3)``, ``keys (G, R)`` with ``R = C * K`` and
 ``r = c * K + k``, ``out (G, R, 3)``.
 
+The same tables select runtime per-atom VALUES per lane (`bucket_lane_values`,
+`select_lane_values`): ``values[idx]`` for quantities that change every step
+(the D3 dispersion's coordination numbers), with P channels in place of the 3
+of a position and no image shift.  Its kernels are K4f (`vals_select_fwd`)
+and K4b (`vals_select_bwd`), in ``csrc/vals_select.cu``.
+
 Coordinate convention: MD coordinates drift unwrapped across the periodic
 box.  All positions here are *canonical*: ``canon = coords - wrap_offset``
 where ``wrap_offset`` is frozen at rebuild time, so canonical positions move
@@ -53,6 +59,12 @@ __all__ = [
     "bucket_select_bwd",
     "bucket_select_reference",
     "bucket_select_bwd_reference",
+    "bucket_lane_values",
+    "select_lane_values",
+    "vals_select_fwd",
+    "vals_select_bwd",
+    "vals_select_reference",
+    "vals_select_bwd_reference",
     "make_wrapshift",
     "tables_from_cell_aux",
 ]
@@ -61,6 +73,9 @@ __all__ = [
 _SENTINEL = 27 << 8
 #: the rank has 8 bits
 MAX_SLOTS = 256
+#: dynamic shared memory a block may have on an H100: a bucket's candidate
+#: tile must fit it
+MAX_SHARED_BYTES = 227 * 1024
 
 _SECTION_OFFSETS = np.mgrid[-1:2, -1:2, -1:2].reshape(3, -1).T  # (27, 3)
 
@@ -234,11 +249,11 @@ def bucket_select_reference(
     """Plain version of `bucket_select_fwd` (the counterpart of
     ``_ref_select_fwd``): a gather from each bucket's flat candidate table,
     padded with a zero section for the sentinel.  Lanes at or past
-    ``nlanes[g]`` give 0."""
-    g, _, c, _ = cand.shape
-    flat = torch.nn.functional.pad(cand.reshape(g, 27 * c, 3), (0, 0, 0, c))
+    ``nlanes[g]`` give 0.  Any number of channels: ``cand (G, 27, C, P)``."""
+    g, _, c, p = cand.shape
+    flat = torch.nn.functional.pad(cand.reshape(g, 27 * c, p), (0, 0, 0, c))
     index = _flat_index(keys, c)
-    out = torch.gather(flat, 1, index[:, :, None].expand(-1, -1, 3))
+    out = torch.gather(flat, 1, index[:, :, None].expand(-1, -1, p))
     if nlanes is not None:
         lanes = torch.arange(keys.shape[1], device=keys.device)
         out = torch.where((lanes[None, :] < nlanes[:, None])[..., None], out, 0.0)
@@ -250,14 +265,14 @@ def bucket_select_bwd_reference(
 ) -> Tensor:
     """Plain version of `bucket_select_bwd` (the counterpart of
     ``_ref_select_bwd``): a scatter-add onto each bucket's flat candidate
-    table; the sentinel section is cut away."""
-    g, r, _ = g_out.shape
+    table; the sentinel section is cut away.  Any number of channels."""
+    g, r, p = g_out.shape
     if nlanes is not None:
         lanes = torch.arange(r, device=keys.device)
         g_out = torch.where((lanes[None, :] < nlanes[:, None])[..., None], g_out, 0.0)
-    d_flat = g_out.new_zeros((g, 28 * c, 3))
-    d_flat.scatter_add_(1, _flat_index(keys, c)[:, :, None].expand(-1, -1, 3), g_out)
-    return d_flat[:, : 27 * c].reshape(g, 27, c, 3)
+    d_flat = g_out.new_zeros((g, 28 * c, p))
+    d_flat.scatter_add_(1, _flat_index(keys, c)[:, :, None].expand(-1, -1, p), g_out)
+    return d_flat[:, : 27 * c].reshape(g, 27, c, p)
 
 
 def _library() -> ctypes.CDLL:
@@ -381,6 +396,128 @@ bucket_select_bwd.launches = 0
 
 
 # ---------------------------------------------------------------------------
+# K4f and K4b: the same selection for P channels of runtime per-atom values
+# ---------------------------------------------------------------------------
+
+
+def vals_select_reference(
+    cand: Tensor, keys: Tensor, nlanes: tp.Optional[Tensor] = None
+) -> Tensor:
+    """Plain version of `vals_select_fwd`: `bucket_select_reference` at
+    ``cand (G, 27, C, P)``."""
+    return bucket_select_reference(cand, keys, nlanes)
+
+
+def vals_select_bwd_reference(
+    g_out: Tensor, keys: Tensor, c: int, nlanes: tp.Optional[Tensor] = None
+) -> Tensor:
+    """Plain version of `vals_select_bwd`: `bucket_select_bwd_reference` at
+    ``g_out (G, R, P)``."""
+    return bucket_select_bwd_reference(g_out, keys, c, nlanes)
+
+
+def _vals_library() -> ctypes.CDLL:
+    from torchani_tpu_torch.csrc import load_library
+
+    lib = load_library("vals_select")
+    if lib.vals_select_fwd_launch.argtypes is None:
+        vp, ci = ctypes.c_void_p, ctypes.c_int
+        for fn in (lib.vals_select_fwd_launch, lib.vals_select_bwd_launch):
+            # source, keys, nlanes (or null), destination; G, C, R, P; device, stream
+            fn.argtypes = [vp, vp, vp, vp, ci, ci, ci, ci, ci, vp]
+            fn.restype = ci
+        lib.vals_select_error_string.argtypes = [ci]
+        lib.vals_select_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def _vals_launch(name: str, src: Tensor, keys: Tensor, nlanes, dst: Tensor, g, c, r, p) -> None:
+    if 27 * c * p * 4 > MAX_SHARED_BYTES:
+        raise ValueError(
+            f"{name}: a bucket's candidate tile of 27 x {c} slots x {p} channels takes "
+            f"{27 * c * p * 4} bytes of shared memory, over the {MAX_SHARED_BYTES} a block "
+            f"may have; select fewer channels per call"
+        )
+    lib = _vals_library()
+    fn = getattr(lib, f"{name}_launch")
+    with torch.cuda.device(src.device):
+        rc = fn(
+            src.data_ptr(), keys.data_ptr(),
+            None if nlanes is None else nlanes.data_ptr(), dst.data_ptr(),
+            g, c, r, p, src.get_device(), torch.cuda.current_stream(src.device).cuda_stream,
+        )
+    if rc != 0:
+        msg = lib.vals_select_error_string(rc).decode()
+        raise RuntimeError(f"{name}: kernel launch failed: CUDA error {rc} ({msg})")
+
+
+def vals_select_fwd(
+    cand: Tensor, keys: Tensor, nlanes: tp.Optional[Tensor] = None
+) -> Tensor:
+    """K4f: ``out[g, r] = cand[g, key >> 8, key & 255]``, 0 for the sentinel
+    section 27; ``cand (G, 27, C, P)`` f32, ``keys (G, R)`` int32 ->
+    ``(G, R, P)`` f32, an exact selection of P value channels.
+
+    ``nlanes`` as in `bucket_select_fwd`: lanes at or past it are left
+    unwritten.  CPU tensors take `vals_select_reference`; CUDA tensors launch
+    the kernel or raise.  ``vals_select_fwd.launches`` counts launches.
+    """
+    if cand.device.type == "cpu":
+        return vals_select_reference(cand, keys, nlanes)
+    if cand.device.type != "cuda":
+        raise ValueError(f"vals_select_fwd: unsupported device {cand.device}")
+    if cand.dim() != 4 or cand.shape[1] != 27 or cand.shape[3] < 1:
+        raise ValueError(f"vals_select_fwd: cand {tuple(cand.shape)} must be (G, 27, C, P)")
+    g, _, c, p = cand.shape
+    _check_kernel_args("vals_select_fwd", cand, keys, nlanes, g, c)
+    r = keys.shape[1]
+    out = torch.empty((g, r, p), dtype=torch.float32, device=cand.device)
+    if g == 0 or r == 0:
+        return out
+    _vals_launch("vals_select_fwd", cand, keys, nlanes, out, g, c, r, p)
+    vals_select_fwd.launches += 1
+    return out
+
+
+vals_select_fwd.launches = 0
+
+
+def vals_select_bwd(
+    g_out: Tensor, keys: Tensor, c: int, nlanes: tp.Optional[Tensor] = None
+) -> Tensor:
+    """K4b, the transpose of K4f: ``d_cand[g, key >> 8, key & 255] +=
+    g_out[g, r]`` over every lane whose section is below 27; ``g_out
+    (G, R, P)`` f32, ``keys (G, R)`` int32 -> ``(G, 27, C, P)`` f32, zeros
+    where no lane points.
+
+    Lanes at or past ``nlanes[g]`` are not read.  Sums are atomics in shared
+    memory, in an order that changes from run to run.  CPU tensors take
+    `vals_select_bwd_reference`; CUDA tensors launch the kernel or raise.
+    ``vals_select_bwd.launches`` counts launches.
+    """
+    if g_out.device.type == "cpu":
+        return vals_select_bwd_reference(g_out, keys, c, nlanes)
+    if g_out.device.type != "cuda":
+        raise ValueError(f"vals_select_bwd: unsupported device {g_out.device}")
+    if g_out.dim() != 3 or g_out.shape[2] < 1 or g_out.shape[:2] != keys.shape:
+        raise ValueError(
+            f"vals_select_bwd: g_out {tuple(g_out.shape)} must be keys' "
+            f"{tuple(keys.shape)} + (P,)"
+        )
+    g, r, p = g_out.shape
+    _check_kernel_args("vals_select_bwd", g_out, keys, nlanes, g, c)
+    d_cand = torch.empty((g, 27, c, p), dtype=torch.float32, device=g_out.device)
+    if g == 0:
+        return d_cand
+    _vals_launch("vals_select_bwd", g_out, keys, nlanes, d_cand, g, c, r, p)
+    vals_select_bwd.launches += 1
+    return d_cand
+
+
+vals_select_bwd.launches = 0
+
+
+# ---------------------------------------------------------------------------
 # the full refresh forward and backward around the kernels
 # ---------------------------------------------------------------------------
 
@@ -420,26 +557,33 @@ def _section_rows(grid: tp.Tuple[int, int, int], device: torch.device) -> tp.Tup
     )
 
 
-def _cand_table(canon: Tensor, atom_of_slot: Tensor, wrapshift: Tensor, grid, c: int) -> Tensor:
-    """(G, 27, C, 3) candidate positions of every bucket: section ``o`` of
-    bucket ``b`` is the slot table of bucket ``wrap(b3 + off_o)`` (what 27
-    rolls of the ``(gx, gy, gz, C, 3)`` slot table give) plus the constant
-    section shift.  Two row gathers: G*C atoms, then G*27 slot tables."""
+def _slot_sections(values: Tensor, atom_of_slot: Tensor, grid, c: int) -> Tensor:
+    """(G, 27, C, P) candidate values of every bucket from per-atom ``values
+    (A, P)``: section ``o`` of bucket ``b`` is the slot table of bucket
+    ``wrap(b3 + off_o)`` (what 27 rolls of the ``(gx, gy, gz, C, P)`` slot
+    table give).  Two row gathers: G*C atoms, then G*27 slot tables."""
     gx, gy, gz = grid
     g = gx * gy * gz
-    a = canon.shape[0]
-    canon_pad = torch.cat([canon, canon.new_zeros((1, 3))])
-    posb = canon_pad.index_select(0, atom_of_slot.clamp(max=a)).reshape(g, c * 3)
-    cand = posb.index_select(0, _section_rows(grid, canon.device)[0])
-    return cand.reshape(g, 27, c, 3) + wrapshift.reshape(g, 27, 1, 3)
+    a, p = values.shape
+    vals_pad = torch.cat([values, values.new_zeros((1, p))])
+    valsb = vals_pad.index_select(0, atom_of_slot.clamp(max=a)).reshape(g, c * p)
+    cand = valsb.index_select(0, _section_rows(grid, values.device)[0])
+    return cand.reshape(g, 27, c, p)
 
 
 def _cand_table_transpose(d_cand: Tensor, grid, c: int) -> Tensor:
-    """(G * C, 3) cotangent of the slot table from the candidate table's
-    ``(G, 27, C, 3)``: each bucket sums the 27 sections that hold it."""
-    g = d_cand.shape[0]
-    rows = d_cand.reshape(g * 27, c * 3).index_select(0, _section_rows(grid, d_cand.device)[1])
-    return rows.reshape(g, 27, c * 3).sum(dim=1).reshape(g * c, 3)
+    """(G * C, P) cotangent of the slot table from the candidate table's
+    ``(G, 27, C, P)``: each bucket sums the 27 sections that hold it."""
+    g, p = d_cand.shape[0], d_cand.shape[3]
+    rows = d_cand.reshape(g * 27, c * p).index_select(0, _section_rows(grid, d_cand.device)[1])
+    return rows.reshape(g, 27, c * p).sum(dim=1).reshape(g * c, p)
+
+
+def _cand_table(canon: Tensor, atom_of_slot: Tensor, wrapshift: Tensor, grid, c: int) -> Tensor:
+    """(G, 27, C, 3) candidate positions of every bucket: the slot tables of
+    its 27 surrounding buckets plus the constant section shift."""
+    g = wrapshift.shape[0] * wrapshift.shape[1] * wrapshift.shape[2]
+    return _slot_sections(canon, atom_of_slot, grid, c) + wrapshift.reshape(g, 27, 1, 3)
 
 
 def _occupied_lanes(atom_of_slot: Tensor, a: int, g: int, c: int, k: int) -> Tensor:
@@ -498,3 +642,79 @@ def bucket_nbr_pos(
     an exact selection; the forward launches K1 and the backward K2 (no
     per-atom scatter).  Masked lanes and atoms without a slot give 0."""
     return _BucketNbrPos.apply(canon, keys, atom_of_slot, slot_of_atom, wrapshift)
+
+
+# ---------------------------------------------------------------------------
+# per-lane selection of runtime per-atom values around K4f and K4b
+# ---------------------------------------------------------------------------
+
+
+def _vals_fwd_impl(values, keys, atom_of_slot, slot_of_atom, wrapshift, nlanes):
+    grid, g, c, k = _statics(atom_of_slot, keys, wrapshift)
+    a, p = values.shape
+    cand = _slot_sections(values, atom_of_slot, grid, c)  # (G, 27, C, P)
+    out = vals_select_fwd(cand, keys, nlanes)  # (G, C*K, P)
+    # r = c * K + k: the slot-row table is a view
+    per_slot = out.reshape(g * c, k * p)
+    lane = per_slot.index_select(0, slot_of_atom.clamp(min=0)).reshape(a, k, p)
+    return torch.where((slot_of_atom >= 0)[:, None, None], lane, 0.0)
+
+
+def _vals_bwd_impl(g_out, keys, atom_of_slot, slot_of_atom, wrapshift, nlanes):
+    grid, g, c, k = _statics(atom_of_slot, keys, wrapshift)
+    a, _, p = g_out.shape
+    g_pad = torch.cat([g_out.reshape(a, k * p), g_out.new_zeros((1, k * p))])
+    g_rows = g_pad.index_select(0, atom_of_slot.clamp(max=a)).reshape(g, c * k, p)
+    d_cand = vals_select_bwd(g_rows, keys, c, nlanes)  # (G, 27, C, P)
+    d_pad = torch.cat([_cand_table_transpose(d_cand, grid, c), g_out.new_zeros((1, p))])
+    return d_pad.index_select(0, torch.where(slot_of_atom >= 0, slot_of_atom, g * c))
+
+
+class _BucketLaneValues(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, values, keys, atom_of_slot, slot_of_atom, wrapshift):
+        _, g, c, k = _statics(atom_of_slot, keys, wrapshift)
+        nlanes = _occupied_lanes(atom_of_slot, values.shape[0], g, c, k)
+        ctx.save_for_backward(keys, atom_of_slot, slot_of_atom, wrapshift, nlanes)
+        return _vals_fwd_impl(values, keys, atom_of_slot, slot_of_atom, wrapshift, nlanes)
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, g_out):
+        d_values = _vals_bwd_impl(g_out.contiguous(), *ctx.saved_tensors)
+        return d_values, None, None, None, None
+
+
+def bucket_lane_values(
+    values: Tensor,  # (A, P) runtime per-atom values
+    keys: Tensor,  # (G, C*K) int32
+    atom_of_slot: Tensor,  # (G*C,) int64
+    slot_of_atom: Tensor,  # (A,) int64
+    wrapshift: Tensor,  # (gx, gy, gz, 27, 3): read for the grid's shape only
+) -> Tensor:
+    """Exact per-lane selection of runtime per-atom values: ``(A, P)`` ->
+    ``(A, K, P)`` with ``out[i, k] = values[idx[i, k]]``; the forward launches
+    K4f and the backward K4b (no per-atom scatter).  Masked lanes and atoms
+    without a slot give 0."""
+    return _BucketLaneValues.apply(values, keys, atom_of_slot, slot_of_atom, wrapshift)
+
+
+def select_lane_values(values: Tensor, neighbors) -> Tensor:
+    """``values[neighbors.idx]`` for runtime per-atom values: through
+    `bucket_lane_values` where the table carries bucket tables
+    (``Neighbors.select_tables``, attached by `MolecularDynamics`), a plain
+    ``index_select`` otherwise.
+
+    ``values``: ``(A,)`` or ``(A, P)``.  Returns ``(A, K)`` or ``(A, K, P)``.
+    """
+    tables = neighbors.select_tables
+    if tables is None:
+        idx = neighbors.idx
+        out = values.index_select(0, idx.reshape(-1))
+        return out.reshape(tuple(idx.shape) + tuple(values.shape[1:]))
+    squeeze = values.dim() == 1
+    v = values[:, None] if squeeze else values
+    out = bucket_lane_values(
+        v.contiguous(), tables.keys, tables.atom_of_slot, tables.slot_of_atom, tables.wrapshift
+    )
+    return out[..., 0] if squeeze else out

@@ -6,14 +6,17 @@ The JAX package's `ANI` is a pytree whose leaves sit at paths such as
 ``jax.tree_util.keystr`` writes them).  The port's modules mirror those
 attribute names and layouts (``(E, S, in, out)`` weight stacks, ``(E, S,
 out)`` biases, the AEV constants, the self energies), so each path resolves
-to one parameter or buffer here.  This module reads only numpy arrays and
+to one parameter or buffer here; so do the constant tables of the pair
+potentials (``.potentials['dispersion_d3'].precalc_coeff6``, ...), which the
+port builds from its own resources.  This module reads only numpy arrays and
 never imports JAX: the caller flattens the JAX model, e.g.::
 
     arrays = {jax.tree_util.keystr(p): np.asarray(x)
               for p, x in jax.tree_util.tree_flatten_with_path(jax_model)[0]}
 
 The JAX package's ``MDState`` flattens the same way (leaves ``.coords``,
-``.nbr_idx``, ``.bucket.keys``, ...), and `load_jax_md_state` puts the
+``.nbr_idx``, ``.bucket.keys`` or ``.bucket.keys_flat``,
+``.pair_aux['dispersion_d3']``, ...), and `load_jax_md_state` puts the
 port's `MolecularDynamics` on that cached topology, so that the two can be
 compared lane for lane.
 """
@@ -26,6 +29,7 @@ import torch
 
 from torchani_tpu_torch.annotations import DeviceArg
 from torchani_tpu_torch.bucket_refresh import BucketTables
+from torchani_tpu_torch.bucket_refresh_packed import PackedTables
 from torchani_tpu_torch.md import MDState
 from torchani_tpu_torch.utils import resolve_device
 
@@ -109,27 +113,41 @@ _BUCKET_DTYPES = {
     "wrap_offset": torch.float32,
     "wrapshift": torch.float32,
 }
+_PACKED_DTYPES = {
+    "keys_flat": torch.int32,
+    "tile_bucket": torch.int32,
+    "atom_of_row": torch.int64,
+    "row_of_atom": torch.int64,
+    "atom_of_slot": torch.int64,
+    "slot_of_atom": torch.int64,
+    "wrap_offset": torch.float32,
+    "wrapshift": torch.float32,
+}
+_PAIR_AUX = re.compile(r"\.pair_aux\['([^']*)'\]")
 
 
 def load_jax_md_state(
     arrays: tp.Mapping[str, np.ndarray], device: DeviceArg = None
 ) -> MDState:
     """The port's `MDState` from the leaves of a JAX ``MDState`` (numpy
-    arrays keyed by ``jax.tree_util.keystr``), bucket tables included.
+    arrays keyed by ``jax.tree_util.keystr``): the cached topology, the
+    bucket tables of either layout (`BucketTables` or `PackedTables`, told
+    apart by their leaves) and the frozen pair channels ``pair_aux``.
 
     ``nbr_rev`` and ``key`` are ignored.  A state that carries what the port
-    does not have yet (the atom-packed tables, ``pair_aux``, ``scale``,
-    ``nhc``) is refused.
+    does not have (``scale``, ``nhc``) is refused.
     """
     dev = resolve_device(device)
+    packed = ".bucket.keys_flat" in arrays
+    bucket_dtypes = _PACKED_DTYPES if packed else _BUCKET_DTYPES
     known = set(_STATE_DTYPES) | {".rebuilds", ".step"} | set(_IGNORED_STATE_LEAVES)
-    known |= {f".bucket.{name}" for name in _BUCKET_DTYPES}
-    unknown = sorted(set(arrays) - known)
+    known |= {f".bucket.{name}" for name in bucket_dtypes}
+    unknown = sorted(p for p in set(arrays) - known if not _PAIR_AUX.fullmatch(p))
     if unknown:
         raise KeyError(f"MD state leaves the port has no field for: {unknown}")
 
     def tensor(path: str, dtype: torch.dtype) -> torch.Tensor:
-        return torch.as_tensor(np.array(arrays[path]), device=dev).to(dtype)
+        return torch.as_tensor(np.array(arrays[path]), device=dev).to(dtype).contiguous()
 
     fields = {
         path[1:]: tensor(path, dtype)
@@ -141,12 +159,17 @@ def load_jax_md_state(
         raise KeyError(f"no value given for {missing}")
     bucket = None
     if any(path.startswith(".bucket.") for path in arrays):
-        bucket = BucketTables(
-            **{name: tensor(f".bucket.{name}", dt) for name, dt in _BUCKET_DTYPES.items()}
-        )
+        tables = {name: tensor(f".bucket.{name}", dt) for name, dt in bucket_dtypes.items()}
+        bucket = PackedTables(**tables) if packed else BucketTables(**tables)
+    pair_aux = {
+        m.group(1): tensor(path, torch.float32)
+        for path in arrays
+        if (m := _PAIR_AUX.fullmatch(path))
+    }
     return MDState(
         **fields,
         rebuilds=int(arrays[".rebuilds"]),
         step=int(arrays[".step"]),
         bucket=bucket,
+        pair_aux=pair_aux or None,
     )

@@ -1,13 +1,22 @@
 """Molecular dynamics with Verlet-cached neighbors (counterpart of
-``torchani_tpu/md.py``, as far as the NVE loop and `CachedSinglePoint`).
+``torchani_tpu/md.py``, as far as the NVE loop and `CachedSinglePoint`, for
+models of one or several potentials).
 
 The neighbor topology is a cell list built at ``cutoff + skin`` and reused
 until a pair can have closed the skin gap.  Each step recomputes only the
 differentiable pair vectors from the cached topology (`_refresh_neighbors`),
 the model and its gradient.  For periodic cells the refresh is bucket-local
 (`torchani_tpu_torch.bucket_refresh`: the CUDA kernels K1 forward, K2
-backward); otherwise it is an ``index_select`` whose backward is an
-``index_add``.
+backward; with ``bucket_refresh="packed"``
+`torchani_tpu_torch.bucket_refresh_packed`: K5f and K5b); otherwise it is an
+``index_select`` whose backward is an ``index_add``.
+
+A model with a long-cutoff potential (D3 dispersion at 8 A) sets the build
+radius; the lanes are sorted by build distance, and each shorter potential
+(the networks' AEV, the repulsion) runs on its own static prefix of them.
+The slot-layout bucket tables ride on the refreshed table as the lane-select
+service for runtime per-atom values (`bucket_refresh.select_lane_values`:
+K4f and K4b inside D3).
 
 Where the JAX package compiles the whole step and scans over it, this is
 a Python loop over `MolecularDynamics.step_nve`; the rebuild decision is one
@@ -32,6 +41,12 @@ from torchani_tpu_torch.bucket_refresh import (
     bucket_nbr_pos,
     make_wrapshift,
     tables_from_cell_aux,
+)
+from torchani_tpu_torch.bucket_refresh_packed import (
+    PackedTables,
+    choose_span,
+    pack_tables,
+    packed_nbr_pos,
 )
 from torchani_tpu_torch.neighbors import (
     Neighbors,
@@ -84,9 +99,14 @@ class MDState:
     rebuilds: int = 0
     step: int = 0
     nbr_perm: tp.Optional[Tensor] = None  # (A,) int64
-    # bucket refresh tables (periodic cell-list systems); None selects the
-    # gather refresh
-    bucket: tp.Optional[BucketTables] = None
+    # bucket refresh tables (periodic cell-list systems): `BucketTables` for
+    # the slot-row layout, `PackedTables` for the atom-packed one; None
+    # selects the gather refresh
+    bucket: tp.Optional[tp.Union[BucketTables, PackedTables]] = None
+    # frozen per-window pair channels (potential name -> (A, K, P)),
+    # recomputed at every rebuild for the potentials named in `MolecularDynamics`'
+    # ``freeze_pair_window`` (see `Neighbors.pair_aux`); None when off
+    pair_aux: tp.Optional[tp.Dict[str, Tensor]] = None
 
     def replace(self, **changes) -> "MDState":
         return dataclasses.replace(self, **changes)
@@ -143,8 +163,22 @@ def _with_angular_preslice(model, prefix: int):
     return model
 
 
+def _slice_lanes(nb: Neighbors, p: int) -> Neighbors:
+    """Static lane-prefix view of a distance-sorted table.  The lane-select
+    tables are dropped: they describe the full lane layout."""
+    return Neighbors(
+        idx=nb.idx[:, :p],
+        mask=nb.mask[:, :p],
+        diff=nb.diff[:, :p, :],
+        dist=nb.dist[:, :p],
+        overflow=nb.overflow,
+        elem=None if nb.elem is None else nb.elem[:, :p],
+    )
+
+
 def _batch1(nb: Neighbors) -> Neighbors:
-    """Leading molecule axis on the per-lane tensors."""
+    """Leading molecule axis on the per-lane tensors only (the lane-select
+    tables and the frozen channels live in flat atom space)."""
     return nb.replace(
         idx=nb.idx[None],
         mask=nb.mask[None],
@@ -169,9 +203,12 @@ def _refresh_neighbors(state: MDState, coords: Tensor) -> Neighbors:
         # (canonical coordinates; see bucket_refresh.py)
         tables = state.bucket
         canon = coords - tables.wrap_offset
-        nbr_pos = bucket_nbr_pos(
-            canon, tables.keys, tables.atom_of_slot, tables.slot_of_atom, tables.wrapshift
-        )
+        if isinstance(tables, PackedTables):
+            nbr_pos = packed_nbr_pos(canon, tables)[:, : state.nbr_idx.shape[1]]
+        else:
+            nbr_pos = bucket_nbr_pos(
+                canon, tables.keys, tables.atom_of_slot, tables.slot_of_atom, tables.wrapshift
+            )
         diff = nbr_pos - canon[:, None, :]
     else:
         # index_select's backward is an index_add (atomic adds on the card);
@@ -187,6 +224,9 @@ def _refresh_neighbors(state: MDState, coords: Tensor) -> Neighbors:
     return Neighbors(
         idx=state.nbr_idx, mask=mask, diff=diff, dist=dist,
         overflow=state.overflow, elem=state.nbr_elem,
+        # the slot-layout tables double as the lane-select service for
+        # runtime per-atom values (bucket_refresh.select_lane_values)
+        select_tables=state.bucket if isinstance(state.bucket, BucketTables) else None,
     )
 
 
@@ -201,6 +241,14 @@ class MolecularDynamics:
     ``nn_precision`` is kept for the JAX class's signature: there ``"high"``
     (the MD default) evaluates the networks in three bf16 passes.  Here every
     value evaluates the networks in full f32, since TF32 stays off.
+
+    ``bucket_refresh``: ``"auto"`` (on for periodic cells), ``True``,
+    ``"slot"``, ``False``, or ``"packed"`` for the atom-packed layout.
+    ``freeze_pair_window`` names potentials that implement
+    ``frozen_window_channels`` (D3 dispersion): their per-lane constants are
+    then computed once per REBUILD and carried in ``MDState.pair_aux``
+    instead of being gathered at every evaluation.  Exact: the channels are
+    constants keyed by the elements.
     """
 
     def __init__(
@@ -216,6 +264,7 @@ class MolecularDynamics:
         nn_precision: str = "high",
         auto_capacity: bool = True,
         bucket_refresh: tp.Union[bool, str] = "auto",
+        freeze_pair_window: tp.Sequence[str] = (),
         device: DeviceArg = None,
     ) -> None:
         dev = resolve_device(device)
@@ -223,13 +272,12 @@ class MolecularDynamics:
             raise ValueError(
                 f"the model is on {model.device}, MolecularDynamics was asked for {dev}"
             )
-        if bucket_refresh == "packed":
-            raise NotImplementedError(
-                "the atom-packed refresh layout is not ported yet; use "
-                "bucket_refresh='auto', 'slot', True or False"
-            )
         self.device = dev = model.device
         self.model = model
+        self._freeze_pair = tuple(
+            n for n in freeze_pair_window
+            if n in model.potentials and hasattr(model.potentials[n], "frozen_window_channels")
+        )
         self.nn_precision = nn_precision
         self.species = as_tensor(species, torch.int64, dev)
         if self.species.dim() != 2 or self.species.shape[0] != 1:
@@ -284,17 +332,45 @@ class MolecularDynamics:
         # skin criterion) lives in a static prefix.  The bound is verified
         # per build (overflow flag) in _build_cache.
         self._ang_prefix: tp.Optional[int] = None
-        r_ang = float(model.aev_computer.angular.cutoff)
-        prefix = estimate_capacity(r_ang + skin, a, periodic=pbc)
-        if prefix < self.capacity:
-            self._ang_prefix = prefix
-            self.model = _with_angular_preslice(model, prefix)
+        if model.potentials["nnp"].enabled:
+            r_ang = float(model.aev_computer.angular.cutoff)
+            prefix = estimate_capacity(r_ang + skin, a, periodic=pbc)
+            if prefix < self.capacity:
+                self._ang_prefix = prefix
+                self.model = _with_angular_preslice(model, prefix)
+        # Per-POTENTIAL static lane prefixes: where a long-cutoff potential
+        # (D3 dispersion at 8 A) sets the build radius, the short-cutoff
+        # potentials (the AEV at 5.2 A, the repulsion) must not pay for the
+        # wider K: their reach lives in a static prefix of the
+        # distance-sorted lanes, by the same displacement bound as the
+        # angular prefix, verified per build.  `_potential_energy` then
+        # gives each potential its own lane slice.
+        self._lane_prefixes: tp.Dict[str, int] = {}
+        self._prefix_checks: tp.List[tp.Tuple[float, int]] = []
+        for pname, pot in self.model.potentials.items():
+            r_pot = float(pot.cutoff)
+            if not pot.enabled or not math.isfinite(r_pot):
+                continue
+            if r_pot + skin >= self.cutoff + skin - 1e-9:
+                continue  # already the build cutoff
+            p = estimate_capacity(r_pot + skin, a, periodic=pbc)
+            if p < self.capacity:
+                self._lane_prefixes[pname] = p
+        for p in sorted(set(self._lane_prefixes.values())):
+            r_phys = max(
+                float(self.model.potentials[n].cutoff)
+                for n, pp in self._lane_prefixes.items()
+                if pp == p
+            )
+            self._prefix_checks.append((r_phys, p))
         # bucket refresh (periodic systems): "auto" = on for periodic cells;
         # the slot capacity is measured at the first init
         self._bucket_on = (
             bool(bucket_refresh) if bucket_refresh != "auto" else cell is not None
         ) and cell is not None
+        self._bucket_packed = bucket_refresh == "packed"
         self._bucket_c: tp.Optional[int] = None
+        self._bucket_span: tp.Optional[tp.Tuple[int, int]] = None
         self._wrapshift: tp.Optional[Tensor] = None
         self.grid_shape: tp.Optional[tp.Tuple[int, int, int]] = None
         if self._cell_np is not None:
@@ -367,6 +443,14 @@ class MolecularDynamics:
             self._bucket_on = False
             return
         self._bucket_c = c
+        if self._bucket_packed:
+            # static (buckets per span, rows per span) of the atom-packed
+            # layout, measured like the other capacities
+            try:
+                kl = -(-self.capacity // 128) * 128
+                self._bucket_span = choose_span(self.grid_shape, counts, c, kl)
+            except ValueError:
+                self._bucket_packed = False
         self._wrapshift = torch.as_tensor(
             make_wrapshift(self.grid_shape, self._cell_np), device=self.device
         )
@@ -380,7 +464,8 @@ class MolecularDynamics:
     @torch.no_grad()
     def _build_cache(self, coords: Tensor):
         """The Verlet cache at ``coords`` (user order): ``(idx, mask, shift,
-        nbr_elem, overflow, tables)``, all detached, in internal order."""
+        nbr_elem, overflow, tables, pair_aux)``, all detached, in internal
+        order."""
         coords = self._to_internal(coords.detach())
         bucket_on = self._bucket_c is not None
         built = cell_list(
@@ -407,20 +492,25 @@ class MolecularDynamics:
             nbr_pos = coords.index_select(0, idx.reshape(-1)).reshape(a, k, 3)
             shift = nbrs.diff[0] - (nbr_pos - coords[:, None, :])
             shift = torch.where(mask[..., None], shift, 0.0)
-        if self._ang_prefix is not None:
+        if self._ang_prefix is not None or self._lane_prefixes:
             # Sort lanes by build distance (amortized over the Verlet window)
-            # so the angular-reach lanes occupy a static prefix; verify that
-            # the prefix bound holds for this build.  Stable: equal distances
-            # keep the lower lane first, masked lanes sort last.
+            # so every short-reach lane set occupies a static prefix; verify
+            # that each prefix bound holds for this build.  Stable: equal
+            # distances keep the lower lane first, masked lanes sort last.
             skeys = torch.where(mask, dist, math.inf)
             order = torch.sort(skeys, dim=-1, stable=True).indices
             if bucket_on:
                 idx, mask, keys_atom, skeys = lane_permute((idx, mask, keys_atom, skeys), order)
             else:
                 idx, mask, shift, skeys = lane_permute((idx, mask, shift, skeys), order)
-            r_ang = float(self.model.aev_computer.angular.cutoff)
-            in_reach = torch.sum(mask & (skeys <= r_ang + self.skin), dim=-1)
-            overflow = overflow | torch.any(in_reach > self._ang_prefix)
+            dist = torch.where(mask, skeys, 1.0)  # keep dist lane-aligned
+            checks = list(self._prefix_checks)
+            if self._ang_prefix is not None:
+                r_ang = float(self.model.aev_computer.angular.cutoff)
+                checks.append((r_ang, self._ang_prefix))
+            for r_phys, p in checks:
+                in_reach = torch.sum(mask & (skeys <= r_phys + self.skin), dim=-1)
+                overflow = overflow | torch.any(in_reach > p)
         # cache neighbor species (topology only): with the species-sorted
         # internal order, species-of-atom-index is a step function
         vals, starts = self._elem_steps
@@ -428,22 +518,72 @@ class MolecularDynamics:
         for v, s in zip(vals[1:], starts[1:]):
             nbr_elem = torch.where(idx >= s, v, nbr_elem)
         nbr_elem = torch.where(mask, nbr_elem, -1)
+        # frozen per-window pair channels (see freeze_pair_window), from the
+        # build-time table: the configuration every other cached quantity
+        # reflects
+        pair_aux = None
+        if self._freeze_pair:
+            nb_build = Neighbors(
+                idx=idx, mask=mask, diff=coords.new_zeros(tuple(idx.shape) + (3,)),
+                dist=torch.where(mask, dist, 1.0), overflow=overflow, elem=nbr_elem,
+            )
+            pair_aux = {}
+            for n in self._freeze_pair:
+                ch = self.model.potentials[n].frozen_window_channels(
+                    self.elem_idxs.reshape(-1), nb_build
+                )
+                if ch is not None:
+                    pair_aux[n] = ch
+            pair_aux = pair_aux or None
         tables = None
         if bucket_on:
             tables = tables_from_cell_aux(
                 keys_atom, mask, aux["atom_of_slot"], aux["slot_of_atom"],
                 coords - aux["central"], self._wrapshift, self._bucket_c,
             )
-        return idx, mask, shift, nbr_elem, overflow, tables
+            if self._bucket_span is not None:
+                tables, packed_overflow = pack_tables(tables, *self._bucket_span)
+                overflow = overflow | packed_overflow
+        return idx, mask, shift, nbr_elem, overflow, tables, pair_aux
 
-    def _potential_energy(self, nb: Neighbors, cs: Tensor) -> Tensor:
-        """Total potential energy from a refreshed table (internal order):
-        ``model.compute_from_neighbors`` with the species known here."""
-        nbn = narrow_to_cutoff(nb, self.cutoff)
-        out = self.model.compute_from_neighbors(
-            self.elem_idxs, cs[None], _batch1(nbn), species_ranges=self._species_ranges
-        )
-        return torch.sum(out.energies)
+    def _potential_energy(
+        self,
+        nb: Neighbors,
+        cs: Tensor,
+        pair_aux: tp.Optional[tp.Dict[str, Tensor]] = None,
+    ) -> Tensor:
+        """Total potential energy from a refreshed table (internal order).
+
+        Without lane prefixes and frozen channels this is
+        ``model.compute_from_neighbors`` with the species known here.  With
+        them each short-cutoff potential runs on its own STATIC prefix of the
+        distance-sorted lanes instead of the full K, and ``pair_aux`` (the
+        state's frozen window channels) is attached per potential, cut to
+        the same prefix."""
+        if not self._lane_prefixes and not self._freeze_pair:
+            nbn = narrow_to_cutoff(nb, self.cutoff)
+            out = self.model.compute_from_neighbors(
+                self.elem_idxs, cs[None], _batch1(nbn), species_ranges=self._species_ranges
+            )
+            return torch.sum(out.energies)
+        e = cs.new_zeros(())
+        for name in sorted(self.model.potentials):
+            pot = self.model.potentials[name]
+            if not pot.enabled:
+                continue
+            p = self._lane_prefixes.get(name)
+            nbp = _slice_lanes(nb, p) if p is not None else nb
+            nbp = narrow_to_cutoff(nbp, min(float(pot.cutoff), self.cutoff))
+            if pair_aux is not None and name in pair_aux:
+                aux = pair_aux[name]
+                nbp = nbp.replace(pair_aux=aux if p is None else aux[:, :p])
+            e = e + torch.sum(
+                pot.compute_from_neighbors(
+                    self.elem_idxs, cs[None], _batch1(nbp),
+                    species_ranges=self._species_ranges,
+                ).energies
+            )
+        return e + torch.sum(self.model.energy_shifter(self.elem_idxs))
 
     def _energy_and_forces(self, state: MDState, coords: Tensor) -> tp.Tuple[Tensor, Tensor]:
         """Energy and forces at ``coords`` (user order) on the cached
@@ -451,7 +591,7 @@ class MolecularDynamics:
         c = coords.detach().requires_grad_(True)
         with torch.enable_grad():
             nb = _refresh_neighbors(state, c)
-            e = self._potential_energy(nb, self._to_internal(c))
+            e = self._potential_energy(nb, self._to_internal(c), state.pair_aux)
             (g,) = torch.autograd.grad(e, c)
         return e.detach(), -g
 
@@ -484,7 +624,7 @@ class MolecularDynamics:
             velocities = maxwell_boltzmann_velocities(generator, self.masses, temperature)
         else:
             velocities = torch.zeros_like(coords)
-        idx, mask, shift, nbr_elem, overflow, tables = self._build_cache(coords)
+        idx, mask, shift, nbr_elem, overflow, tables, pair_aux = self._build_cache(coords)
         state = MDState(
             coords=coords,
             velocities=velocities,
@@ -498,6 +638,7 @@ class MolecularDynamics:
             overflow=overflow,
             nbr_perm=self._species_perm,
             bucket=tables,
+            pair_aux=pair_aux,
         )
         e, f = self._energy_and_forces(state, coords)
         return state.replace(energy=e, forces=f)
@@ -514,7 +655,7 @@ class MolecularDynamics:
         need = torch.sum(torch.sqrt(top2)) > self.build_radius - self.cutoff
         if not bool(need):
             return state
-        idx, mask, shift, nbr_elem, overflow, tables = self._build_cache(coords)
+        idx, mask, shift, nbr_elem, overflow, tables, pair_aux = self._build_cache(coords)
         return state.replace(
             nbr_idx=idx,
             nbr_mask=mask,
@@ -524,6 +665,7 @@ class MolecularDynamics:
             rebuilds=state.rebuilds + 1,
             overflow=state.overflow | overflow,
             bucket=tables,
+            pair_aux=pair_aux,
         )
 
     # ---- integrator ----

@@ -59,6 +59,15 @@ class Neighbors:
         overflow: bool scalar tensor, True if some row had more real
             neighbors than ``K`` (the table is then incomplete).
         elem: optional ``(..., A, K)`` neighbor species (-1 in masked lanes).
+        select_tables: optional bucket tables
+            (`torchani_tpu_torch.bucket_refresh.BucketTables`) of the table's
+            full lane layout, attached by `MolecularDynamics`: with them
+            `torchani_tpu_torch.bucket_refresh.select_lane_values` selects
+            runtime per-atom values per lane without a gather.  They live in
+            flat single-system atom space.
+        pair_aux: optional ``(A, K, P)`` per-lane constants of one potential
+            that `MolecularDynamics` computed at the last rebuild
+            (``freeze_pair_window``), in the same flat space.
     """
 
     idx: Tensor
@@ -67,6 +76,8 @@ class Neighbors:
     dist: Tensor
     overflow: Tensor
     elem: tp.Optional[Tensor] = None
+    select_tables: tp.Optional[tp.Any] = None
+    pair_aux: tp.Optional[Tensor] = None
 
     @property
     def capacity(self) -> int:
@@ -502,7 +513,9 @@ def cell_list(
     nb_bucket, sec_ok, wrap, zero_shift, gdims = _bucket_neighborhood(
         (gx, gy, gz), periodic, dev
     )
-    idx3 = torch.minimum((frac * gdims.to(frac.dtype)).to(torch.int64), gdims - 1)
+    # a non-finite coordinate converts to a huge negative integer: keep it
+    # in range (its distances stay NaN, so nothing wrong is selected)
+    idx3 = torch.minimum((frac * gdims.to(frac.dtype)).to(torch.int64), gdims - 1).clamp(min=0)
     bucket_id = (idx3[:, 0] * gy + idx3[:, 1]) * gz + idx3[:, 2]
     bucket_id = torch.where(real, bucket_id, g)  # dummies into a trash bucket
 

@@ -147,13 +147,16 @@ class Ensemble(torch.nn.Module):
         layer_dims: LayerDims,
         generator: torch.Generator,
         device: DeviceArg = None,
+        activation: str = "celu",
+        bias: bool = True,
     ) -> "Ensemble":
-        """CELU networks with biases and random weights from ``generator``."""
+        """Networks with random weights from ``generator`` (CELU with biases
+        by default, as the JAX package's ``like_2x``)."""
         dev = resolve_device(device)
         weights, biases = _random_stacks(num_members, layer_dims, generator)
         return cls(
-            [w.to(dev) for w in weights], [b.to(dev) for b in biases],
-            layer_dims, tuple(symbols),
+            [w.to(dev) for w in weights], [b.to(dev) for b in biases] if bias else None,
+            layer_dims, tuple(symbols), activation,
         )
 
     def member(self, idx: int) -> "AtomicNetworks":
@@ -254,13 +257,16 @@ class AtomicNetworks(Ensemble):
         layer_dims: LayerDims,
         generator: torch.Generator,
         device: DeviceArg = None,
+        activation: str = "celu",
+        bias: bool = True,
     ) -> "AtomicNetworks":
-        """CELU networks with biases and random weights from ``generator``."""
+        """Networks with random weights from ``generator`` (CELU with biases
+        by default)."""
         dev = resolve_device(device)
         weights, biases = _random_stacks(1, layer_dims, generator)
         return cls(
-            [w[0].to(dev) for w in weights], [b[0].to(dev) for b in biases],
-            layer_dims, tuple(symbols),
+            [w[0].to(dev) for w in weights], [b[0].to(dev) for b in biases] if bias else None,
+            layer_dims, tuple(symbols), activation,
         )
 
     def forward(

@@ -20,10 +20,18 @@ rebuild), and, from ``torch.profiler`` over 20 steps, the device-busy share,
 kernel launches and host waits per step and the top kernels; the kernels of
 the bucket refresh and of the gather refresh, forward and backward, on the
 same cached topology; and how long the box lasts under random weights (it
-heats up until a static capacity overflows).
+heats up until a static capacity overflows).  Last, for ANI-2dr (networks,
+xTB repulsion, D3 dispersion) under `MolecularDynamics` three ways (its
+defaults, the frozen pair window, the atom-packed refresh): the step's wall
+time, the forward-and-backward wall time of each potential alone on its own
+lane prefix (the networks with their AEV, the repulsion, D3 with its K4
+launches) and of the refresh, and the profiled window's launches, host waits
+and top kernels.  ``python3 -m torchani_tpu_torch.profiling ani2dr`` prints
+that last part alone.
 """
 
 import math
+import sys
 import time
 import typing as tp
 
@@ -31,13 +39,15 @@ import numpy as np
 import torch
 
 from torchani_tpu_torch.grad import energies_and_forces
+from torchani_tpu_torch.bucket_refresh import vals_select_bwd, vals_select_fwd
 from torchani_tpu_torch.md import (
     MolecularDynamics,
     _batch1,
     _refresh_neighbors,
+    _slice_lanes,
     kinetic_temperature,
 )
-from torchani_tpu_torch.models import ANI2x
+from torchani_tpu_torch.models import ANI2dr, ANI2x
 from torchani_tpu_torch.neighbors import CellList, narrow_to_cutoff
 from torchani_tpu_torch.testing import make_water_box
 
@@ -143,14 +153,19 @@ def main() -> None:
     _profile("E+F", stages["E+F"], STEPS)
     del stages, nbrs, aevs
     md_report(model, species, coords, cell)
+    del model
+    torch.cuda.empty_cache()
+    dr_report()
 
 
 def _profile(
-    what: str, fn: tp.Callable[[], tp.Any], reps: int, top: int = 20, host_ops: bool = True
+    what: str, fn: tp.Callable[[], tp.Any], reps: int, top: int = 20, host_ops: bool = True,
+    also: tp.Sequence[str] = (),
 ) -> None:
     """Print, from ``torch.profiler`` over ``reps`` calls of ``fn()``: the
     device-busy share of the window, kernel launches, host waits and copies
-    per call, the ``top`` kernels by device time and (with ``host_ops``) the
+    per call, the ``top`` kernels by device time, the kernels whose name
+    holds one of ``also`` wherever they rank, and (with ``host_ops``) the
     host operations that take the most time."""
     activities = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     fn()
@@ -181,7 +196,7 @@ def _profile(
     print(f"per {what}: {launches / reps:.1f} kernel launches; host waits and copies "
           f"{ {k: round(v, 2) for k, v in sorted(waits.items()) if v > 0} }")
     print(f"device time per {what} by kernel (top {top}):")
-    for e in rows[:top]:
+    for e in rows[:top] + [e for e in rows[top:] if any(name in e.key for name in also)]:
         print(
             f"  {e.self_device_time_total / reps / 1e3:9.4f} ms  "
             f"{e.count / reps:7.1f}x  {e.key[:100]}"
@@ -306,5 +321,92 @@ def heating_report(md: MolecularDynamics, coords, max_steps: int = 100) -> None:
             break
 
 
+#: MD steps of an ANI-2dr window: with its 3 steps of run-in, the warm-up
+#: step and the window, a stretch stays under the ~20 steps that the box
+#: lasts under random weights (then an atom exceeds the AEV's angular
+#: capacity and the forces go NaN by design)
+DR_MD_STEPS = 8
+#: the three ways `dr_report` drives ANI-2dr
+DR_VARIANTS = {
+    "default": {},
+    "frozen": dict(freeze_pair_window=("dispersion_d3",)),
+    "packed": dict(bucket_refresh="packed"),
+}
+
+
+def dr_report() -> None:
+    """The ANI-2dr MD step three ways: stage times per potential and the
+    profiled window."""
+    dev = torch.device("cuda")
+    model = ANI2dr(pretrained=False, seed=0, device=dev)
+    species, coords, cell, _ = _water(ATOMS, dev)
+    print(f"{torch.cuda.get_device_name(0)}; ANI-2dr, {species.shape[1]} atoms")
+    for variant, kw in DR_VARIANTS.items():
+        md = MolecularDynamics(model, species, cell=cell, pbc=True, **kw)
+        state = md.init(coords, temperature=300.0, generator=torch.Generator().manual_seed(0))
+        run_in = md.run_nve(state, 3)
+        print(f"ANI-2dr MD ({variant}): K = {md.capacity} lanes, C = {md._bucket_c} slots, grid "
+              f"{md.grid_shape}, lane prefixes {md._lane_prefixes}, angular prefix "
+              f"{md._ang_prefix}, packed span {md._bucket_span}")
+        holder = [run_in]
+
+        def step():
+            holder[0] = md.step_nve(holder[0])
+
+        times = wall_times_ms(step, DR_MD_STEPS)
+        print(f"ANI-2dr MD ({variant}) step: median {np.median(times):.3f} ms, min "
+              f"{np.min(times):.3f}, max {np.max(times):.3f} over {DR_MD_STEPS} steps; rebuilds "
+              f"{holder[0].rebuilds}; forces finite {bool(torch.isfinite(holder[0].forces).all())}")
+        state = holder[0]
+        crd = state.coords
+
+        def potential(name: str, backward: bool):
+            """Energy (and gradient) of one potential on its own lane prefix,
+            as `MolecularDynamics._potential_energy` dispatches it."""
+            c = crd.detach().requires_grad_(backward)
+            nb = _refresh_neighbors(state, c)
+            pot = md.model.potentials[name]
+            p = md._lane_prefixes.get(name)
+            nbp = narrow_to_cutoff(_slice_lanes(nb, p) if p is not None else nb, pot.cutoff)
+            if state.pair_aux is not None and name in state.pair_aux:
+                aux = state.pair_aux[name]
+                nbp = nbp.replace(pair_aux=aux if p is None else aux[:, :p])
+            e = pot.compute_from_neighbors(
+                md.elem_idxs, None, _batch1(nbp), species_ranges=md._species_ranges
+            ).energies.sum()
+            if backward:
+                torch.autograd.grad(e, c)
+
+        def refresh_both_ways():
+            c = crd.detach().requires_grad_(True)
+            torch.autograd.grad(_refresh_neighbors(state, c).diff.sum(), c)
+
+        stages = {"refresh (forward + backward)": refresh_both_ways}
+        for name in sorted(md.model.potentials):
+            stages[f"{name} + refresh (forward)"] = lambda n=name: potential(n, False)
+            stages[f"{name} + refresh (forward + backward)"] = lambda n=name: potential(n, True)
+        stages["all (forward + backward)"] = lambda: md._energy_and_forces(state, crd)
+        stages["neighbor rebuild"] = lambda: md._build_cache(crd)
+        for name, fn in stages.items():
+            ms = float(np.median(wall_times_ms(fn, STEPS)))
+            print(f"ANI-2dr MD ({variant}) {name}: {ms:.3f} ms (median of {STEPS})")
+        before = vals_select_fwd.launches, vals_select_bwd.launches
+        md._energy_and_forces(state, crd)
+        print(f"ANI-2dr MD ({variant}) K4f, K4b launches per evaluation: "
+              f"{vals_select_fwd.launches - before[0]}, {vals_select_bwd.launches - before[1]}")
+        holder[0] = run_in  # the same stretch again: the box does not last a third one
+        _profile(
+            f"ANI-2dr MD step ({variant})", step, DR_MD_STEPS, top=14, host_ops=False,
+            also=("vals_select", "packed_select", "bucket_select", "angular_aev"),
+        )
+        print(f"ANI-2dr MD ({variant}): forces finite after the profiled window "
+              f"{bool(torch.isfinite(holder[0].forces).all())}")
+        del md, state, run_in, holder
+        torch.cuda.empty_cache()
+
+
 if __name__ == "__main__":
-    main()
+    if sys.argv[1:] == ["ani2dr"]:
+        dr_report()
+    else:
+        main()
