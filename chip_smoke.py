@@ -7,8 +7,9 @@ Run from the root of a checkout, on a machine with one NVIDIA GPU::
 
 In order: prints the card, builds every CUDA kernel from ``csrc/`` (one
 ``nvcc`` per source, all at once), holds each kernel against its plain
-PyTorch version on the card (K3, the fused angular AEV; K1 and K2, the
-bucket refresh's selection and its transpose), runs ANI-2x energies and
+PyTorch version on the card (K3, the fused angular AEV, and K3b, its
+backward, on contiguous and column-sliced cotangents; K1 and K2, the bucket
+refresh's selection and its transpose), runs ANI-2x energies and
 forces on the 10,002-atom periodic water box through the public entry points
 (counting kernel launches), compares the card with the CPU on a ~1,000-atom
 box, then drives the MD main path: `MolecularDynamics` with its defaults,
@@ -16,10 +17,14 @@ box, then drives the MD main path: `MolecularDynamics` with its defaults,
 energy drift), a forced neighbor rebuild, MD forces against single-point
 forces, 10 MD steps on the card against the CPU, and `CachedSinglePoint`.
 It times E+F, the MD step, a rebuild, each kernel, its plain version and the
-PyTorch call that computes the same function, and the bucket refresh against
-the gather refresh.  Then the ANI-2dr paths (networks, xTB repulsion and D3
-dispersion): K4f and K4b (the per-lane selection of runtime values, at P = 1
-and P = 5 channels) and K5f and K5b (the atom-packed refresh) against their
+PyTorch call that computes the same function (for K3b also the blocked
+autograd recompute of the plain forward that it replaced), and the bucket
+refresh against the gather refresh, with the card's SM clock beside the
+kernels' times.  On every main path K3 and K3b launch once per evaluation
+and the plain angular grid is never built.  Then the ANI-2dr paths
+(networks, xTB repulsion and D3 dispersion): K4f and K4b (the per-lane
+selection of runtime values, at P = 1 and P = 5 channels) and K5f and K5b
+(the atom-packed refresh) against their
 plain versions at the ANI-2dr box's own tables, with their times, bounds,
 plain versions and library calls; ANI-2dr energies and forces on the same
 box; `MolecularDynamics` under ANI-2dr three ways (its defaults, the frozen
@@ -27,10 +32,10 @@ pair window, the atom-packed refresh), each with `init` at 300 K, NVE steps,
 launch counts, energy drift, MD forces against single-point forces, a forced
 rebuild, and frozen and packed forces against the default run's; and the
 card against the CPU on a 2,001-atom box.  It prints a ``kernels`` JSON line
-(all seven kernels) and, last, ``{"ok": true, "device": {...}}``.  Any failed
+(all eight kernels) and, last, ``{"ok": true, "device": {...}}``.  Any failed
 check raises, and the script exits non-zero without that last line; so does
 a machine with no CUDA device, or a directory without the package.  About
-two minutes on an H100.
+one minute of command time on an H100.
 """
 
 import json
@@ -44,12 +49,14 @@ import torch
 #: H100 SXM peaks (NVIDIA data sheet, dense, 700 W): non-tensor f32 and HBM
 PEAK_F32_FLOPS = 67e12
 PEAK_HBM_BYTES = 3.35e12
-#: FP32 operations per angular term and per neighbour pair, with exp and pow
-#: counted as one operation each (so the bound is optimistic)
-OPS_PER_TERM = 15
-OPS_PER_PAIR = 15
+#: special-function instructions (exp2, log2, rcp, rsqrt, sin, cos): 16 a
+#: clock on each of the 132 SMs (CUDA programming guide, compute capability
+#: 9.0) at the 1,980 MHz boost clock that the f32 peak assumes
+PEAK_SFU_OPS = 132 * 16 * 1.98e9
 #: kernel vs plain version on the card: |k - p| <= ATOL + RTOL |p| (f32 sums
-#: taken in another order, as in tests/test_pallas.py)
+#: taken in another order, as in tests/test_pallas.py).  K3b: |k - p| <=
+#: ATOL max|p| + RTOL |p| (its sums run over shared-memory atomics), and
+#: exact zeros on masked lanes
 ATOL, RTOL = 1e-5, 1e-4
 #: card vs CPU, same model from the same seed: forces and atomic energies
 #: (f32 sums over ~100 neighbours and 8 members taken in another order)
@@ -122,6 +129,47 @@ def kernel_errors(out: torch.Tensor, ref: torch.Tensor, what: str) -> float:
     check(bool(torch.isfinite(out).all()), f"{what}: kernel output finite")
     check(bool((err <= ATOL + RTOL * ref.abs()).all()), f"{what}: within tolerance")
     return max_abs
+
+
+def bwd_errors(out, ref, mask: torch.Tensor, what: str) -> float:
+    """K3b's (gdist, gdiff) against its plain version's; returns the
+    largest absolute error."""
+    max_abs = 0.0
+    for name, k, p in zip(("gdist", "gdiff"), out, ref):
+        err = (k - p).abs()
+        max_abs = max(max_abs, float(err.max()))
+        check(bool(torch.isfinite(k).all()), f"{what}: {name} finite")
+        check(bool((err <= ATOL * p.abs().max() + RTOL * p.abs()).all()),
+              f"{what}: {name} within tolerance")
+        check(bool((k[~mask] == 0).all()), f"{what}: {name} exactly 0 on masked lanes")
+    print(f"{what}: max abs err {max_abs:.3e} (max |p| {float(ref[0].abs().max()):.3e}, "
+          f"{float(ref[1].abs().max()):.3e})")
+    return max_abs
+
+
+def angular_bound_ms(pairs: float, lanes: float, sh: int, se: int, nbytes: int,
+                     backward: bool) -> tuple:
+    """Least time for K3 or K3b: the bytes moved once (``nbytes``), against
+    the operations of the separable term per valid pair (f32 operations
+    and special-function instructions, each unit at its own peak).  K3 per
+    pair: sh exp, se pow (log2 and exp2), a sqrt and a division on the
+    special-function units; an FMA per feature, ~4 operations per shift and
+    6 per section, 15 for the geometry.  K3b: the same functions (pow of
+    zeta - 1) and 4 more divisions; two FMAs per feature, ~10 operations per
+    shift and per section, 50 for the geometry and the chain rule.  Per
+    valid lane the cutoff (and its derivative): 3 special-function
+    instructions."""
+    z = sh * se
+    if backward:
+        sfu, f32 = sh + 2 * se + 6, 4 * z + 10 * (sh + se) + 50
+    else:
+        sfu, f32 = sh + 2 * se + 2, 2 * z + 4 * sh + 6 * se + 15
+    by_f32 = pairs * f32 / PEAK_F32_FLOPS * 1e3
+    by_sfu = (pairs * sfu + 3 * lanes) / PEAK_SFU_OPS * 1e3
+    by_bytes = nbytes / PEAK_HBM_BYTES * 1e3
+    by_ops = max(by_f32, by_sfu)
+    return (max(by_ops, by_bytes), "operations" if by_ops > by_bytes else "bytes",
+            nbytes, by_f32, by_sfu)
 
 
 def select_bound_ms(lanes: int, g: int, c: int, adds: bool) -> tuple:
@@ -201,7 +249,14 @@ def main() -> int:
           f"python {sys.version.split()[0]}")
 
     from torchani_tpu_torch import csrc
-    from torchani_tpu_torch.aev.kernels import angular_aev, angular_aev_reference
+    from torchani_tpu_torch.aev.kernels import (
+        angular_aev,
+        angular_aev_bwd,
+        angular_aev_bwd_reference,
+        angular_aev_reference,
+        angular_grid,
+        lane_species,
+    )
     from torchani_tpu_torch.aev.terms import ANIAngular
     from torchani_tpu_torch.bucket_refresh import (
         _cand_table,
@@ -291,6 +346,32 @@ def main() -> int:
                   "K3 ANI-1x smooth random lanes vs plain")
     check(bool((small[::7] == 0).all()), "fully masked rows give exact zeros")
 
+    # K3b at the same inputs: a seeded random cotangent, contiguous and as a
+    # column slice of a wider tensor (as the AEV's cat hands it back)
+    k3_species = lane_species(k3_in[2], k3_in[3])
+    k3_block = aevc._atom_block(ka)
+    gen = torch.Generator(dev).manual_seed(11)
+    g3 = torch.randn(out.shape, device=dev, generator=gen)
+    k3b = angular_aev_bwd(g3, *k3_in, k3_species, **k3_kw)
+    torch.cuda.synchronize()
+    k3b_err = bwd_errors(k3b, angular_aev_bwd_reference(g3, *k3_in, atom_block=k3_block, **k3_kw),
+                         k3_in[2], "K3b ANI-2x water box vs plain")
+    wide = torch.randn((n, out.shape[1] + 112), device=dev, generator=gen)
+    g3_slice = wide[:, 112:]
+    check(not g3_slice.is_contiguous(), "the sliced cotangent is not contiguous")
+    k3b_slice = angular_aev_bwd(g3_slice, *k3_in, k3_species, **k3_kw)
+    torch.cuda.synchronize()
+    k3b_err = max(k3b_err, bwd_errors(
+        k3b_slice, angular_aev_bwd_reference(g3_slice, *k3_in, atom_block=k3_block, **k3_kw),
+        k3_in[2], f"K3b ANI-2x water box, cotangent strides {g3_slice.stride()}, vs plain"))
+    g_small = torch.randn(small.shape, device=dev, generator=gen)
+    small_b = angular_aev_bwd(g_small, *small_in, **small_kw)
+    torch.cuda.synchronize()
+    bwd_errors(small_b, angular_aev_bwd_reference(g_small, *small_in, **small_kw), small_in[2],
+               "K3b ANI-1x smooth random lanes vs plain")
+    check(bool((small_b[0][::7] == 0).all()) and bool((small_b[1][::7] == 0).all()),
+          "K3b: fully masked rows give exact zeros")
+
     # K1 and K2 at the water box's own MD tables (from `MolecularDynamics.init`)
     md0 = MolecularDynamics(model, species, cell=cell, pbc=True)
     state0 = md0.init(coords, temperature=300.0, generator=torch.Generator().manual_seed(0))
@@ -346,15 +427,17 @@ def main() -> int:
           "K2 within tolerance on random keys")
 
     # ---- 3. the main path: ANI-2x E+F on the water box ----
-    angular_aev.launches = 0
+    angular_aev.launches = angular_aev_bwd.launches = angular_grid.calls = 0
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     energies, forces = energies_and_forces(model, species, coords, cell, pbc)
     torch.cuda.synchronize()
     first_s = time.perf_counter() - t0
-    launches = {"angular_aev": angular_aev.launches}
+    launches = {"angular_aev": angular_aev.launches, "angular_aev_bwd": angular_aev_bwd.launches}
     print(f"E+F main path: E = {float(energies[0]):.6f} Ha, first call {first_s:.3f} s, "
-          f"launches {launches}")
+          f"launches {launches}, angular_grid calls {angular_grid.calls}")
+    check(launches == {"angular_aev": 1, "angular_aev_bwd": 1} and angular_grid.calls == 0,
+          "one E+F launches K3 and K3b once each and builds no plain angular grid")
     check(tuple(energies.shape) == (1,), "energies shape (1,)")
     check(tuple(forces.shape) == (1, num_atoms, 3), "forces shape (1, A, 3)")
     check(bool(torch.isfinite(energies).all()), "energies finite")
@@ -387,6 +470,7 @@ def main() -> int:
     # ---- 5. the MD main path: init at 300 K and 50 NVE steps ----
     kernels_fn = {
         "angular_aev": angular_aev,
+        "angular_aev_bwd": angular_aev_bwd,
         "bucket_select_fwd": bucket_select_fwd,
         "bucket_select_bwd": bucket_select_bwd,
         "vals_select_fwd": vals_select_fwd,
@@ -398,6 +482,11 @@ def main() -> int:
     def reset_counts():
         for fn in kernels_fn.values():
             fn.launches = 0
+        angular_grid.calls = 0
+
+    def k3b_once_per_evaluation(counts, what):
+        check(counts["angular_aev_bwd"] == counts["angular_aev"] and angular_grid.calls == 0,
+              f"{what}: K3b launched as often as K3 (once per evaluation), no plain angular grid")
 
     def read_counts():
         return {name: fn.launches for name, fn in kernels_fn.items()}
@@ -427,8 +516,10 @@ def main() -> int:
         check(bool(torch.isfinite(t).all()), f"MD {name} finite")
     check(tuple(state.forces.shape) == (num_atoms, 3), "MD forces shape (A, 3)")
     check(all(md_launches[n] >= MD_STEPS
-              for n in ("angular_aev", "bucket_select_fwd", "bucket_select_bwd")),
-          f"K1, K2 and K3 each launched at least {MD_STEPS} times on the MD path")
+              for n in ("angular_aev", "angular_aev_bwd", "bucket_select_fwd",
+                        "bucket_select_bwd")),
+          f"K1, K2, K3 and K3b each launched at least {MD_STEPS} times on the MD path")
+    k3b_once_per_evaluation(md_launches, "ANI-2x MD")
     check(abs(drift) <= 5e-3 * abs(e_start) + 0.05, "total energy drift bounded")
 
     # ---- 6. a forced rebuild ----
@@ -490,19 +581,59 @@ def main() -> int:
           f"over {len(times)} calls (host clock, each ending in a synchronize)")
     print(f"{card}: E+F peak device memory: {peak_gib(ef):.3f} GiB")
 
-    k3_ms = cuda_ms(lambda: angular_aev(*k3_in, **k3_kw), reps=20)
-    plain_ms = cuda_ms(lambda: angular_aev_reference(*k3_in, **k3_kw), reps=5, warmup=1)
+    # device time of the kernels alone (torch.profiler), and the time between
+    # CUDA events around back-to-back calls, which also holds the host's
+    # dispatch where that is slower than the kernel
+    def both_ms(fn, reps=20):
+        return kernels_ms(fn, reps=reps), cuda_ms(fn, reps=reps)
+
+    print("SM clock, max SM clock, temperature, power draw: " + subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.sm,clocks.max.sm,temperature.gpu,power.draw",
+         "--format=csv,noheader"], capture_output=True, text=True, check=True,
+    ).stdout.strip())
+    k3_ms, k3_ev = both_ms(lambda: angular_aev(*k3_in, species=k3_species, **k3_kw))
+    plain_ms = kernels_ms(lambda: angular_aev_reference(*k3_in, **k3_kw), reps=3)
     k3_lanes = k3_in[2].sum(1).to(torch.float64)
     pairs = float((k3_lanes * (k3_lanes - 1) / 2).sum())
-    num_z = len(k3_kw["shifts"]) * len(k3_kw["sections"])
-    ops = pairs * (num_z * OPS_PER_TERM + OPS_PER_PAIR)
-    nbytes = sum(t.numel() * t.element_size() for t in k3_in) + out.numel() * 4
-    bound_ops_ms = ops / PEAK_F32_FLOPS * 1e3
-    bound_bytes_ms = nbytes / PEAK_HBM_BYTES * 1e3
-    print(f"{card}: K3 alone: {k3_ms:.4f} ms; plain version {plain_ms:.3f} ms; "
-          f"{pairs:.0f} valid pairs ({pairs / n:.1f} per atom); bound "
-          f"{bound_ops_ms:.4f} ms by operations, {bound_bytes_ms:.4f} ms by bytes "
-          f"({nbytes / 1e6:.1f} MB)")
+    valid_lanes = float(k3_lanes.sum())
+    sh, se = len(k3_kw["shifts"]), len(k3_kw["sections"])
+    # the kernels' inputs: dist, diff and the int32 lane species
+    lane_bytes = sum(t.numel() * t.element_size() for t in (k3_in[0], k3_in[1], k3_species))
+    k3_bound = angular_bound_ms(pairs, valid_lanes, sh, se, lane_bytes + out.numel() * 4, False)
+    print(f"{card}: K3 alone: {k3_ms:.4f} ms ({k3_ev:.4f} between events); plain version "
+          f"{plain_ms:.3f} ms; "
+          f"{pairs:.0f} valid pairs ({pairs / n:.1f} per atom); bound {k3_bound[0]:.4f} ms "
+          f"by {k3_bound[1]} ({k3_bound[2] / 1e6:.1f} MB; by operations {k3_bound[3]:.4f} ms "
+          f"f32, {k3_bound[4]:.4f} ms special functions)")
+    # K3b on the sliced cotangent, as the main path hands it over; its plain
+    # version at the computer's block; and what it replaced: autograd of the
+    # plain forward, recomputed per block of at most 2 GiB
+    k3b_ms, k3b_ev = both_ms(lambda: angular_aev_bwd(g3_slice, *k3_in, k3_species, **k3_kw))
+    k3b_plain_ms = kernels_ms(
+        lambda: angular_aev_bwd_reference(g3_slice, *k3_in, atom_block=k3_block, **k3_kw),
+        reps=3,
+    )
+
+    def recompute():
+        for start in range(0, n, k3_block):
+            sl = slice(start, start + k3_block)
+            with torch.enable_grad():
+                d = k3_in[0][sl].detach().requires_grad_(True)
+                df = k3_in[1][sl].detach().requires_grad_(True)
+                grid_out = angular_grid(aevc.angular, k3_kw["num_species"], d, df,
+                                        k3_in[2][sl], k3_in[3][sl])
+                torch.autograd.grad(grid_out, (d, df), g3_slice[sl])
+
+    recompute_ms = kernels_ms(recompute, reps=3)
+    recompute_peak = peak_gib(recompute)
+    k3b_bytes = lane_bytes + g3_slice.numel() * 4 + 4 * k3_in[0].numel() + 4 * k3_in[1].numel()
+    k3b_bound = angular_bound_ms(pairs, valid_lanes, sh, se, k3b_bytes, True)
+    print(f"{card}: K3b alone: {k3b_ms:.4f} ms ({k3b_ev:.4f} between events); plain version "
+          f"{k3b_plain_ms:.3f} ms "
+          f"(blocks of {k3_block} atoms); the recompute it replaced {recompute_ms:.3f} ms, "
+          f"peak {recompute_peak:.3f} GiB; bound {k3b_bound[0]:.4f} ms by {k3b_bound[1]} "
+          f"({k3b_bound[2] / 1e6:.1f} MB; by operations {k3b_bound[3]:.4f} ms f32, "
+          f"{k3b_bound[4]:.4f} ms special functions)")
 
     # MD: the main path's 50 steps again from the same start, step by step
     # (each ending in a synchronize), and a third time as one run.  The same
@@ -544,12 +675,6 @@ def main() -> int:
     index3 = _flat_index(tables.keys, c_)[:, :, None].expand(-1, -1, 3)
     flat = torch.nn.functional.pad(cand.reshape(g_, 27 * c_, 3), (0, 0, 0, c_))
     d_flat = torch.empty((g_, 28 * c_, 3), device=dev)
-    # device time of the kernels alone (torch.profiler), and the time between
-    # CUDA events around back-to-back calls, which also holds the host's
-    # dispatch where that is slower than the kernel
-    def both_ms(fn):
-        return kernels_ms(fn, reps=20), cuda_ms(fn, reps=20)
-
     k1_ms, k1_ev = both_ms(lambda: bucket_select_fwd(cand, tables.keys, nlanes))
     k1_plain_ms, k1_plain_ev = both_ms(
         lambda: bucket_select_reference(cand, tables.keys, nlanes)
@@ -740,7 +865,8 @@ def main() -> int:
     check(tuple(f_dr.shape) == (1, num_atoms, 3), "ANI-2dr forces shape (1, A, 3)")
     check(bool(torch.isfinite(e_dr).all()) and bool(torch.isfinite(f_dr).all()),
           "ANI-2dr energies and forces finite")
-    check(dr_ef_launches["angular_aev"] >= 1, "K3 launched on the ANI-2dr E+F path")
+    check(dr_ef_launches["angular_aev"] == 1, "K3 launched once on the ANI-2dr E+F path")
+    k3b_once_per_evaluation(dr_ef_launches, "ANI-2dr E+F")
     check(dr_ef_launches["vals_select_fwd"] == 0,
           "without bucket tables D3 gathers its neighbors' values")
 
@@ -774,7 +900,8 @@ def main() -> int:
         df = float((start.forces - f_dr[0]).abs().max())
         check(df <= FORCE_ATOL, f"ANI-2dr MD ({name}) init forces equal single-point forces")
         per_step = {k_: v / (DR_STEPS + 1) for k_, v in counts.items()}
-        want = {"angular_aev"}
+        k3b_once_per_evaluation(counts, f"ANI-2dr MD ({name})")
+        want = {"angular_aev", "angular_aev_bwd"}
         want |= {"packed_select_fwd", "packed_select_bwd"} if name == "packed" else {
             "bucket_select_fwd", "bucket_select_bwd", "vals_select_fwd", "vals_select_bwd"}
         check(all(counts[k_] >= DR_STEPS for k_ in want),
@@ -858,14 +985,18 @@ def main() -> int:
         main_launches[name] = dr_launches["default"][name]
     for name in ("packed_select_fwd", "packed_select_bwd"):
         main_launches[name] = dr_launches["packed"][name]
+    angular_cu = "torchani_tpu_torch/csrc/angular_aev.cu"
     select_cu = "torchani_tpu_torch/csrc/bucket_select.cu"
     vals_cu = "torchani_tpu_torch/csrc/vals_select.cu"
     packed_cu = "torchani_tpu_torch/csrc/packed_select.cu"
     kernels = [
-        entry("angular_aev", "torchani_tpu_torch/csrc/angular_aev.cu",
-              "torchani_tpu/aev/pallas_kernels.py:186", k3_err, k3_ms, plain_ms,
-              max(bound_ops_ms, bound_bytes_ms),
-              "operations" if bound_ops_ms >= bound_bytes_ms else "bytes", None),
+        entry("angular_aev", angular_cu, "torchani_tpu/aev/pallas_kernels.py:186", k3_err,
+              k3_ms, plain_ms, k3_bound[0], k3_bound[1], None),
+        {**entry("angular_aev_bwd", angular_cu,
+                 "torchani_tpu/aev/computer.py:1045 (_angular_pallas_bwd, XLA recompute; "
+                 "no pallas_call)", k3b_err, k3b_ms, k3b_plain_ms, k3b_bound[0], k3b_bound[1],
+                 None),
+         "replaced_recompute_ms": recompute_ms},
         entry("bucket_select_fwd", select_cu, "torchani_tpu/bucket_refresh.py:504",
               k1_err, k1_ms, k1_plain_ms, k1_bound, k1_by, k1_lib_ms),
         entry("bucket_select_bwd", select_cu, "torchani_tpu/bucket_refresh.py:544",

@@ -173,8 +173,9 @@ def test_aev_coordinate_gradient_matches_jax(goldens, name, factory, ns, strateg
 
 
 def test_kernel_strategy_backward_matches_plain():
-    """The autograd Function (kernel forward, blocked plain-recompute
-    backward) gives the plain path's gradients in dist and diff."""
+    """The autograd Function (kernel forward, kernel backward; on the CPU
+    their plain versions, the backward in blocks) gives the plain path's
+    gradients in dist and diff."""
     aevc, dist, diff, mask, oh = _angular_lanes("like_2x", 7, seed=3, a=20)
     pa = AEVComputer.like_2x(device=CPU)
     kw = pa.kernel_kwargs()
@@ -182,7 +183,7 @@ def test_kernel_strategy_backward_matches_plain():
 
     grads = []
     for fn in (
-        lambda d, df, m, o: _AngularAEVFunction.apply(d, df, m, o, kw, pa.angular, 6),
+        lambda d, df, m, o: _AngularAEVFunction.apply(d, df, m, o, kw, 6),
         lambda d, df, m, o: _angular_plain(pa.angular, 7, 7, d, df, m, o),
     ):
         d = torch.as_tensor(np.array(dist)).requires_grad_(True)

@@ -1,7 +1,7 @@
 """PyTorch port: the kernels' wrappers and, on the card, the CUDA kernels:
-the fused angular AEV (K3), the bucket refresh's selection and its transpose
-(K1, K2), the same for P channels of runtime values (K4f, K4b) and over
-atom-packed rows (K5f, K5b).
+the fused angular AEV (K3) and its backward (K3b), the bucket refresh's
+selection and its transpose (K1, K2), the same for P channels of runtime
+values (K4f, K4b) and over atom-packed rows (K5f, K5b).
 
 This file imports no JAX, so the tests marked ``cuda`` also run on a
 machine with a GPU and no JAX::
@@ -9,7 +9,10 @@ machine with a GPU and no JAX::
     python -m pytest --noconftest -m cuda tests/test_torch_kernels.py
 
 K3 against its plain version: atol 1e-5, rtol 1e-4 (f32 sums over the
-neighbour pairs in another order, as in tests/test_pallas.py).  K1 is a
+neighbour pairs in another order, as in tests/test_pallas.py).  K3b
+against its plain version: |k - p| <= 1e-5 max|p| + 1e-4 |p| (its sums run
+over shared-memory atomics, in an order that changes from run to run), and
+exact zeros on masked lanes.  K1 is a
 selection: exactly equal.  K2 sums with atomics in shared memory, in an
 order that changes from run to run: atol 1e-5 + 1e-5 |p|.  K4f and K5f are
 selections (exactly equal), K4b and K5b sum as K2 does (the same bound).
@@ -22,6 +25,12 @@ import pytest
 import torch
 
 from torchani_tpu_torch.aev import AEVComputer, angular_aev, angular_aev_reference
+from torchani_tpu_torch.aev.kernels import (
+    angular_aev_bwd,
+    angular_aev_bwd_reference,
+    angular_grid,
+    lane_species,
+)
 from torchani_tpu_torch.aev.terms import ANIAngular
 from torchani_tpu_torch.bucket_refresh import (
     bucket_nbr_pos,
@@ -146,6 +155,127 @@ def test_kernel_strategy_gradients_on_card():
     np.testing.assert_allclose(e_k.cpu().numpy(), e_p.cpu().numpy(), rtol=1e-6)
     np.testing.assert_allclose(f_k.cpu().numpy(), f_p.cpu().numpy(), atol=1e-5)
     assert isinstance(model.aev_computer, AEVComputer)
+
+
+# ---- K3b ----
+
+
+def _cotangent(rows: int, width: int, seed: int, device: str = "cpu") -> torch.Tensor:
+    g = np.random.RandomState(seed).randn(rows, width).astype(np.float32)
+    return torch.as_tensor(g, device=device)
+
+
+def _assert_bwd_close(out, ref, mask):
+    """|k - p| <= 1e-5 max|p| + 1e-4 |p| for both cotangents, and exact zeros
+    on masked lanes."""
+    for k, p in zip(out, ref):
+        k, p = k.cpu(), p.cpu()
+        assert torch.isfinite(k).all()
+        assert ((k - p).abs() <= ATOL * p.abs().max() + RTOL * p.abs()).all()
+    m = mask.cpu()
+    assert (out[0].cpu()[~m] == 0).all() and (out[1].cpu()[~m] == 0).all()
+
+
+def test_bwd_wrapper_rejects_other_devices():
+    kw = _kwargs("like_1x", "cosine", 4)
+    lanes = [t.to("meta") for t in _lanes(4, 3, 4, seed=1)]
+    with pytest.raises(ValueError):
+        angular_aev_bwd(torch.zeros((4, 10 * 32), device="meta"), *lanes, **kw)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("version,cutoff_fn,ns", CASES)
+@pytest.mark.parametrize("n,ka", [(257, 19), (64, 40)])
+def test_bwd_kernel_matches_plain_on_card(version, cutoff_fn, ns, n, ka):
+    _cuda()
+    kw = _kwargs(version, cutoff_fn, ns)
+    lanes = _lanes(n, ka, ns, seed=2, device="cuda")
+    g = _cotangent(n, ns * (ns + 1) // 2 * 32, seed=3, device="cuda")
+    before = angular_aev_bwd.launches
+    out = angular_aev_bwd(g, *lanes, **kw)
+    torch.cuda.synchronize()
+    assert angular_aev_bwd.launches == before + 1
+    _assert_bwd_close(out, angular_aev_bwd_reference(g, *lanes, **kw), lanes[2])
+    assert (out[0][::7] == 0).all() and (out[1][::7] == 0).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("version,cutoff_fn,ns", CASES)
+def test_bwd_kernel_reads_a_column_slice_on_card(version, cutoff_fn, ns):
+    """A cotangent that is a column slice of a wider tensor (as the AEV's
+    ``cat`` hands it back) gives what its contiguous copy gives."""
+    _cuda()
+    kw = _kwargs(version, cutoff_fn, ns)
+    lanes = _lanes(257, 19, ns, seed=4, device="cuda")
+    width = ns * (ns + 1) // 2 * 32
+    wide = _cotangent(257, width + 112, seed=5, device="cuda")
+    g = wide[:, 112:]
+    assert not g.is_contiguous() and g.stride() == (width + 112, 1)
+    sliced = angular_aev_bwd(g, *lanes, **kw)
+    _assert_bwd_close(sliced, angular_aev_bwd(g.contiguous(), *lanes, **kw), lanes[2])
+    _assert_bwd_close(sliced, angular_aev_bwd_reference(g, *lanes, **kw), lanes[2])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("num_shifts,num_sections", [(5, 3), (16, 4)])
+def test_kernels_take_other_term_widths_on_card(num_shifts, num_sections):
+    """Widths other than ANI's 8 x 4 and 4 x 8 run the kernels' generic
+    instantiation: Z = 15 leaves lanes without a feature, Z = 64 gives each
+    lane two."""
+    _cuda()
+    kw = {
+        **_kwargs("like_1x", "smooth", 3),
+        "shifts": tuple(np.linspace(0.9, 3.2, num_shifts).tolist()),
+        "sections": tuple(np.linspace(0.2, 3.0, num_sections).tolist()),
+    }
+    lanes = _lanes(97, 23, 3, seed=7, device="cuda")
+    out = angular_aev(*lanes, **kw)
+    np.testing.assert_allclose(
+        out.cpu().numpy(), angular_aev_reference(*lanes, **kw).cpu().numpy(), atol=ATOL, rtol=RTOL
+    )
+    g = _cotangent(97, out.shape[1], seed=8, device="cuda")
+    _assert_bwd_close(angular_aev_bwd(g, *lanes, **kw), angular_aev_bwd_reference(g, *lanes, **kw),
+                      lanes[2])
+
+
+@pytest.mark.cuda
+def test_bwd_kernel_wrapper_checks_on_card():
+    _cuda()
+    dist, diff, mask, oh = _lanes(8, 5, 4, seed=3, device="cuda")
+    kw = _kwargs("like_1x", "cosine", 4)
+    g = _cotangent(8, 10 * 32, seed=6, device="cuda")
+    with pytest.raises(TypeError):
+        angular_aev_bwd(g.double(), dist, diff, mask, oh, **kw)
+    with pytest.raises(TypeError):
+        angular_aev_bwd(g, dist.double(), diff, mask, oh, **kw)
+    with pytest.raises(ValueError):
+        angular_aev_bwd(g[:, :-1], dist, diff, mask, oh, **kw)
+    with pytest.raises(ValueError):
+        angular_aev_bwd(g.cpu(), dist, diff, mask, oh, **kw)
+    with pytest.raises(ValueError, match="columns"):
+        angular_aev_bwd(g.t().contiguous().t(), dist, diff, mask, oh, **kw)
+    with pytest.raises(ValueError):
+        angular_aev_bwd(g, dist, diff, mask, oh, lane_species(mask, oh).long(), **kw)
+    with pytest.raises(ValueError):
+        angular_aev_bwd(g, dist, diff[:, :4], mask, oh, **kw)
+    with pytest.raises(ValueError, match="shifts"):
+        angular_aev_bwd(g, dist, diff, mask, oh, **{**kw, "shifts": tuple(range(17))})
+
+
+@pytest.mark.cuda
+def test_one_ef_launches_k3_and_k3b_once_on_card():
+    """E+F through the kernel strategy: one K3 and one K3b launch, and the
+    plain grid is never built."""
+    _cuda()
+    species, coords, cell = make_water_box(600)
+    model = ANI2x(seed=0, device="cuda")
+    model.neighborlist = CellList()
+    energies_and_forces(model, species, coords, cell, np.ones(3, bool))
+    before = angular_aev.launches, angular_aev_bwd.launches, angular_grid.calls
+    energies_and_forces(model, species, coords, cell, np.ones(3, bool))
+    torch.cuda.synchronize()
+    after = angular_aev.launches, angular_aev_bwd.launches, angular_grid.calls
+    assert tuple(a - b for a, b in zip(after, before)) == (1, 1, 0)
 
 
 # ---- K1 and K2 ----

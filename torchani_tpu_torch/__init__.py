@@ -3,9 +3,10 @@
 
 Models are ``torch.nn.Module``s, everything else plain functions on tensors.
 Entry points run on CUDA unless the caller passes ``device="cpu"``; without a
-CUDA device such a call raises.  The angular AEV, the MD loop's per-step
-neighbor refresh (slot-row or atom-packed) and the per-lane selection of
-runtime per-atom values inside D3 dispersion run on hand-written CUDA kernels
+CUDA device such a call raises.  The angular AEV (forward and backward), the
+MD loop's per-step neighbor refresh (slot-row or atom-packed) and the per-lane
+selection of runtime per-atom values inside D3 dispersion run on hand-written
+CUDA kernels
 (``csrc/angular_aev.cu``, ``csrc/bucket_select.cu``, ``csrc/packed_select.cu``,
 ``csrc/vals_select.cu``), built by ``nvcc`` at their first use.
 

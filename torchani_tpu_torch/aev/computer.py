@@ -8,10 +8,11 @@ Angular strategies:
 - ``"plain"``: atom-blocked ``(M, Ka, Ka, Z)`` PyTorch computation through
   the angular term (`angular_grid`), the counterpart of ``_angular_xla``;
   any cutoff;
-- ``"cuda"``: the fused kernel (`angular_aev`), whose backward recomputes
-  through the plain version block by block (`_AngularAEVFunction`), as
-  ``_angular_pallas_op`` does in the JAX package; the cosine cutoff and the
-  default smooth one only (other cutoffs raise);
+- ``"cuda"``: the fused kernel (`angular_aev`, K3) and its backward kernel
+  (`angular_aev_bwd`, K3b), one launch each (`_AngularAEVFunction`; on CPU
+  tensors their plain versions, the backward in atom blocks).  The JAX
+  package's ``_angular_pallas_op`` differentiates an XLA recompute instead.
+  The cosine cutoff and the default smooth one only (other cutoffs raise);
 - ``"auto"``: ``"cuda"`` for CUDA tensors with a cutoff the kernel
   evaluates, ``"plain"`` otherwise.
 """
@@ -23,7 +24,12 @@ import torch
 import torch.utils.checkpoint
 from torch.autograd.function import once_differentiable
 
-from torchani_tpu_torch.aev.kernels import angular_aev, angular_grid
+from torchani_tpu_torch.aev.kernels import (
+    angular_aev,
+    angular_aev_bwd,
+    angular_grid,
+    lane_species,
+)
 from torchani_tpu_torch.aev.terms import (
     ANIAngular,
     ANIRadial,
@@ -48,8 +54,9 @@ STRATEGIES = ("auto", "plain", "cuda")
 
 #: bytes the plain angular path holds per element of a block's
 #: (blk, Ka, Ka, Z) grid while its backward recomputes it: 21 measured on an
-#: H100 (`python3 -m torchani_tpu_torch.profiling`: peak memory of E+F
-#: against the number of blocks), rounded up
+#: H100 (E+F peak memory against the number of blocks), rounded up.  The
+#: kernel path on the card holds no grid; on the CPU its backward's plain
+#: version takes the same blocks
 _GRID_BYTES = 24
 #: memory one block of the plain angular path may hold, on any device
 #: (3,566 atoms at Ka = 28, Z = 32: three blocks for the 10,002-atom box)
@@ -102,33 +109,31 @@ def _angular_plain(
 
 
 class _AngularAEVFunction(torch.autograd.Function):
-    """Fused-kernel forward; backward recomputes the plain version per atom
-    block (the port's counterpart of ``_angular_pallas_bwd``).  First order
-    only: force training (double backward) needs a backward kernel."""
+    """K3 forward and K3b backward, one launch each on CUDA tensors (the
+    port's counterpart of ``_angular_pallas_op``, whose backward recomputes
+    through XLA); on CPU tensors their plain versions, the backward
+    ``atom_block`` atoms at a time.  The lane species are computed once and
+    serve both.  First order only: force training (double backward) needs
+    a kernel of its own."""
 
     @staticmethod
-    def forward(ctx, dist, diff, mask, oh, kwargs, angular, atom_block):
-        ctx.save_for_backward(dist, diff, mask, oh)
-        ctx.angular = angular
-        ctx.num_species = kwargs["num_species"]
+    def forward(ctx, dist, diff, mask, oh, kwargs, atom_block):
+        species = lane_species(mask, oh)
+        ctx.save_for_backward(dist, diff, mask, oh, species)
+        ctx.kwargs = kwargs
         ctx.atom_block = atom_block
-        return angular_aev(dist, diff, mask, oh, **kwargs)
+        return angular_aev(dist, diff, mask, oh, species=species, **kwargs)
 
     @staticmethod
     @once_differentiable
     def backward(ctx, grad):
-        dist, diff, mask, oh = ctx.saved_tensors
-        gdist = torch.zeros_like(dist)
-        gdiff = torch.zeros_like(diff)
-        for sl in _blocks(dist.shape[0], ctx.atom_block):
-            with torch.enable_grad():
-                d = dist[sl].detach().requires_grad_(True)
-                df = diff[sl].detach().requires_grad_(True)
-                out = angular_grid(ctx.angular, ctx.num_species, d, df, mask[sl], oh[sl])
-                gd, gdf = torch.autograd.grad(out, (d, df), grad[sl])
-            gdist[sl] = gd
-            gdiff[sl] = gdf
-        return gdist, gdiff, None, None, None, None, None
+        dist, diff, mask, oh, species = ctx.saved_tensors
+        if grad.stride(-1) != 1:
+            grad = grad.contiguous()  # an expanded cotangent (the gradient of a sum)
+        gdist, gdiff = angular_aev_bwd(
+            grad, dist, diff, mask, oh, species, atom_block=ctx.atom_block, **ctx.kwargs
+        )
+        return gdist, gdiff, None, None, None, None
 
 
 class AEVComputer(torch.nn.Module):
@@ -140,8 +145,9 @@ class AEVComputer(torch.nn.Module):
         num_species: number of supported elements
         strategy: ``"auto"`` | ``"plain"`` | ``"cuda"`` (see module docs)
         neighborlist: neighborlist used when called on raw coordinates
-        atom_block: atoms per block of the plain angular path (memory knob);
-            None sizes a block to hold at most 2 GiB on any device
+        atom_block: atoms per block of the plain angular path and, on the
+            CPU, of the kernel path's plain backward (memory knob); None sizes
+            a block to hold at most 2 GiB on any device
         angular_preslice: static lane prefix that the angular table is cut
             to before it is narrowed to the angular cutoff.  Only valid for
             a table whose lanes are sorted by distance, with every lane that
@@ -407,7 +413,7 @@ class AEVComputer(torch.nn.Module):
         block = self._atom_block(angular_nbrs.capacity)
         if self._use_kernel(adist):
             angular_aev_ = _AngularAEVFunction.apply(
-                adist, adiff, amask, aoh, self.kernel_kwargs(), self.angular, block
+                adist, adiff, amask, aoh, self.kernel_kwargs(), block
             )
         else:
             angular_aev_ = _angular_plain(

@@ -1,61 +1,106 @@
-// Fused angular AEV for Hopper (sm_90a).
+// Fused angular AEV (K3) and its backward (K3b) for Hopper (sm_90a).
 //
-// Replaces the Pallas TPU kernel `_angular_kernel` reached through
+// K3 replaces the Pallas TPU kernel `_angular_kernel` reached through
 // `angular_aev_pallas` (torchani_tpu/aev/pallas_kernels.py:28-208, the
 // pallas_call at :186).  Same contract: for every centre atom, the sum over
 // unordered neighbour pairs {j, k} (j != k, both lanes valid) of
 //
-//   exp(-eta (mean_r - ShfA_z)^2) * 2 ((1 + c cos(s_z) + sin(theta) sin(s_z)) / 2)^zeta
-//     * fc(r_j) fc(r_k),   c = 0.95 (d_j . d_k) / (r_j r_k),
-//     sin(theta) = sqrt(max(1 - c^2, 1e-20)),
+//   T_z = R_a(m) A_b(c) F,   z = a * num_sections + b,
+//   R_a = exp(-eta (m - ShfA_a)^2),   m = (r_j + r_k) / 2,
+//   A_b = 2 ((1 + c cos(s_b) + sin(theta) sin(s_b)) / 2)^zeta,
+//   c = 0.95 (d_j . d_k) / max(r_j r_k, 1e-10),
+//   sin(theta) = sqrt(max(1 - c^2, 1e-20)),   F = fc(r_j) fc(r_k),
 //
-// for each feature z = shift * num_sections + section, accumulated into the
-// packed species-pair slot triu(min(s_j, s_k), max(s_j, s_k)).  Output is
-// (N, P * Z) f32, pair-major.  The (N, Ka, Ka, Z) terms never leave the SM.
+// accumulated into the packed species-pair slot triu(min(s_j, s_k),
+// max(s_j, s_k)).  Output is (N, P * Z) f32, pair-major.  The (N, Ka, Ka, Z)
+// terms never leave the SM.
 //
-// What bounds it on this card, counted as chip_smoke.py counts it (valid
-// pairs only): at the 10,002-atom water box (Ka = 28, Z = 32) about 120 of
-// the 378 grid pairs per atom are valid, 1.2e6 pairs or 3.9e7 terms.  With
-// expf and powf counted as one FP32 operation each (15 per term) that is
-// ~9 us at the FP32 peak, below the ~14 us that the ~48 MB of input and
-// output take at 3.35 TB/s: bytes bind.  Counted on the special-function
-// units instead (an exp, a log and an exp per term) it is ~28 us, and then
-// arithmetic binds.
+// K3b is its backward: from the cotangent g (N, P * Z), read with a row
+// stride (the angular block of the AEV's cotangent is a column slice), it
+// gives gdist (N, Ka) and gdiff (N, Ka, 3).  The JAX package has no TPU
+// kernel here: `_angular_pallas_bwd` (torchani_tpu/aev/computer.py:1045)
+// recomputes the forward through XLA and differentiates it.  Per valid pair,
+// with G_ab = g[slot, a * num_sections + b]:
 //
-// Design:
-// - one warp per centre atom, four atoms per block; the atom's Ka lanes
-//   (r, dx, dy, dz, species with -1 for a masked lane, fc) are staged in
-//   shared memory once;
-// - each pair's geometry (c, sin theta, mean r, fc_j fc_k, slot) is computed
-//   once, for j < k only, one pair per lane, and broadcast to the warp with
-//   shuffles; pairs with a masked lane are skipped before any division, so
-//   padded r is never used;
-// - lanes stride over z (lane, lane + 32) with their per-z constants in
-//   registers, so the expf/powf work spreads over all 32 lanes;
-// - each lane owns its z column of a P x Z accumulator tile in shared
-//   memory (bank = z), so no atomics are needed; the tile is written out
-//   coalesced at the end.
-// Compiled without --use_fast_math: expf, powf, sqrtf and cosf stay at full
-// precision (the parity target against the plain version is 1e-5).
+//   dL/dm = F sum_a R'_a sum_b G_ab A_b
+//   dL/dc = F sum_a R_a  sum_b G_ab A'_b
+//   dL/dF =   sum_a R_a  sum_b G_ab A_b
+//
+// then through m, F = fc(r_j) fc(r_k) and c (dc/dr_j = -c / r_j where
+// r_j r_k >= 1e-10, dc/dd_j = 0.95 d_k / max(r_j r_k, 1e-10)) onto both
+// lanes of the pair.  A'_b = zeta base^(zeta - 1) (cos s_b + sin s_b
+// dsin/dc), with base^(zeta - 1) 0 at base = 0, and dsin/dc = -c / sin(theta)
+// inside the 1e-20 clamp, 0 past it.
+//
+// What bounds them on this card, counted as chip_smoke.py counts it (valid
+// pairs only): at the 10,002-atom water box (Ka = 28, Z = 32 as 8 shifts x
+// 4 sections) about 120 of the 378 grid pairs per atom are valid, 1.2e6
+// pairs.  The term is separable, so a pair needs 8 exp and 4 pow (K3b: 4
+// pow of zeta - 1), not 32 of each: ~1.2e6 x 18 special-function
+// instructions (exp2, log2, rcp, rsqrt) take ~5 us at the card's 16 a clock
+// per SM, and the f32 arithmetic ~3 us (K3) or ~5 us (K3b).  Bytes bind:
+// ~41 MB (K3) and ~46 MB (K3b: the 36 MB cotangent, lanes and gradients)
+// take ~12 and ~14 us at 3.35 TB/s.
+//
+// Design (both kernels):
+// - one warp per centre atom, four atoms per block; the atom's valid lanes
+//   (r, dx, dy, dz, fc, species; K3b also fc') are compacted into shared
+//   memory first, sorted by species (a ballot per species and 32 lanes), so
+//   the pair loop has no masked lane and no per-j branch;
+// - lanes take the atom's nv (nv - 1) / 2 pairs 32 at a time, one pair a
+//   lane, and compute its factors once: num_shifts exp and num_sections
+//   pow, not one of each per feature.  pow is exp2(zeta log2(base)) rather
+//   than powf, in fewer instructions (`pow_pos`).
+// K3:
+// - pairs in row-major order (`advance_pair`); each lane writes its pair's
+//   F R_a and A_b into a per-warp tile (32 rows of an odd stride, so the 32
+//   rows fall on 32 banks) and its slot; then lanes over z sum (F R_a) A_b
+//   over the batch's pairs.  With lanes sorted by species the slot changes
+//   only a few times along a row: runs of one slot are summed in registers
+//   and added to the lane's own z column of the P x Z accumulator tile (bank
+//   = z) when the slot changes, so no atomics are needed; the tile is
+//   written out coalesced.
+// K3b:
+// - the atom's cotangent row is staged in shared memory once, with a slot
+//   stride of Z + 1: lanes that read different slots at the same z then fall
+//   on different banks;
+// - pairs in rounds (`pair_of`): in round d lane j of the compacted list
+//   pairs with lane (j + d) mod nv, so within a round no two pairs share a j
+//   or a k;
+// - each lane computes its pair's three sums over (a, b) and the chain rule,
+//   and adds the 4 values of each side (r, dx, dy, dz) into per-warp planes
+//   with shared-memory atomics: the j side and the k side are separate
+//   instructions, and within a round their addresses are distinct, so two
+//   lanes collide only where a batch spans two rounds.  The order of the
+//   sums changes from run to run;
+// - masked lanes and fully masked rows are written as exact zeros.
+// Compiled without --use_fast_math: expf, log2f, exp2f, sqrtf, cosf and sinf
+// keep their full-precision forms (the parity target against the plain
+// version is 1e-5).  Templates: the widths 8 x 4 (ANI-2x) and 4 x 8 (ANI-1x)
+// are compiled with constant loop bounds; other widths up to 16 x 16 take
+// the generic instantiation (<0, 0>), whose loops run to 16 with guards.
 
 #include <cuda_runtime.h>
 
 namespace {
 
 constexpr int kWarpsPerBlock = 4;
-constexpr int kMaxZ = 64;
-constexpr int kZPerLane = kMaxZ / 32;
+constexpr int kThreads = kWarpsPerBlock * 32;
+constexpr int kMaxShifts = 16;
+constexpr int kMaxSections = 16;
 constexpr unsigned kFullMask = 0xffffffffu;
+constexpr size_t kMaxSharedBytes = 227 * 1024;
 
 struct AngularParams {
-  float shift[kMaxZ];   // ShfA of feature z
-  float cossec[kMaxZ];  // cos(section of feature z)
-  float sinsec[kMaxZ];  // sin(section of feature z)
+  float shift[kMaxShifts];     // ShfA
+  float cossec[kMaxSections];  // cos(section)
+  float sinsec[kMaxSections];  // sin(section)
   int n;
   int ka;
   int num_species;
   int num_pairs;
-  int num_z;
+  int num_shifts;
+  int num_sections;
   float eta;
   float zeta;
   float cutoff;
@@ -63,13 +108,43 @@ struct AngularParams {
   int cutoff_kind;  // 0 cosine, 1 smooth (order 2, eps 1e-10)
 };
 
-__device__ __forceinline__ float cutoff_value(float r, const AngularParams& p) {
+// row stride of K3's per-pair factor tile: odd, so 32 rows hit 32 banks
+__host__ __device__ __forceinline__ int tile_stride(int sh, int se) {
+  return (sh + se) | 1;
+}
+
+// floats of shared memory per warp
+__host__ __device__ __forceinline__ size_t fwd_warp_floats(int num_pairs, int nz, int ts,
+                                                           int ka) {
+  // acc (P, Z) | tile (32, ts) | slots (32) | r, x, y, z, fc, species (Ka each)
+  return static_cast<size_t>(num_pairs) * nz + 32 * ts + 32 + 6 * static_cast<size_t>(ka);
+}
+
+__host__ __device__ __forceinline__ size_t bwd_warp_floats(int num_pairs, int nz, int ka) {
+  // g (P, Z + 1) | r, x, y, z, fc, fc' (Ka each) | species, lane map (Ka each)
+  // | gradient planes r, x, y, z (Ka each)
+  return static_cast<size_t>(num_pairs) * (nz + 1) + 12 * static_cast<size_t>(ka);
+}
+
+// fc(r) and, with kDeriv, fc'(r) (the cutoffs of torchani_tpu_torch/cutoffs.py)
+template <bool kDeriv>
+__device__ __forceinline__ void cutoff_fn(float r, const AngularParams& p, float& fc,
+                                          float& dfc) {
   if (p.cutoff_kind == 0) {
-    return 0.5f * cosf(r * p.pi_over_cutoff) + 0.5f;
+    const float arg = r * p.pi_over_cutoff;
+    fc = 0.5f * cosf(arg) + 0.5f;
+    if (kDeriv) {
+      dfc = -0.5f * p.pi_over_cutoff * sinf(arg);
+    }
+  } else {
+    const float x = r / p.cutoff;
+    const float u = 1.0f - x * x;
+    const float uc = fmaxf(u, 1e-10f);
+    fc = expf(1.0f - 1.0f / uc);
+    if (kDeriv) {
+      dfc = u >= 1e-10f ? fc * (-2.0f * x / p.cutoff) / (uc * uc) : 0.0f;
+    }
   }
-  const float x = r / p.cutoff;
-  const float e = 1.0f - 1.0f / fmaxf(1.0f - x * x, 1e-10f);
-  return expf(e);
 }
 
 __device__ __forceinline__ int triu_slot(int a, int b, int s) {
@@ -78,22 +153,114 @@ __device__ __forceinline__ int triu_slot(int a, int b, int s) {
   return lo * s - (lo * (lo - 1)) / 2 + (hi - lo);
 }
 
-__global__ void __launch_bounds__(kWarpsPerBlock * 32)
-angular_aev_kernel(const float* __restrict__ dist,     // (N, Ka)
-                   const float* __restrict__ diff,     // (N, Ka, 3)
-                   const int* __restrict__ species,    // (N, Ka), -1 masked
-                   float* __restrict__ out,            // (N, P * Z)
+// Stages the atom's valid lanes (species >= 0), compacted and sorted by
+// species (stable), and returns their number (the same in every lane of the
+// warp).  With `map`, map[l] is lane l's compacted index, -1 for a masked
+// lane.
+template <bool kDeriv>
+__device__ int stage_lanes(const float* __restrict__ dist, const float* __restrict__ diff,
+                           const int* __restrict__ species, size_t row, int lane,
+                           const AngularParams& p, float* lr, float* lx, float* ly, float* lz,
+                           float* lfc, float* ldfc, int* lsp, int* map) {
+  if (map != nullptr) {
+    for (int l = lane; l < p.ka; l += 32) {
+      map[l] = -1;
+    }
+  }
+  int nv = 0;
+  const unsigned below = (1u << lane) - 1u;
+  for (int t = 0; t < p.num_species; ++t) {
+    for (int base = 0; base < p.ka; base += 32) {
+      const int l = base + lane;
+      const bool mine = l < p.ka && species[row + l] == t;
+      const unsigned found = __ballot_sync(kFullMask, mine);
+      if (mine) {
+        const int c = nv + __popc(found & below);
+        const float r = dist[row + l];
+        float fc, dfc = 0.0f;
+        cutoff_fn<kDeriv>(r, p, fc, dfc);
+        lr[c] = r;
+        lx[c] = diff[(row + l) * 3 + 0];
+        ly[c] = diff[(row + l) * 3 + 1];
+        lz[c] = diff[(row + l) * 3 + 2];
+        lfc[c] = fc;
+        if (kDeriv) {
+          ldfc[c] = dfc;
+        }
+        lsp[c] = t;
+        if (map != nullptr) {
+          map[l] = c;
+        }
+      }
+      nv += __popc(found);
+    }
+  }
+  return nv;
+}
+
+// Advances a lane's pair (j, k), j < k < nv, by `step` places in row-major
+// order; past the last pair j is nv - 1.
+__device__ __forceinline__ void advance_pair(int step, int nv, int& j, int& k) {
+  k += step;
+  while (k >= nv && j < nv - 1) {
+    ++j;
+    k += j + 1 - nv;
+  }
+}
+
+// base^e for base >= 0 and e > 0, as exp2(e log2(base)): 0 at base = 0.
+// Its relative error grows with |e log2(base)| (a few 1e-6 at |e log2| = 30,
+// where the result is already below 2^-29), so it stays within a few units
+// of the last place of powf where the result matters, in fewer instructions.
+__device__ __forceinline__ float pow_pos(float base, float e) {
+  return exp2f(e * log2f(base));
+}
+
+// The q-th of the nv (nv - 1) / 2 unordered pairs of compacted lanes, in
+// rounds: round d (1 <= d <= nv / 2) pairs lane j with lane (j + d) mod nv
+// for j = 0 .. nv - 1; for an even nv the last round (d = nv / 2) takes
+// j < nv / 2 only, since (j, j + nv / 2) and (j + nv / 2, j) are one pair.
+__device__ __forceinline__ void pair_of(int q, int nv, int& j, int& k) {
+  const int full = nv * ((nv - 1) / 2);
+  int d;
+  if (q < full) {
+    d = q / nv + 1;
+    j = q - (d - 1) * nv;
+  } else {
+    d = nv / 2;
+    j = q - full;
+  }
+  k = j + d;
+  if (k >= nv) {
+    k -= nv;
+  }
+}
+
+// K3.  SH, SE > 0: the term's widths, as constants; 0: read from p.
+template <int SH, int SE>
+__global__ void __launch_bounds__(kThreads)
+angular_aev_kernel(const float* __restrict__ dist,   // (N, Ka)
+                   const float* __restrict__ diff,   // (N, Ka, 3)
+                   const int* __restrict__ species,  // (N, Ka), -1 masked
+                   float* __restrict__ out,          // (N, P * Z)
                    const AngularParams p) {
+  constexpr int kSh = SH > 0 ? SH : kMaxShifts;
+  constexpr int kSe = SE > 0 ? SE : kMaxSections;
   extern __shared__ float smem[];
   const int warp = threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
   const int atom = blockIdx.x * kWarpsPerBlock + warp;
-  const int ka = p.ka;
-  const int nz = p.num_z;
+  const int sh = SH > 0 ? SH : p.num_shifts;
+  const int se = SE > 0 ? SE : p.num_sections;
+  const int nz = sh * se;
   const int pz = p.num_pairs * nz;
+  const int ka = p.ka;
+  const int ts = tile_stride(sh, se);
 
-  float* acc = smem + warp * (pz + 6 * ka);
-  float* lr = acc + pz;
+  float* acc = smem + warp * fwd_warp_floats(p.num_pairs, nz, ts, ka);
+  float* tile = acc + pz;
+  int* tslot = reinterpret_cast<int*>(tile + 32 * ts);
+  float* lr = reinterpret_cast<float*>(tslot + 32);
   float* lx = lr + ka;
   float* ly = lx + ka;
   float* lz = ly + ka;
@@ -103,143 +270,369 @@ angular_aev_kernel(const float* __restrict__ dist,     // (N, Ka)
   if (atom >= p.n) {
     return;  // the whole warp leaves together; only __syncwarp is used below
   }
-
   for (int i = lane; i < pz; i += 32) {
     acc[i] = 0.0f;
   }
   const size_t row = static_cast<size_t>(atom) * ka;
-  for (int j = lane; j < ka; j += 32) {
-    const int s = species[row + j];
-    const float r = dist[row + j];
-    lr[j] = r;
-    lx[j] = diff[(row + j) * 3 + 0];
-    ly[j] = diff[(row + j) * 3 + 1];
-    lz[j] = diff[(row + j) * 3 + 2];
-    lsp[j] = s;
-    lfc[j] = s >= 0 ? cutoff_value(r, p) : 0.0f;
-  }
-
-  float shift_r[kZPerLane], cos_r[kZPerLane], sin_r[kZPerLane];
-#pragma unroll
-  for (int q = 0; q < kZPerLane; ++q) {
-    const int z = lane + 32 * q;
-    shift_r[q] = z < nz ? p.shift[z] : 0.0f;
-    cos_r[q] = z < nz ? p.cossec[z] : 0.0f;
-    sin_r[q] = z < nz ? p.sinsec[z] : 0.0f;
-  }
+  const int nv = stage_lanes<false>(dist, diff, species, row, lane, p, lr, lx, ly, lz, lfc,
+                                    nullptr, lsp, nullptr);
   __syncwarp();
 
-  for (int j = 0; j + 1 < ka; ++j) {
-    const int sj = lsp[j];
-    if (sj < 0) {
-      continue;  // warp-uniform
-    }
-    const float rj = lr[j], xj = lx[j], yj = ly[j], zj = lz[j], fcj = lfc[j];
-    for (int k0 = j + 1; k0 < ka; k0 += 32) {
-      const int k = k0 + lane;
-      bool valid = false;
-      float c = 0.0f, sin_t = 0.0f, mean = 0.0f, fc2 = 0.0f;
-      int slot = 0;
-      if (k < ka) {
-        const int sk = lsp[k];
-        if (sk >= 0) {
-          valid = true;
-          const float rk = lr[k];
-          const float dot = xj * lx[k] + yj * ly[k] + zj * lz[k];
-          c = 0.95f * dot / fmaxf(rj * rk, 1e-10f);
-          sin_t = sqrtf(fmaxf(1.0f - c * c, 1e-20f));
-          mean = 0.5f * (rj + rk);
-          fc2 = fcj * lfc[k];
-          slot = triu_slot(sj, sk, p.num_species);
+  // this lane's features: z = lane + 32 i, at tile columns a(z) and sh + b(z)
+  constexpr int kZPerLane = (kSh * kSe + 31) / 32;
+  int col_a[kZPerLane], col_b[kZPerLane];
+  float run[kZPerLane];
+#pragma unroll
+  for (int i = 0; i < kZPerLane; ++i) {
+    const int z = lane + 32 * i;
+    col_a[i] = z < nz ? z / se : 0;
+    col_b[i] = z < nz ? sh + z % se : 0;
+    run[i] = 0.0f;
+  }
+  int cur = -1;  // the slot `run` sums into (the same in every lane)
+
+  const int num = nv * (nv - 1) / 2;
+  int j = 0, k = 1;
+  advance_pair(lane, nv, j, k);
+  for (int q0 = 0; q0 < num; q0 += 32, advance_pair(32, nv, j, k)) {
+    if (j < nv - 1) {
+      const float rj = lr[j];
+      const float rk = lr[k];
+      const float dot = lx[j] * lx[k] + ly[j] * ly[k] + lz[j] * lz[k];
+      const float c = 0.95f * dot / fmaxf(rj * rk, 1e-10f);
+      const float sin_t = sqrtf(fmaxf(1.0f - c * c, 1e-20f));
+      const float mean = 0.5f * (rj + rk);
+      const float f = lfc[j] * lfc[k];
+      float* t = tile + lane * ts;
+#pragma unroll
+      for (int a = 0; a < kSh; ++a) {
+        if (a < sh) {
+          const float dr = mean - p.shift[a];
+          t[a] = f * expf(-p.eta * dr * dr);
         }
       }
-      unsigned pending = __ballot_sync(kFullMask, valid);
-      while (pending) {
-        const int src = __ffs(pending) - 1;
-        pending &= pending - 1;
-        const float cq = __shfl_sync(kFullMask, c, src);
-        const float sq = __shfl_sync(kFullMask, sin_t, src);
-        const float mq = __shfl_sync(kFullMask, mean, src);
-        const float fq = __shfl_sync(kFullMask, fc2, src);
-        const int slotq = __shfl_sync(kFullMask, slot, src);
-        float* tile = acc + slotq * nz;
 #pragma unroll
-        for (int q = 0; q < kZPerLane; ++q) {
-          const int z = lane + 32 * q;
-          if (z < nz) {
-            const float dr = mq - shift_r[q];
-            const float rad = expf(-p.eta * dr * dr);
-            const float base = 0.5f * (1.0f + cq * cos_r[q] + sq * sin_r[q]);
-            const float ang = 2.0f * powf(base, p.zeta);
-            tile[z] += rad * ang * fq;
+      for (int b = 0; b < kSe; ++b) {
+        if (b < se) {
+          const float base = 0.5f * (1.0f + c * p.cossec[b] + sin_t * p.sinsec[b]);
+          t[sh + b] = 2.0f * pow_pos(base, p.zeta);
+        }
+      }
+      tslot[lane] = triu_slot(lsp[j], lsp[k], p.num_species);
+    }
+    __syncwarp();
+    // lanes sorted by species and pairs in row-major order: the slot stays
+    // the same over runs of pairs, summed in registers
+    const int cnt = min(32, num - q0);
+    for (int n = 0; n < cnt; ++n) {
+      const int slot = tslot[n];
+      if (slot != cur) {
+        if (cur >= 0) {
+#pragma unroll
+          for (int i = 0; i < kZPerLane; ++i) {
+            if (lane + 32 * i < nz) {
+              acc[cur * nz + lane + 32 * i] += run[i];
+            }
+            run[i] = 0.0f;
           }
         }
+        cur = slot;
+      }
+      const float* t = tile + n * ts;
+#pragma unroll
+      for (int i = 0; i < kZPerLane; ++i) {
+        run[i] += t[col_a[i]] * t[col_b[i]];
+      }
+    }
+    __syncwarp();
+  }
+  if (cur >= 0) {
+#pragma unroll
+    for (int i = 0; i < kZPerLane; ++i) {
+      if (lane + 32 * i < nz) {
+        acc[cur * nz + lane + 32 * i] += run[i];
       }
     }
   }
   __syncwarp();
 
-  float* dst = out + static_cast<size_t>(atom) * pz;
+  float* o = out + static_cast<size_t>(atom) * pz;
   for (int i = lane; i < pz; i += 32) {
-    dst[i] = acc[i];
+    o[i] = acc[i];
   }
+}
+
+// K3b.  SH, SE as for K3.
+template <int SH, int SE>
+__global__ void __launch_bounds__(kThreads)
+angular_aev_bwd_kernel(const float* __restrict__ g,        // (N, P * Z), row stride g_stride
+                       long long g_stride,
+                       const float* __restrict__ dist,     // (N, Ka)
+                       const float* __restrict__ diff,     // (N, Ka, 3)
+                       const int* __restrict__ species,    // (N, Ka), -1 masked
+                       float* __restrict__ gdist,          // (N, Ka)
+                       float* __restrict__ gdiff,          // (N, Ka, 3)
+                       const AngularParams p) {
+  constexpr int kSh = SH > 0 ? SH : kMaxShifts;
+  constexpr int kSe = SE > 0 ? SE : kMaxSections;
+  extern __shared__ float smem[];
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  const int atom = blockIdx.x * kWarpsPerBlock + warp;
+  const int sh = SH > 0 ? SH : p.num_shifts;
+  const int se = SE > 0 ? SE : p.num_sections;
+  const int nz = sh * se;
+  const int gz = nz + 1;  // padded slot stride of the staged cotangent
+  const int pz = p.num_pairs * nz;
+  const int ka = p.ka;
+
+  float* gs = smem + warp * bwd_warp_floats(p.num_pairs, nz, ka);
+  float* lr = gs + p.num_pairs * gz;
+  float* lx = lr + ka;
+  float* ly = lx + ka;
+  float* lz = ly + ka;
+  float* lfc = lz + ka;
+  float* ldfc = lfc + ka;
+  int* lsp = reinterpret_cast<int*>(ldfc + ka);
+  int* map = lsp + ka;
+  float* acc_r = reinterpret_cast<float*>(map + ka);
+  float* acc_d = acc_r + ka;  // three planes: x, y, z
+
+  if (atom >= p.n) {
+    return;  // the whole warp leaves together; only __syncwarp is used below
+  }
+  const float* grow = g + static_cast<long long>(atom) * g_stride;
+  for (int i = lane; i < pz; i += 32) {
+    gs[(i / nz) * gz + i % nz] = grow[i];
+  }
+  for (int i = lane; i < 4 * ka; i += 32) {
+    acc_r[i] = 0.0f;
+  }
+  const size_t row = static_cast<size_t>(atom) * ka;
+  const int nv = stage_lanes<true>(dist, diff, species, row, lane, p, lr, lx, ly, lz, lfc,
+                                   ldfc, lsp, map);
+  __syncwarp();
+
+  const int num = nv * (nv - 1) / 2;
+  const float zeta_m1 = p.zeta - 1.0f;
+  for (int q = lane; q < num; q += 32) {
+    int j, k;
+    pair_of(q, nv, j, k);
+    const float rj = lr[j];
+    const float rk = lr[k];
+    const float xj = lx[j], yj = ly[j], zj = lz[j];
+    const float xk = lx[k], yk = ly[k], zk = lz[k];
+    const float rr = rj * rk;
+    const float den = fmaxf(rr, 1e-10f);
+    const float c = 0.95f * (xj * xk + yj * yk + zj * zk) / den;
+    const float s2 = 1.0f - c * c;
+    const float sin_t = sqrtf(fmaxf(s2, 1e-20f));
+    const float dsin = s2 > 1e-20f ? -c / sin_t : 0.0f;
+    const float mean = 0.5f * (rj + rk);
+    const float fcj = lfc[j];
+    const float fck = lfc[k];
+    const float f = fcj * fck;
+
+    float ang[kSe], dang[kSe];
+#pragma unroll
+    for (int b = 0; b < kSe; ++b) {
+      ang[b] = 0.0f;
+      dang[b] = 0.0f;
+      if (b < se) {
+        const float cs = p.cossec[b];
+        const float sn = p.sinsec[b];
+        const float base = 0.5f * (1.0f + c * cs + sin_t * sn);
+        const float pw = zeta_m1 > 0.0f ? pow_pos(base, zeta_m1) : 1.0f;
+        ang[b] = 2.0f * base * pw;
+        dang[b] = p.zeta * pw * (cs + sn * dsin);
+      }
+    }
+    const float* gp = gs + triu_slot(lsp[j], lsp[k], p.num_species) * gz;
+    float s_f = 0.0f, s_m = 0.0f, s_c = 0.0f;
+#pragma unroll
+    for (int a = 0; a < kSh; ++a) {
+      if (a < sh) {
+        const float dr = mean - p.shift[a];
+        const float ra = expf(-p.eta * dr * dr);
+        const float dra = -2.0f * p.eta * dr * ra;
+        float t1 = 0.0f, t2 = 0.0f;
+#pragma unroll
+        for (int b = 0; b < kSe; ++b) {
+          if (b < se) {
+            const float gv = gp[a * se + b];
+            t1 += gv * ang[b];
+            t2 += gv * dang[b];
+          }
+        }
+        s_f += ra * t1;
+        s_m += dra * t1;
+        s_c += ra * t2;
+      }
+    }
+    const float dl_dm = f * s_m;
+    const float dl_dc = f * s_c;
+    const float dl_df = s_f;
+    const bool through_r = rr >= 1e-10f;
+    const float g_rj =
+        0.5f * dl_dm + dl_df * ldfc[j] * fck + (through_r ? dl_dc * (-c / rj) : 0.0f);
+    const float g_rk =
+        0.5f * dl_dm + dl_df * fcj * ldfc[k] + (through_r ? dl_dc * (-c / rk) : 0.0f);
+    const float coef = 0.95f * dl_dc / den;
+    atomicAdd(acc_r + j, g_rj);
+    atomicAdd(acc_d + j, coef * xk);
+    atomicAdd(acc_d + ka + j, coef * yk);
+    atomicAdd(acc_d + 2 * ka + j, coef * zk);
+    atomicAdd(acc_r + k, g_rk);
+    atomicAdd(acc_d + k, coef * xj);
+    atomicAdd(acc_d + ka + k, coef * yj);
+    atomicAdd(acc_d + 2 * ka + k, coef * zj);
+  }
+  __syncwarp();
+
+  for (int l = lane; l < ka; l += 32) {
+    const int c = map[l];
+    gdist[row + l] = c >= 0 ? acc_r[c] : 0.0f;
+  }
+  for (int i = lane; i < 3 * ka; i += 32) {
+    const int c = map[i / 3];
+    gdiff[row * 3 + i] = c >= 0 ? acc_d[(i % 3) * ka + c] : 0.0f;
+  }
+}
+
+using FwdKernel = void (*)(const float*, const float*, const int*, float*, AngularParams);
+using BwdKernel = void (*)(const float*, long long, const float*, const float*, const int*,
+                           float*, float*, AngularParams);
+
+FwdKernel pick_fwd(int sh, int se) {
+  if (sh == 8 && se == 4) {
+    return angular_aev_kernel<8, 4>;
+  }
+  if (sh == 4 && se == 8) {
+    return angular_aev_kernel<4, 8>;
+  }
+  return angular_aev_kernel<0, 0>;
+}
+
+BwdKernel pick_bwd(int sh, int se) {
+  if (sh == 8 && se == 4) {
+    return angular_aev_bwd_kernel<8, 4>;
+  }
+  if (sh == 4 && se == 8) {
+    return angular_aev_bwd_kernel<4, 8>;
+  }
+  return angular_aev_bwd_kernel<0, 0>;
+}
+
+// Fills `p` from the host arguments; cudaErrorInvalidValue for widths the
+// kernels do not take.
+cudaError_t make_params(AngularParams& p, int n, int ka, int num_species, const float* shifts,
+                        int num_shifts, const float* cos_sections, const float* sin_sections,
+                        int num_sections, float eta, float zeta, float cutoff,
+                        float pi_over_cutoff, int cutoff_kind) {
+  if (n <= 0 || ka <= 0 || num_species <= 0 || num_shifts <= 0 || num_shifts > kMaxShifts ||
+      num_sections <= 0 || num_sections > kMaxSections) {
+    return cudaErrorInvalidValue;
+  }
+  for (int a = 0; a < kMaxShifts; ++a) {
+    p.shift[a] = a < num_shifts ? shifts[a] : 0.0f;
+  }
+  for (int b = 0; b < kMaxSections; ++b) {
+    p.cossec[b] = b < num_sections ? cos_sections[b] : 0.0f;
+    p.sinsec[b] = b < num_sections ? sin_sections[b] : 0.0f;
+  }
+  p.n = n;
+  p.ka = ka;
+  p.num_species = num_species;
+  p.num_pairs = num_species * (num_species + 1) / 2;
+  p.num_shifts = num_shifts;
+  p.num_sections = num_sections;
+  p.eta = eta;
+  p.zeta = zeta;
+  p.cutoff = cutoff;
+  p.pi_over_cutoff = pi_over_cutoff;
+  p.cutoff_kind = cutoff_kind;
+  return cudaSuccess;
+}
+
+// Raises the kernel's dynamic shared memory limit past the 48 KB default
+// where it needs more; cudaErrorInvalidValue past the card's 227 KB.
+cudaError_t allow_shared(const void* kernel, size_t smem) {
+  if (smem > kMaxSharedBytes) {
+    return cudaErrorInvalidValue;
+  }
+  if (smem > 48 * 1024) {
+    return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                static_cast<int>(smem));
+  }
+  return cudaSuccess;
 }
 
 }  // namespace
 
 extern "C" {
 
-// Launches the kernel on `stream` (a cudaStream_t) of `device`.  Inputs are
-// contiguous device arrays; `shifts`, `cos_sections` and `sin_sections` are
-// host arrays.  Returns the cudaError_t of the launch (0 on success).
-int angular_aev_launch(const float* dist, const float* diff, const int* species,
-                       float* out, int n, int ka, int num_species,
-                       const float* shifts, int num_shifts,
-                       const float* cos_sections, const float* sin_sections,
-                       int num_sections, float eta, float zeta, float cutoff,
-                       float pi_over_cutoff, int cutoff_kind, int device,
-                       void* stream) {
-  const int nz = num_shifts * num_sections;
-  if (n <= 0 || ka <= 0 || nz <= 0 || nz > kMaxZ || num_species <= 0) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  cudaError_t err = cudaSetDevice(device);
+// Both launch on `stream` (a cudaStream_t) of `device` and return the
+// cudaError_t of the launch (0 on success).  `dist`, `diff`, `species` and
+// the outputs are contiguous device arrays; `g` is a device array whose rows
+// are `g_row_stride` floats apart, its columns contiguous.  `shifts`,
+// `cos_sections` and `sin_sections` are host arrays.
+
+int angular_aev_launch(const float* dist, const float* diff, const int* species, float* out,
+                       int n, int ka, int num_species, const float* shifts, int num_shifts,
+                       const float* cos_sections, const float* sin_sections, int num_sections,
+                       float eta, float zeta, float cutoff, float pi_over_cutoff,
+                       int cutoff_kind, int device, void* stream) {
+  AngularParams p;
+  cudaError_t err = make_params(p, n, ka, num_species, shifts, num_shifts, cos_sections,
+                                sin_sections, num_sections, eta, zeta, cutoff, pi_over_cutoff,
+                                cutoff_kind);
   if (err != cudaSuccess) {
     return static_cast<int>(err);
   }
-  AngularParams p;
-  for (int z = 0; z < nz; ++z) {
-    p.shift[z] = shifts[z / num_sections];
-    p.cossec[z] = cos_sections[z % num_sections];
-    p.sinsec[z] = sin_sections[z % num_sections];
+  if ((err = cudaSetDevice(device)) != cudaSuccess) {
+    return static_cast<int>(err);
   }
-  for (int z = nz; z < kMaxZ; ++z) {
-    p.shift[z] = p.cossec[z] = p.sinsec[z] = 0.0f;
-  }
-  p.n = n;
-  p.ka = ka;
-  p.num_species = num_species;
-  p.num_pairs = num_species * (num_species + 1) / 2;
-  p.num_z = nz;
-  p.eta = eta;
-  p.zeta = zeta;
-  p.cutoff = cutoff;
-  p.pi_over_cutoff = pi_over_cutoff;
-  p.cutoff_kind = cutoff_kind;
-
-  const size_t smem =
-      static_cast<size_t>(kWarpsPerBlock) * (p.num_pairs * nz + 6 * ka) * sizeof(float);
-  if (smem > 48 * 1024) {
-    err = cudaFuncSetAttribute(angular_aev_kernel,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               static_cast<int>(smem));
-    if (err != cudaSuccess) {
-      return static_cast<int>(err);
-    }
+  const int nz = num_shifts * num_sections;
+  const size_t smem = kWarpsPerBlock * sizeof(float) *
+                      fwd_warp_floats(p.num_pairs, nz, tile_stride(num_shifts, num_sections), ka);
+  const FwdKernel kernel = pick_fwd(num_shifts, num_sections);
+  if ((err = allow_shared(reinterpret_cast<const void*>(kernel), smem)) != cudaSuccess) {
+    return static_cast<int>(err);
   }
   const int blocks = (n + kWarpsPerBlock - 1) / kWarpsPerBlock;
-  angular_aev_kernel<<<blocks, kWarpsPerBlock * 32, smem,
-                       static_cast<cudaStream_t>(stream)>>>(dist, diff, species, out, p);
+  kernel<<<blocks, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(dist, diff, species,
+                                                                         out, p);
+  return static_cast<int>(cudaGetLastError());
+}
+
+int angular_aev_bwd_launch(const float* g, long long g_row_stride, const float* dist,
+                           const float* diff, const int* species, float* gdist, float* gdiff,
+                           int n, int ka, int num_species, const float* shifts, int num_shifts,
+                           const float* cos_sections, const float* sin_sections,
+                           int num_sections, float eta, float zeta, float cutoff,
+                           float pi_over_cutoff, int cutoff_kind, int device, void* stream) {
+  AngularParams p;
+  cudaError_t err = make_params(p, n, ka, num_species, shifts, num_shifts, cos_sections,
+                                sin_sections, num_sections, eta, zeta, cutoff, pi_over_cutoff,
+                                cutoff_kind);
+  if (err != cudaSuccess) {
+    return static_cast<int>(err);
+  }
+  if (g_row_stride < 0) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if ((err = cudaSetDevice(device)) != cudaSuccess) {
+    return static_cast<int>(err);
+  }
+  const int nz = num_shifts * num_sections;
+  const size_t smem = kWarpsPerBlock * sizeof(float) * bwd_warp_floats(p.num_pairs, nz, ka);
+  const BwdKernel kernel = pick_bwd(num_shifts, num_sections);
+  if ((err = allow_shared(reinterpret_cast<const void*>(kernel), smem)) != cudaSuccess) {
+    return static_cast<int>(err);
+  }
+  const int blocks = (n + kWarpsPerBlock - 1) / kWarpsPerBlock;
+  kernel<<<blocks, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+      g, g_row_stride, dist, diff, species, gdist, gdiff, p);
   return static_cast<int>(cudaGetLastError());
 }
 

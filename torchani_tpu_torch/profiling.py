@@ -8,16 +8,16 @@ Run on a machine with an NVIDIA GPU, from the root of a checkout::
 Prints, for ANI-2x (random weights, seed 0) on the 10,002-atom periodic
 water box with ``CellList(capacity=96)``: the E+F wall time; the wall time
 of each forward stage run alone (neighbor table, AEV, networks; each ends in
-a synchronize); E+F time and peak device memory with the angular backward
-recompute in 1 to 4 atom blocks and with the default block size, and the
-recompute's bytes per grid element that follow from them; the same for a
-30,000-atom box; and, from ``torch.profiler`` over 10 calls, the device-busy
-share and the CUDA kernels that take the most device time.  Then, for
+a synchronize); E+F time and peak device memory at 10,002 and at 30,000
+atoms; and, from ``torch.profiler`` over 10 calls, the device-busy share and
+the CUDA kernels that take the most device time (K3 and K3b, the angular
+AEV's forward and backward, wherever they rank).  Then, for
 `MolecularDynamics` with its defaults on the same box (`MolecularDynamics`, 300 K, 1 fs):
 the step's wall time, the wall time of each stage run alone (refresh, AEV,
 networks, the whole forward, forward and backward, integrator, a neighbor
 rebuild), and, from ``torch.profiler`` over 20 steps, the device-busy share,
-kernel launches and host waits per step and the top kernels; the kernels of
+kernel launches and host waits per step and the top kernels (K3 and K3b
+among them); the kernels of
 the bucket refresh and of the gather refresh, forward and backward, on the
 same cached topology; and how long the box lasts under random weights (it
 heats up until a static capacity overflows).  Last, for ANI-2dr (networks,
@@ -30,7 +30,6 @@ and top kernels.  ``python3 -m torchani_tpu_torch.profiling ani2dr`` prints
 that last part alone.
 """
 
-import math
 import sys
 import time
 import typing as tp
@@ -55,8 +54,6 @@ from torchani_tpu_torch.testing import make_water_box
 ATOMS, LARGE_ATOMS = 10002, 30000
 #: timed calls per measurement, after one warm-up call
 STEPS = 10
-#: numbers of angular recompute blocks swept at ATOMS
-BLOCK_COUNTS = (1, 2, 3, 4)
 #: MD steps in the profiled window
 MD_STEPS = 20
 #: CUDA runtime calls on which the host waits for the device
@@ -124,33 +121,16 @@ def main() -> None:
                 ms = float(np.median(wall_times_ms(fn, STEPS)))
             print(f"{name}: {ms:.3f} ms (median of {STEPS})")
 
-    # the angular backward's memory and host time against its block size
-    ka = aevc._angular_capacity(nbrs.capacity)
-    grid = ka * ka * aevc.angular.num_feats
-    print(f"angular recompute: Ka = {ka}, default block {aevc._atom_block(ka)} atoms")
-    peaks = {}
-    for count in BLOCK_COUNTS + (None,):
-        aevc.atom_block = None if count is None else math.ceil(num_atoms / count)
-        times = wall_times_ms(stages["E+F"], STEPS)
-        peaks[count] = peak_gib(stages["E+F"])
-        blocks = "default block" if count is None else f"{count} block(s)"
-        print(f"E+F with {blocks}: median {np.median(times):.3f} ms, "
-              f"peak device memory {peaks[count]:.3f} GiB")
-    aevc.atom_block = None
-    lo, hi = BLOCK_COUNTS[0], BLOCK_COUNTS[-1]
-    atoms_saved = math.ceil(num_atoms / lo) - math.ceil(num_atoms / hi)
-    print(f"recompute bytes per grid element: "
-          f"{(peaks[lo] - peaks[hi]) * 2**30 / (atoms_saved * grid):.2f} "
-          f"({lo} vs {hi} blocks)")
+    # E+F time and peak memory at the two boxes (the angular backward is one
+    # K3b launch: no recompute block to size)
+    for system in ((species, coords, cell, pbc), _water(LARGE_ATOMS, dev)):
+        ef = lambda: energies_and_forces(model, *system)  # noqa: E731
+        times = wall_times_ms(ef, STEPS)
+        print(f"E+F {system[0].shape[1]} atoms: median {np.median(times):.3f} ms, "
+              f"peak device memory {peak_gib(ef):.3f} GiB")
+    del system, ef
 
-    large = _water(LARGE_ATOMS, dev)
-    times = wall_times_ms(lambda: energies_and_forces(model, *large), STEPS)
-    print(f"E+F {large[0].shape[1]} atoms, default block: median "
-          f"{np.median(times):.3f} ms, peak device memory "
-          f"{peak_gib(lambda: energies_and_forces(model, *large)):.3f} GiB")
-    del large
-
-    _profile("E+F", stages["E+F"], STEPS)
+    _profile("E+F", stages["E+F"], STEPS, also=("angular_aev",))
     del stages, nbrs, aevs
     md_report(model, species, coords, cell)
     del model
@@ -272,7 +252,7 @@ def md_report(model, species, coords, cell) -> None:
         with torch.enable_grad() if grad else torch.no_grad():
             ms = float(np.median(wall_times_ms(fn, STEPS)))
         print(f"MD {name}: {ms:.3f} ms (median of {STEPS})")
-    _profile("MD step", step, MD_STEPS)
+    _profile("MD step", step, MD_STEPS, also=("angular_aev",))
 
     # the two refreshes on the same cached topology, forward and backward
     with torch.no_grad():
