@@ -9,7 +9,8 @@ In order: prints the card, builds every CUDA kernel from ``csrc/`` (one
 ``nvcc`` per source, all at once), holds each kernel against its plain
 PyTorch version on the card (K3, the fused angular AEV, and K3b, its
 backward, on contiguous and column-sliced cotangents; K1 and K2, the bucket
-refresh's selection and its transpose), runs ANI-2x energies and
+refresh's selection and its transpose, with K2's cluster split S, blocks,
+threads and shared memory printed), runs ANI-2x energies and
 forces on the 10,002-atom periodic water box through the public entry points
 (counting kernel launches), compares the card with the CPU on a ~1,000-atom
 box, then drives the MD main path: `MolecularDynamics` with its defaults,
@@ -23,14 +24,15 @@ refresh against the gather refresh, with the card's SM clock beside the
 kernels' times.  On every main path K3 and K3b launch once per evaluation
 and the plain angular grid is never built.  Then the ANI-2dr paths
 (networks, xTB repulsion and D3 dispersion): K4f and K4b (the per-lane
-selection of runtime values, at P = 1 and P = 5 channels) and K5f and K5b
-(the atom-packed refresh) against their
-plain versions at the ANI-2dr box's own tables, with their times, bounds,
-plain versions and library calls; ANI-2dr energies and forces on the same
+selection of runtime values, at P = 1 and P = 5 channels; K4b's launch
+shape printed as K2's), K5f and K5b (the atom-packed refresh) and K1 and K2
+against their plain versions at the ANI-2dr box's own tables, with their
+times, bounds, plain versions and library calls; ANI-2dr energies and forces on the same
 box; `MolecularDynamics` under ANI-2dr three ways (its defaults, the frozen
 pair window, the atom-packed refresh), each with `init` at 300 K, NVE steps,
 launch counts, energy drift, MD forces against single-point forces, a forced
-rebuild, and frozen and packed forces against the default run's; and the
+rebuild, frozen and packed forces against the default run's, and each
+backward kernel launched once per evaluation; and the
 card against the CPU on a 2,001-atom box.  It prints a ``kernels`` JSON line
 (all eight kernels) and, last, ``{"ok": true, "device": {...}}``.  Any failed
 check raises, and the script exits non-zero without that last line; so does
@@ -200,6 +202,18 @@ def packed_bound_ms(lanes: int, g: int, c: int, tiles: int, adds: bool) -> tuple
     by_bytes = nbytes / PEAK_HBM_BYTES * 1e3
     by_ops = (3 * lanes if adds else 0) / PEAK_F32_FLOPS * 1e3
     return max(by_bytes, by_ops), "operations" if by_ops > by_bytes else "bytes", nbytes
+
+
+def launch_shape(what: str, g: int, c: int, p: int) -> dict:
+    """Print and return how K2 (p = 3) or K4b launch at G buckets of C
+    slots: the cluster split S, blocks, threads a block, shared memory."""
+    from torchani_tpu_torch.bucket_refresh import bwd_launch_shape
+
+    shape = bwd_launch_shape(g, c, p, torch.device("cuda"))
+    print(f"{what} launch: G={g}, C={c}, P={p}: S={shape['split']} blocks a cluster, "
+          f"{shape['blocks']} blocks of {shape['threads']} threads, "
+          f"{shape['smem_bytes']} bytes of shared memory a block")
+    return shape
 
 
 def within(out: torch.Tensor, ref: torch.Tensor, tol: float) -> bool:
@@ -397,6 +411,7 @@ def main() -> int:
     print(f"K1 water-box tables vs plain: max abs err {k1_err:.3e} over occupied lanes")
     check(k1_err == 0.0, "K1 is an exact selection")
     g_rows = torch.randn((g_, r_, 3), device=dev, generator=torch.Generator(dev).manual_seed(1))
+    k2_shape = launch_shape("K2 at the ANI-2x tables", g_, c_, 3)
     k2_out = bucket_select_bwd(g_rows, tables.keys, c_, nlanes)
     torch.cuda.synchronize()
     k2_ref = bucket_select_bwd_reference(g_rows, tables.keys, c_, nlanes)
@@ -416,6 +431,7 @@ def main() -> int:
     scand = torch.as_tensor(rng.randn(sg, 27, sc, 3).astype(np.float32) * 20, device=dev)
     sgout = torch.as_tensor(rng.randn(sg, sc * sk, 3).astype(np.float32), device=dev)
     s1 = bucket_select_fwd(scand, skeys)
+    launch_shape("K2 on random keys", sg, sc, 3)
     s2 = bucket_select_bwd(sgout, skeys, sc)
     torch.cuda.synchronize()
     s1_err = float((s1 - bucket_select_reference(scand, skeys)).abs().max())
@@ -520,6 +536,8 @@ def main() -> int:
                         "bucket_select_bwd")),
           f"K1, K2, K3 and K3b each launched at least {MD_STEPS} times on the MD path")
     k3b_once_per_evaluation(md_launches, "ANI-2x MD")
+    check(md_launches["bucket_select_bwd"] == md_launches["angular_aev"],
+          "ANI-2x MD: K2 launched once per evaluation")
     check(abs(drift) <= 5e-3 * abs(e_start) + 0.05, "total energy drift bounded")
 
     # ---- 6. a forced rebuild ----
@@ -766,6 +784,7 @@ def main() -> int:
         f_err = float((vout - vref)[docc].abs().max())
         check(f_err == 0.0, f"K4f is an exact selection at P = {p_}")
         vg = torch.randn((dg, dr, p_), device=dev, generator=torch.Generator(dev).manual_seed(9))
+        vshape = launch_shape(f"K4b at the ANI-2dr tables, P={p_},", dg, dc, p_)
         vback = vals_select_bwd(vg, dt.keys, dc, dnl)
         torch.cuda.synchronize()
         vbref = vals_select_bwd_reference(vg, dt.keys, dc, dnl)
@@ -784,7 +803,8 @@ def main() -> int:
         )
         fb = vals_bound_ms(dlanes, dg, dc, p_, adds=False)
         bb = vals_bound_ms(dlanes, dg, dc, p_, adds=True)
-        k4[p_] = dict(f_err=f_err, b_err=b_err, fb=fb, bb=bb, **times)
+        k4[p_] = dict(f_err=f_err, b_err=b_err, fb=fb, bb=bb, split=vshape["split"],
+                      threads=vshape["threads"], **times)
         print(f"{card}: K4f at P={p_}: max abs err {f_err:.3e}; {times['f']:.4f} ms; plain "
               f"{times['f_plain']:.4f} ms; index_select {times['f_lib']:.4f} ms; bound "
               f"{fb[0]:.4f} ms by {fb[1]} ({fb[2] / 1e6:.1f} MB)")
@@ -797,6 +817,7 @@ def main() -> int:
     wg = torch.randn((3, 256 * 5, 5), device=dev)
     check(float((vals_select_fwd(wcand, skeys[:3]) - vals_select_reference(wcand, skeys[:3]))
                 .abs().max()) == 0.0, "K4f exact at C = 256, P = 5")
+    launch_shape("K4b on random keys", 3, 256, 5)
     check(within(vals_select_bwd(wg, skeys[:3], 256), vals_select_bwd_reference(wg, skeys[:3], 256),
                  SUM_TOL), "K4b within tolerance at C = 256, P = 5")
 
@@ -845,15 +866,34 @@ def main() -> int:
     print(f"{card}: K5b: max abs err {k5b_err:.3e}; {k5['b']:.4f} ms; plain {k5['b_plain']:.4f} "
           f"ms; zero_ + index_add_ {k5['b_lib']:.4f} ms; bound {k5bb[0]:.4f} ms by {k5bb[1]} "
           f"({k5bb[2] / 1e6:.1f} MB)")
-    # K1 and K2 at the same box, for the slot layout against the packed one
+    # K1 and K2 at the same box, for the slot layout against the packed one;
+    # K2 there against its plain version, with its own bound
     scanon = dr_md["default"]._to_internal(probe.coords) - dt.wrap_offset
     scand = _cand_table(scanon, dt.atom_of_slot, dt.wrapshift, dgrid, dc)
-    sgrows = torch.randn((dg, dr, 3), device=dev)
+    sgrows = torch.randn((dg, dr, 3), device=dev, generator=torch.Generator(dev).manual_seed(10))
+    k2_dr_shape = launch_shape("K2 at the ANI-2dr tables", dg, dc, 3)
+    k2_dr_out = bucket_select_bwd(sgrows, dt.keys, dc, dnl)
+    torch.cuda.synchronize()
+    k2_dr_ref = bucket_select_bwd_reference(sgrows, dt.keys, dc, dnl)
+    k2_dr_err = float((k2_dr_out - k2_dr_ref).abs().max())
+    check(within(k2_dr_out, k2_dr_ref, K2_TOL), "K2 within tolerance at the ANI-2dr tables")
+    sindex3 = _flat_index(dt.keys, dc)[:, :, None].expand(-1, -1, 3)
+    sd_flat = torch.empty((dg, 28 * dc, 3), device=dev)
     k1_dr = kernels_ms(lambda: bucket_select_fwd(scand, dt.keys, dnl), reps=20)
-    k2_dr = kernels_ms(lambda: bucket_select_bwd(sgrows, dt.keys, dc, dnl), reps=20)
-    print(f"{card}: at the same box the slot layout's K1 takes {k1_dr:.4f} ms and K2 "
-          f"{k2_dr:.4f} ms (bound {select_bound_ms(dlanes, dg, dc, adds=False)[0]:.4f} ms)")
+    k2_dr = dict(
+        ms=kernels_ms(lambda: bucket_select_bwd(sgrows, dt.keys, dc, dnl), reps=20),
+        plain=kernels_ms(lambda: bucket_select_bwd_reference(sgrows, dt.keys, dc, dnl), reps=10),
+        lib=kernels_ms(lambda: sd_flat.zero_().scatter_add_(1, sindex3, sgrows), reps=20),
+    )
+    k1_dr_bound = select_bound_ms(dlanes, dg, dc, adds=False)
+    k2_dr_bound = select_bound_ms(dlanes, dg, dc, adds=True)
+    print(f"{card}: at the same box the slot layout's K1 takes {k1_dr:.4f} ms (bound "
+          f"{k1_dr_bound[0]:.4f} ms by {k1_dr_bound[1]}, {k1_dr_bound[2] / 1e6:.1f} MB)")
+    print(f"{card}: K2 at the ANI-2dr tables: max abs err {k2_dr_err:.3e}; {k2_dr['ms']:.4f} ms; "
+          f"plain {k2_dr['plain']:.4f} ms; zero_ + scatter_add_ {k2_dr['lib']:.4f} ms; bound "
+          f"{k2_dr_bound[0]:.4f} ms by {k2_dr_bound[1]} ({k2_dr_bound[2] / 1e6:.1f} MB)")
     del pcand, pout, pref, pgout, pback, pbref, pindex, pflat, pacc, scand, sgrows, wcand, wg
+    del k2_dr_out, k2_dr_ref, sindex3, sd_flat
 
     # ---- 12. ANI-2dr energies and forces on the water box ----
     dr_model.neighborlist = CellList()
@@ -908,6 +948,10 @@ def main() -> int:
               f"ANI-2dr MD ({name}): {sorted(want)} launched at least once per step")
         check(all(v == 0 for k_, v in counts.items() if k_ not in want),
               f"ANI-2dr MD ({name}): no other kernel launched")
+        backward = ("packed_select_bwd",) if name == "packed" else (
+            "bucket_select_bwd", "vals_select_bwd")
+        check(all(counts[k_] == counts["angular_aev"] for k_ in backward),
+              f"ANI-2dr MD ({name}): {backward} launched once per evaluation")
         # the same stretch again, step by step, for the step's time
         state, step_ms = start, []
         for _ in range(DR_STEPS):
@@ -999,14 +1043,21 @@ def main() -> int:
          "replaced_recompute_ms": recompute_ms},
         entry("bucket_select_fwd", select_cu, "torchani_tpu/bucket_refresh.py:504",
               k1_err, k1_ms, k1_plain_ms, k1_bound, k1_by, k1_lib_ms),
-        entry("bucket_select_bwd", select_cu, "torchani_tpu/bucket_refresh.py:544",
-              k2_err, k2_ms, k2_plain_ms, k2_bound, k2_by, k2_lib_ms),
+        {**entry("bucket_select_bwd", select_cu, "torchani_tpu/bucket_refresh.py:544",
+                 k2_err, k2_ms, k2_plain_ms, k2_bound, k2_by, k2_lib_ms),
+         "split": k2_shape["split"], "threads": k2_shape["threads"],
+         "at_ani2dr": {
+             "max_abs_err": k2_dr_err, "ms": k2_dr["ms"], "plain_ms": k2_dr["plain"],
+             "bound_ms": k2_dr_bound[0], "library_ms": k2_dr["lib"],
+             "split": k2_dr_shape["split"], "threads": k2_dr_shape["threads"],
+         }},
         entry("vals_select_fwd", vals_cu, "torchani_tpu/bucket_refresh.py:660",
               k4[5]["f_err"], k4[5]["f"], k4[5]["f_plain"], k4[5]["fb"][0], k4[5]["fb"][1],
               k4[5]["f_lib"]),
-        entry("vals_select_bwd", vals_cu, "torchani_tpu/bucket_refresh.py:686",
-              k4[5]["b_err"], k4[5]["b"], k4[5]["b_plain"], k4[5]["bb"][0], k4[5]["bb"][1],
-              k4[5]["b_lib"]),
+        {**entry("vals_select_bwd", vals_cu, "torchani_tpu/bucket_refresh.py:686",
+                 k4[5]["b_err"], k4[5]["b"], k4[5]["b_plain"], k4[5]["bb"][0], k4[5]["bb"][1],
+                 k4[5]["b_lib"]),
+         "split": k4[5]["split"], "threads": k4[5]["threads"]},
         entry("packed_select_fwd", packed_cu, "torchani_tpu/bucket_refresh_packed.py:290",
               k5f_err, k5["f"], k5["f_plain"], k5fb[0], k5fb[1], k5["f_lib"]),
         entry("packed_select_bwd", packed_cu, "torchani_tpu/bucket_refresh_packed.py:316",
@@ -1018,6 +1069,7 @@ def main() -> int:
             "max_abs_err": k4[p_][f"{side}_err"], "ms": k4[p_][side],
             "plain_ms": k4[p_][f"{side}_plain"], "bound_ms": k4[p_][f"{side}b"][0],
             "library_ms": k4[p_][f"{side}_lib"],
+            **({"split": k4[p_]["split"], "threads": k4[p_]["threads"]} if side == "b" else {}),
         }
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({

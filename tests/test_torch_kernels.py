@@ -33,11 +33,16 @@ from torchani_tpu_torch.aev.kernels import (
 )
 from torchani_tpu_torch.aev.terms import ANIAngular
 from torchani_tpu_torch.bucket_refresh import (
+    BWD_THREADS,
+    CLUSTER_SPLITS,
+    MAX_SHARED_BYTES,
+    _cluster_split,
     bucket_nbr_pos,
     bucket_select_bwd,
     bucket_select_bwd_reference,
     bucket_select_fwd,
     bucket_select_reference,
+    bwd_launch_shape,
     make_wrapshift,
     tables_from_cell_aux,
     vals_select_bwd,
@@ -523,6 +528,142 @@ def test_vals_select_wrappers_check_on_card():
     wide = torch.zeros((1, 27, 256, 9), device="cuda")
     with pytest.raises(ValueError, match="shared memory"):
         vals_select_fwd(wide, torch.zeros((1, 256), dtype=torch.int32, device="cuda"))
+    with pytest.raises(ValueError, match="shared memory"):
+        vals_select_bwd(torch.zeros((1, 256, 9), device="cuda"),
+                        torch.zeros((1, 256), dtype=torch.int32, device="cuda"), 256)
+
+
+# ---- K2 and K4b: each bucket's lanes split over a thread-block cluster ----
+
+#: the water box's tables: ANI-2x (G = 343, C = 64) and ANI-2dr (G = 125,
+#: C = 96); K2's tile has 3 channels, K4b's 5 (D3's default) or 1 (frozen)
+WATER_BOX_TILES = [(343, 64, 3), (125, 96, 3), (125, 96, 5), (125, 96, 1), (343, 96, 3)]
+
+
+@pytest.mark.parametrize("g,c,p", WATER_BOX_TILES)
+def test_cluster_split_fills_an_h100_in_one_wave(g, c, p):
+    """At the water box's shapes every block is on an H100's 132 SMs at
+    once, every SM holds one at least, the block is the largest that allows
+    this and the next larger S would need a second wave."""
+    tile = 27 * c * p * 4
+    threads, s = _cluster_split(g, tile, 132)
+    assert s in CLUSTER_SPLITS and threads in BWD_THREADS and tile <= MAX_SHARED_BYTES
+    resident = 132 * (2048 // threads)  # these tiles fit that many blocks an SM
+    assert 132 <= g * s <= resident
+    assert s == CLUSTER_SPLITS[-1] or g * 2 * s > resident
+    assert threads == BWD_THREADS[0] or g > 132 * (2048 // BWD_THREADS[0])
+
+
+@pytest.mark.parametrize("g,tile,want", [
+    (1, 27 * 96 * 3 * 4, (1024, 8)),  # one bucket: the largest cluster
+    (125, 27 * 96 * 3 * 4, (1024, 2)),  # the ANI-2dr tables: 250 blocks
+    (343, 27 * 64 * 3 * 4, (512, 1)),  # the ANI-2x tables: 343 blocks of 512
+    (3, 27 * 256 * 5 * 4, (1024, 8)),  # 138 KB: one block an SM
+    (66, 27 * 256 * 5 * 4, (1024, 2)),
+    (200, 27 * 256 * 5 * 4, (1024, 1)),  # no block size gives one wave
+    (33, 1024, (1024, 8)),  # 264 blocks: exactly one wave
+    (10_000, 1024, (1024, 1)),
+])
+def test_cluster_split_cases(g, tile, want):
+    assert _cluster_split(g, tile, 132) == want
+
+
+def test_cluster_split_refuses_a_tile_past_shared_memory():
+    with pytest.raises(ValueError, match="shared memory"):
+        _cluster_split(4, MAX_SHARED_BYTES + 4, 132)
+
+
+@pytest.mark.parametrize("p", [3, 5, 1])
+def test_bwd_wrappers_take_plain_version_on_cpu(p):
+    """On CPU tensors K2 and K4b are their plain versions, launch nothing and
+    split nothing: an empty bucket among full ones, one candidate repeated."""
+    _, _, keys, nlanes = _select_inputs(4, 16, 6, 7, True, "cpu")
+    keys[1] = (13 << 8) | 7
+    nlanes[1] = keys.shape[1]
+    gout = torch.as_tensor(np.random.RandomState(8).randn(4, 96, p).astype(np.float32))
+    wrapper, ref = ((bucket_select_bwd, bucket_select_bwd_reference) if p == 3
+                    else (vals_select_bwd, vals_select_bwd_reference))
+    before = wrapper.launches
+    out = wrapper(gout, keys, 16, nlanes)
+    assert wrapper.launches == before
+    assert torch.equal(out, ref(gout, keys, 16, nlanes))
+    assert (out[0] == 0).all()
+    torch.testing.assert_close(out[1, 13, 7], gout[1].sum(0))
+
+
+def _split_case(case: str, p: int):
+    """(g_out, keys, nlanes, C) on the card for one cluster-split case.
+    Random keys hold the water box's density: about 83% of a bucket's slots
+    occupied, 81% of their lanes real (the rest sentinels)."""
+    g, c, k = {
+        "one_bucket": (1, 96, 336), "ani2dr_tables": (125, 96, 336),
+        "ani2x_grid": (343, 96, 336), "empty_bucket": (125, 96, 336),
+        "fewer_lanes_than_split": (1, 96, 336), "one_candidate": (2, 96, 336),
+        "wide_tile": (3, 256, 5), "many_buckets": (600, 32, 20),
+    }[case]
+    r, dev = c * k, "cuda"
+    gen = torch.Generator(dev).manual_seed(17)
+    occ = (torch.rand((g, c), device=dev, generator=gen) < 0.83).sum(1)
+    nlanes = (occ * k).to(torch.int32)
+    lanes = torch.arange(r, device=dev)
+    real = (lanes[None, :] < nlanes[:, None]) & (
+        torch.rand((g, r), device=dev, generator=gen) < 0.81)
+    sec = torch.randint(0, 27, (g, r), device=dev, generator=gen)
+    rank = torch.randint(0, c, (g, r), device=dev, generator=gen)
+    keys = torch.where(real, (sec << 8) | rank, 27 << 8).to(torch.int32)
+    gout = torch.randn((g, r, p), device=dev, generator=gen)
+    if case == "empty_bucket":
+        nlanes.fill_(r)
+        keys = torch.where(keys == 27 << 8, (sec << 8) | rank, keys).to(torch.int32)
+        nlanes[7], keys[7] = 0, 27 << 8
+    elif case == "fewer_lanes_than_split":
+        nlanes[0] = 3
+    elif case == "one_candidate":
+        # every lane on one candidate; integer cotangents sum exactly in any order
+        nlanes.fill_(r)
+        keys.fill_((13 << 8) | 7)
+        gout = torch.randint(-8, 9, (g, r, p), device=dev, generator=gen).float()
+    return gout, keys.contiguous(), nlanes, c
+
+
+SPLIT_CASES = ["one_bucket", "ani2dr_tables", "ani2x_grid", "empty_bucket",
+               "fewer_lanes_than_split", "one_candidate", "wide_tile", "many_buckets"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", SPLIT_CASES)
+@pytest.mark.parametrize("p", [3, 5])
+def test_select_bwd_cluster_split_matches_plain_on_card(case, p):
+    """K2 (P = 3) and K4b (P = 5) over clusters of S blocks, against their
+    plain versions (the K2 bound; exact where the sums are of integers).
+    ``wide_tile`` is C = 256: 83 KB (K2) and 138 KB (K4b) a block;
+    ``ani2x_grid`` takes blocks of 512 threads, ``many_buckets`` more
+    blocks than the card holds at once."""
+    _cuda()
+    gout, keys, nlanes, c = _split_case(case, p)
+    g = keys.shape[0]
+    wrapper, ref_fn = ((bucket_select_bwd, bucket_select_bwd_reference) if p == 3
+                       else (vals_select_bwd, vals_select_bwd_reference))
+    shape = bwd_launch_shape(g, c, p, gout.device)
+    assert shape["split"] in CLUSTER_SPLITS and shape["blocks"] == g * shape["split"]
+    assert shape["threads"] in BWD_THREADS
+    if g == 1:
+        assert shape["split"] == 8
+    before = wrapper.launches
+    out = wrapper(gout, keys, c, nlanes)
+    torch.cuda.synchronize()
+    assert wrapper.launches == before + 1
+    ref = ref_fn(gout, keys, c, nlanes)
+    assert out.shape == (g, 27, c, p)
+    if case == "one_candidate":
+        assert torch.equal(out, ref)
+        assert int((out != 0).any(-1).sum()) == g
+    else:
+        np.testing.assert_allclose(out.cpu().numpy(), ref.cpu().numpy(), atol=1e-5, rtol=1e-5)
+    if case == "empty_bucket":
+        assert (out[7] == 0).all()
+    if case == "fewer_lanes_than_split":
+        assert int((out != 0).any(-1).sum()) <= 3
 
 
 # ---- K5f and K5b ----

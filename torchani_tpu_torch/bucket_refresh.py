@@ -67,6 +67,7 @@ __all__ = [
     "vals_select_bwd_reference",
     "make_wrapshift",
     "tables_from_cell_aux",
+    "bwd_launch_shape",
 ]
 
 #: lane key encoding: (section << 8) | rank; section 27 = masked sentinel
@@ -76,6 +77,16 @@ MAX_SLOTS = 256
 #: dynamic shared memory a block may have on an H100: a bucket's candidate
 #: tile must fit it
 MAX_SHARED_BYTES = 227 * 1024
+#: an H100 SM's shared memory, the part of it the card keeps per block, and
+#: the threads it holds: how many backward blocks fit an SM at once
+SM_SHARED_BYTES = 228 * 1024
+BLOCK_RESERVED_BYTES = 1024
+SM_THREADS = 2048
+#: block sizes of K2 and K4b, in order of preference (their sources take
+#: these two), and the cluster sizes over which they split a bucket's lanes
+#: (8 is the portable maximum)
+BWD_THREADS = (1024, 512)
+CLUSTER_SPLITS = (1, 2, 4, 8)
 
 _SECTION_OFFSETS = np.mgrid[-1:2, -1:2, -1:2].reshape(3, -1).T  # (27, 3)
 
@@ -281,9 +292,11 @@ def _library() -> ctypes.CDLL:
     lib = load_library("bucket_select")
     if lib.bucket_select_fwd_launch.argtypes is None:
         vp, ci = ctypes.c_void_p, ctypes.c_int
+        # source, keys, nlanes (or null), destination; G, C, R (and for K2
+        # the cluster split S and the threads a block); device, stream
+        lib.bucket_select_fwd_launch.argtypes = [vp, vp, vp, vp, ci, ci, ci, ci, vp]
+        lib.bucket_select_bwd_launch.argtypes = [vp, vp, vp, vp, ci, ci, ci, ci, ci, ci, vp]
         for fn in (lib.bucket_select_fwd_launch, lib.bucket_select_bwd_launch):
-            # source, keys, nlanes (or null), destination; G, C, R; device, stream
-            fn.argtypes = [vp, vp, vp, vp, ci, ci, ci, ci, vp]
             fn.restype = ci
         lib.bucket_select_error_string.argtypes = [ci]
         lib.bucket_select_error_string.restype = ctypes.c_char_p
@@ -312,18 +325,59 @@ def _check_kernel_args(
             raise ValueError(f"{name}: {what} must be contiguous")
 
 
-def _launch(name: str, src: Tensor, keys: Tensor, nlanes, dst: Tensor, g, c, r) -> None:
+def _cluster_split(g: int, tile_bytes: int, sms: int) -> tp.Tuple[int, int]:
+    """``(threads, S)`` for K2 and K4b at ``G`` buckets on ``sms`` SMs:
+    each bucket's occupied lanes go to a cluster of S blocks.
+
+    The first block size of `BWD_THREADS` at which all G buckets' blocks
+    fit on the card at once (an SM holds 2,048 threads, and fewer blocks
+    where a tile of ``tile_bytes`` takes more of its shared memory), with
+    the largest S in `CLUSTER_SPLITS` that keeps them in that one wave;
+    1,024 threads and S = 1 where no size does.  A block has a fixed
+    lifetime (its tile's zeros, two cluster barriers, the reduction), so a
+    second wave costs more than the threads it adds: on an H100 S = 2
+    beats S = 4 at 125 buckets, and 512 threads beat 1,024 at 343."""
+    if not 0 < tile_bytes <= MAX_SHARED_BYTES:
+        raise ValueError(
+            f"a bucket's candidate tile of {tile_bytes} bytes does not fit the "
+            f"{MAX_SHARED_BYTES} bytes of shared memory a block may have"
+        )
+    by_smem = SM_SHARED_BYTES // (tile_bytes + BLOCK_RESERVED_BYTES)
+    for threads in BWD_THREADS:
+        resident = sms * max(min(SM_THREADS // threads, by_smem), 1)
+        if g <= resident:
+            return threads, max(s for s in CLUSTER_SPLITS if g * s <= resident)
+    return BWD_THREADS[0], 1
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def bwd_launch_shape(g: int, c: int, p: int, device: torch.device) -> tp.Dict[str, int]:
+    """How K2 (``p = 3``) or K4b launch for ``G`` buckets of ``C`` slots on
+    a CUDA ``device``: the cluster split S, the blocks, the threads a block
+    and the shared memory a block (its candidate tile)."""
+    smem = 27 * c * p * 4
+    threads, s = _cluster_split(g, smem, _sm_count(torch.device(device)))
+    return {"split": s, "blocks": g * s, "threads": threads, "smem_bytes": smem}
+
+
+def _launch(name: str, src: Tensor, keys: Tensor, nlanes, dst: Tensor, *dims: int) -> None:
+    """Launch ``{name}_launch`` on ``src``'s device and current stream with
+    ``dims`` (G, C, R, and for K2 the cluster split S and the threads)."""
     lib = _library()
     fn = getattr(lib, f"{name}_launch")
     with torch.cuda.device(src.device):
         rc = fn(
             src.data_ptr(), keys.data_ptr(),
             None if nlanes is None else nlanes.data_ptr(), dst.data_ptr(),
-            g, c, r, src.get_device(), torch.cuda.current_stream(src.device).cuda_stream,
+            *dims, src.get_device(), torch.cuda.current_stream(src.device).cuda_stream,
         )
     if rc != 0:
         msg = lib.bucket_select_error_string(rc).decode()
-        raise RuntimeError(f"{name}: kernel launch failed: CUDA error {rc} ({msg})")
+        raise RuntimeError(f"{name}: kernel launch at {dims} failed: CUDA error {rc} ({msg})")
 
 
 def bucket_select_fwd(
@@ -367,11 +421,13 @@ def bucket_select_bwd(
     (G, R, 3)`` f32, ``keys (G, R)`` int32 -> ``(G, 27, C, 3)`` f32, zeros
     where no lane points.
 
-    Lanes at or past ``nlanes[g]`` are not read.  The kernel sums with
-    atomics in shared memory, so the order of a candidate's sum (at most one
-    term per slot row of the bucket) changes from run to run.  CPU tensors
-    take `bucket_select_bwd_reference`; CUDA tensors launch the kernel or
-    raise.  ``bucket_select_bwd.launches`` counts launches.
+    Lanes at or past ``nlanes[g]`` are not read.  The kernel splits each
+    bucket's lanes over a cluster of S blocks (`bwd_launch_shape`), sums
+    with atomics in each block's shared memory and adds the S tiles through
+    distributed shared memory, so the order of a candidate's sum (at most
+    one term per slot row of the bucket) changes from run to run.  CPU
+    tensors take `bucket_select_bwd_reference`; CUDA tensors launch the
+    kernel or raise.  ``bucket_select_bwd.launches`` counts launches.
     """
     if g_out.device.type == "cpu":
         return bucket_select_bwd_reference(g_out, keys, c, nlanes)
@@ -387,7 +443,9 @@ def bucket_select_bwd(
     d_cand = torch.empty((g, 27, c, 3), dtype=torch.float32, device=g_out.device)
     if g == 0:
         return d_cand
-    _launch("bucket_select_bwd", g_out, keys, nlanes, d_cand, g, c, r)
+    shape = bwd_launch_shape(g, c, 3, g_out.device)
+    _launch("bucket_select_bwd", g_out, keys, nlanes, d_cand, g, c, r, shape["split"],
+            shape["threads"])
     bucket_select_bwd.launches += 1
     return d_cand
 
@@ -422,16 +480,22 @@ def _vals_library() -> ctypes.CDLL:
     lib = load_library("vals_select")
     if lib.vals_select_fwd_launch.argtypes is None:
         vp, ci = ctypes.c_void_p, ctypes.c_int
+        # source, keys, nlanes (or null), destination; G, C, R, P (and for
+        # K4b the cluster split S and the threads a block); device, stream
+        lib.vals_select_fwd_launch.argtypes = [vp, vp, vp, vp, ci, ci, ci, ci, ci, vp]
+        lib.vals_select_bwd_launch.argtypes = [vp, vp, vp, vp, ci, ci, ci, ci, ci, ci, ci, vp]
         for fn in (lib.vals_select_fwd_launch, lib.vals_select_bwd_launch):
-            # source, keys, nlanes (or null), destination; G, C, R, P; device, stream
-            fn.argtypes = [vp, vp, vp, vp, ci, ci, ci, ci, ci, vp]
             fn.restype = ci
         lib.vals_select_error_string.argtypes = [ci]
         lib.vals_select_error_string.restype = ctypes.c_char_p
     return lib
 
 
-def _vals_launch(name: str, src: Tensor, keys: Tensor, nlanes, dst: Tensor, g, c, r, p) -> None:
+def _vals_launch(name: str, src: Tensor, keys: Tensor, nlanes, dst: Tensor, g, c, r, p,
+                 *split: int) -> None:
+    """Launch ``{name}_launch`` with G, C, R, P (and for K4b ``split``: the
+    cluster split S and the threads a block); a candidate tile past a
+    block's shared memory raises."""
     if 27 * c * p * 4 > MAX_SHARED_BYTES:
         raise ValueError(
             f"{name}: a bucket's candidate tile of 27 x {c} slots x {p} channels takes "
@@ -444,11 +508,14 @@ def _vals_launch(name: str, src: Tensor, keys: Tensor, nlanes, dst: Tensor, g, c
         rc = fn(
             src.data_ptr(), keys.data_ptr(),
             None if nlanes is None else nlanes.data_ptr(), dst.data_ptr(),
-            g, c, r, p, src.get_device(), torch.cuda.current_stream(src.device).cuda_stream,
+            g, c, r, p, *split, src.get_device(),
+            torch.cuda.current_stream(src.device).cuda_stream,
         )
     if rc != 0:
         msg = lib.vals_select_error_string(rc).decode()
-        raise RuntimeError(f"{name}: kernel launch failed: CUDA error {rc} ({msg})")
+        raise RuntimeError(
+            f"{name}: kernel launch at {(g, c, r, p, *split)} failed: CUDA error {rc} ({msg})"
+        )
 
 
 def vals_select_fwd(
@@ -490,10 +557,13 @@ def vals_select_bwd(
     (G, R, P)`` f32, ``keys (G, R)`` int32 -> ``(G, 27, C, P)`` f32, zeros
     where no lane points.
 
-    Lanes at or past ``nlanes[g]`` are not read.  Sums are atomics in shared
-    memory, in an order that changes from run to run.  CPU tensors take
-    `vals_select_bwd_reference`; CUDA tensors launch the kernel or raise.
-    ``vals_select_bwd.launches`` counts launches.
+    Lanes at or past ``nlanes[g]`` are not read.  As in `bucket_select_bwd`,
+    each bucket's lanes are split over a cluster of S blocks
+    (`bwd_launch_shape`) whose shared-memory tiles are added through
+    distributed shared memory; sums run in an order that changes from run
+    to run.  CPU tensors take `vals_select_bwd_reference`; CUDA tensors
+    launch the kernel or raise.  ``vals_select_bwd.launches`` counts
+    launches.
     """
     if g_out.device.type == "cpu":
         return vals_select_bwd_reference(g_out, keys, c, nlanes)
@@ -509,7 +579,9 @@ def vals_select_bwd(
     d_cand = torch.empty((g, 27, c, p), dtype=torch.float32, device=g_out.device)
     if g == 0:
         return d_cand
-    _vals_launch("vals_select_bwd", g_out, keys, nlanes, d_cand, g, c, r, p)
+    shape = bwd_launch_shape(g, c, p, g_out.device)
+    _vals_launch("vals_select_bwd", g_out, keys, nlanes, d_cand, g, c, r, p, shape["split"],
+                 shape["threads"])
     vals_select_bwd.launches += 1
     return d_cand
 

@@ -22,37 +22,81 @@
 // 128s; none of that is carried over.  Here a selection is a copy of f32
 // values, so it is exact for free.
 //
-// What bounds them on this card: bytes.  At the 10,002-atom water box
+// K1, the forward, is bound by bytes.  At the 10,002-atom water box
 // (G = 343, C = 64, K = 104) 1.04 M lanes are occupied; each kernel moves
 // their keys (4 bytes a lane), one (lanes, 3) f32 table (12 bytes a lane)
 // and the (G, 27, C, 3) candidate table (7.1 MB): 23.8 MB, 7 us at
-// 3.35 TB/s.  There is no arithmetic beyond the address (K2: three adds a
-// lane).  On an H100 at 700 W the forward takes 9 us back to back (its data
-// then stays in the L2) and 13 us between the refresh's other kernels, the
-// backward 24 and 31 us: 343 blocks are 2.6 an SM, each thread walks its
-// lanes through a dependent key -> shared memory chain, and the backward's
-// atomics on one candidate serialize.
+// 3.35 TB/s.  Its design: one block of 256 threads per bucket; the
+// bucket's 27 * C * 3 candidate tile lives in shared memory (20.7 KB at
+// C = 64, 83 KB at C = 256: dynamic shared memory, raised above 48 KB with
+// cudaFuncSetAttribute), so each candidate is read from device memory
+// once, coalesced, however many lanes select it; threads stride over the
+// flat (lane, component) elements of the bucket's occupied lanes, so the
+// (lanes, 3) table is written coalesced.  It has no sums and is
+// deterministic.
 //
-// Design:
-// - one block per bucket; the bucket's 27 * C * 3 candidate tile lives in
-//   shared memory (20.7 KB at C = 64, 83 KB at C = 256: dynamic shared
-//   memory, raised above 48 KB with cudaFuncSetAttribute), so each
-//   candidate is read from device memory once, coalesced, however many
-//   lanes select it;
-// - threads stride over the flat (lane, component) elements of the bucket's
-//   occupied lanes, so the (lanes, 3) table is read or written fully
-//   coalesced; the three threads of a lane read the same key;
-// - the backward sums into the shared tile with atomicAdd (keys may repeat:
-//   every slot row of a bucket can point at the same candidate), then
-//   writes the tile out once.  The order of a sum therefore changes from
-//   run to run; the forward has no sums and is deterministic.
+// K2, the backward, replaces `_bwd_kernel`/`_bwd_chunk`
+// (torchani_tpu/bucket_refresh.py:406-470).  Its bound is bytes too (the
+// same 23.8 MB at the ANI-2x tables; 57.7 MB, 17 us, at the ANI-2dr ones:
+// G = 125, C = 96, K = 336, 3.36 M occupied lanes; three adds a lane are
+// nothing beside them), but what held its first design (one block of 256
+// threads per bucket, each thread walking its elements through a dependent
+// key -> value -> shared-atomic chain) was latency: one element a thread
+// cost the same ~0.66 us at both table sets, so the time went with the
+// elements per thread, not with bytes.  At 125 buckets that was one block
+// of 8 warps on 125 of the 132 SMs (64 warps fit), 315 elements a thread,
+// 0.207 ms on an H100.
+//
+// K2's design, shared with K4b (vals_select.cu):
+// - a bucket's occupied lanes are split over a thread-block cluster of S
+//   blocks (S in 1, 2, 4, 8; grid S * G, cluster dims (S, 1, 1), launched
+//   with cudaLaunchKernelEx); block q of the cluster takes lanes
+//   [q L / S, (q + 1) L / S) of L = nlanes[g];
+// - the wrapper picks the block size and S from G, the tile's bytes and
+//   the card's SM count (`_cluster_split`): 1,024 threads, or 512 where
+//   only that puts every bucket's block on the card at once, and the
+//   largest S whose S * G blocks still all fit.  A block has a fixed
+//   lifetime (its tile's zeros, two cluster barriers, the reduction), so
+//   one wave of blocks beats more threads in two: S = 2 of 1,024 threads at
+//   the ANI-2dr tables (250 blocks on 132 SMs), S = 1 of 512 at the ANI-2x
+//   ones (343 blocks);
+// - the block size is a template parameter, so strides are constants; at
+//   most 32 registers a thread, so 2,048 threads fit an SM where the tile
+//   allows;
+// - threads walk the flat (lane, component) elements, 4 at a time: each
+//   thread loads 4 keys and 4 cotangents into registers before it issues
+//   any atomic, so 8 independent loads are in flight per thread;
+// - each block sums its share into its own 27 * C * 3 tile in shared
+//   memory with atomicAdd (keys repeat: every slot row of a bucket can
+//   point at the same candidate; the order of a sum changes from run to
+//   run).  The stride of 3 is odd, so the components of neighbouring
+//   candidates do not share banks;
+// - the S tiles are reduced through distributed shared memory: after a
+//   cluster barrier, block q sums its 1/S slice of the tile over the S
+//   blocks' shared memory, in rank order, and writes that slice of d_cand
+//   once, coalesced; a second cluster barrier keeps every block's shared
+//   memory alive until all have read it.  No global atomics, no zero fill,
+//   one launch.  No block returns early: a bucket with no lanes, or a block
+//   with none of them, still reaches both barriers and writes its zeros.
+// A cluster the card cannot place is refused (cudaOccupancyMaxActiveClusters
+// of 0), and the error goes back to the wrapper, which raises.
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
+
+namespace cg = cooperative_groups;
 
 namespace {
 
 constexpr int kThreads = 256;
 constexpr int kSections = 27;
+constexpr int kSentinelKey = kSections << 8;
+// K2: threads a block (this or half of it, as the wrapper's BWD_THREADS
+// says), elements each thread loads before its atomics, and the largest
+// cluster (the portable maximum)
+constexpr int kBwdThreads = 1024;
+constexpr int kBwdUnroll = 4;
+constexpr int kMaxSplit = 8;
 
 __device__ __forceinline__ int lane_limit(const int* nlanes, int g, int r) {
   if (nlanes == nullptr) {
@@ -102,38 +146,66 @@ bucket_select_fwd_kernel(const float* __restrict__ cand,   // (G, 27, C, 3)
   }
 }
 
-__global__ void __launch_bounds__(kThreads)
+// kBlock threads a block, a compile-time stride (the loads then take
+// immediate offsets)
+template <int kBlock>
+__global__ void __launch_bounds__(kBlock, 2048 / kBlock)
 bucket_select_bwd_kernel(const float* __restrict__ g_out,  // (G, R, 3)
                          const int* __restrict__ keys,     // (G, R)
                          const int* __restrict__ nlanes,   // (G,) or null
                          float* __restrict__ d_cand,       // (G, 27, C, 3)
                          int c, int r) {
   extern __shared__ float tile[];
-  const int g = blockIdx.x;
+  const cg::cluster_group cluster = cg::this_cluster();
+  const int split = static_cast<int>(cluster.num_blocks());
+  const int part = static_cast<int>(cluster.block_rank());
+  const int g = blockIdx.x / split;
   const int tile_len = kSections * c * 3;
-  for (int i = threadIdx.x; i < tile_len; i += kThreads) {
+  for (int i = threadIdx.x; i < tile_len; i += kBlock) {
     tile[i] = 0.0f;
   }
   __syncthreads();
 
+  // this block's share of the bucket's occupied lanes
   const int limit = lane_limit(nlanes, g, r);
+  const int first = static_cast<int>(static_cast<long long>(part) * limit / split);
+  const int last = static_cast<int>(static_cast<long long>(part + 1) * limit / split);
   const int* bucket_keys = keys + static_cast<size_t>(g) * r;
   const float* src = g_out + static_cast<size_t>(g) * r * 3;
-  const int elems = limit * 3;
-  for (int e = threadIdx.x; e < elems; e += kThreads) {
-    const int lane = e / 3;
-    const int d = e - lane * 3;
-    const int slot = tile_slot(bucket_keys[lane], c);
-    if (slot >= 0) {
-      atomicAdd(&tile[slot * 3 + d], src[e]);
+  const int end = last * 3;
+  for (int e0 = first * 3 + threadIdx.x; e0 < end; e0 += kBwdUnroll * kBlock) {
+    int key[kBwdUnroll];
+    float val[kBwdUnroll];
+#pragma unroll
+    for (int j = 0; j < kBwdUnroll; ++j) {
+      const int e = e0 + j * kBlock;
+      key[j] = e < end ? bucket_keys[e / 3] : kSentinelKey;
+      val[j] = e < end ? src[e] : 0.0f;
+    }
+#pragma unroll
+    for (int j = 0; j < kBwdUnroll; ++j) {
+      const int e = e0 + j * kBlock;
+      const int slot = tile_slot(key[j], c);
+      if (slot >= 0) {
+        atomicAdd(&tile[slot * 3 + e % 3], val[j]);
+      }
     }
   }
-  __syncthreads();
+  cluster.sync();  // every block's tile holds its share
 
+  // block `part` sums its slice (a multiple of 32 floats) over the cluster
+  const int share = ((tile_len + split - 1) / split + 31) / 32 * 32;
+  const int lo = min(part * share, tile_len);
+  const int hi = min(lo + share, tile_len);
   float* dst = d_cand + static_cast<size_t>(g) * tile_len;
-  for (int i = threadIdx.x; i < tile_len; i += kThreads) {
-    dst[i] = tile[i];
+  for (int i = lo + threadIdx.x; i < hi; i += kBlock) {
+    float sum = 0.0f;
+    for (int q = 0; q < split; ++q) {
+      sum += cluster.map_shared_rank(tile, q)[i];
+    }
+    dst[i] = sum;
   }
+  cluster.sync();  // no block leaves while another reads its tile
 }
 
 template <typename Kernel>
@@ -159,6 +231,55 @@ int launch(Kernel kernel, const float* src, const int* keys, const int* nlanes,
   return static_cast<int>(cudaGetLastError());
 }
 
+// K2 over clusters of `split` blocks of `threads` per bucket
+int launch_bwd(const float* g_out, const int* keys, const int* nlanes, float* d_cand,
+               int g, int c, int r, int split, int threads, int device, void* stream) {
+  if (g <= 0 || c <= 0 || c > 256 || r < 0 || split < 1 || split > kMaxSplit ||
+      (split & (split - 1)) != 0 || (threads != kBwdThreads && threads != kBwdThreads / 2)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) {
+    return static_cast<int>(err);
+  }
+  const size_t smem = static_cast<size_t>(kSections) * c * 3 * sizeof(float);
+  void (*kernel)(const float*, const int*, const int*, float*, int, int) =
+      threads == kBwdThreads ? bucket_select_bwd_kernel<kBwdThreads>
+                             : bucket_select_bwd_kernel<kBwdThreads / 2>;
+  if (smem > 48 * 1024) {
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               static_cast<int>(smem));
+    if (err != cudaSuccess) {
+      return static_cast<int>(err);
+    }
+  }
+  cudaLaunchAttribute cluster_dims = {};
+  cluster_dims.id = cudaLaunchAttributeClusterDimension;
+  cluster_dims.val.clusterDim.x = static_cast<unsigned>(split);
+  cluster_dims.val.clusterDim.y = 1;
+  cluster_dims.val.clusterDim.z = 1;
+  cudaLaunchConfig_t config = {};
+  config.gridDim = dim3(static_cast<unsigned>(g * split));
+  config.blockDim = dim3(static_cast<unsigned>(threads));
+  config.dynamicSmemBytes = smem;
+  config.stream = static_cast<cudaStream_t>(stream);
+  config.attrs = &cluster_dims;
+  config.numAttrs = 1;
+  int clusters = 0;
+  err = cudaOccupancyMaxActiveClusters(&clusters, kernel, &config);
+  if (err != cudaSuccess) {
+    return static_cast<int>(err);
+  }
+  if (clusters == 0) {
+    return static_cast<int>(cudaErrorInvalidConfiguration);  // no SM group fits one
+  }
+  err = cudaLaunchKernelEx(&config, kernel, g_out, keys, nlanes, d_cand, c, r);
+  if (err != cudaSuccess) {
+    return static_cast<int>(err);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 extern "C" {
@@ -166,6 +287,8 @@ extern "C" {
 // Both launch on `stream` (a cudaStream_t) of `device` and return the
 // cudaError_t of the launch (0 on success).  All arrays are contiguous
 // device arrays; `nlanes` may be null (every lane is then processed).
+// The backward splits each bucket over a cluster of `split` blocks (1, 2,
+// 4 or 8) of `threads` (1024 or 512).
 
 int bucket_select_fwd_launch(const float* cand, const int* keys, const int* nlanes,
                              float* out, int g, int c, int r, int device, void* stream) {
@@ -173,9 +296,9 @@ int bucket_select_fwd_launch(const float* cand, const int* keys, const int* nlan
 }
 
 int bucket_select_bwd_launch(const float* g_out, const int* keys, const int* nlanes,
-                             float* d_cand, int g, int c, int r, int device, void* stream) {
-  return launch(bucket_select_bwd_kernel, g_out, keys, nlanes, d_cand, g, c, r, device,
-                stream);
+                             float* d_cand, int g, int c, int r, int split, int threads,
+                             int device, void* stream) {
+  return launch_bwd(g_out, keys, nlanes, d_cand, g, c, r, split, threads, device, stream);
 }
 
 const char* bucket_select_error_string(int code) {
