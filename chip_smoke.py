@@ -33,16 +33,28 @@ pair window, the atom-packed refresh), each with `init` at 300 K, NVE steps,
 launch counts, energy drift, MD forces against single-point forces, a forced
 rebuild, frozen and packed forces against the default run's, and each
 backward kernel launched once per evaluation; and the
-card against the CPU on a 2,001-atom box.  It prints a ``kernels`` JSON line
-(all eight kernels) and, last, ``{"ok": true, "device": {...}}``.  Any failed
-check raises, and the script exits non-zero without that last line; so does
-a machine with no CUDA device, or a directory without the package.  About
-one minute of command time on an H100.
+card against the CPU on a 2,001-atom box.  Then ANI-1x (8 members, HCNO, AEV
+of 384): the card against the CPU, K3 and K3b at the model's own 4 x 8
+tables against their plain versions, E+F on the 10,002-atom box (one K3 and
+one K3b launch), Langevin with no friction against NVE, and a thermostatted
+Langevin run (K1, K2, K3 and K3b once per step); ANI-2dr under
+`MultipleTimestepMD` (every 4 inner steps of 0.25 fs, Langevin 0.1/fs): per
+outer step 4 launches of K3 and K3b and 4 of K1 and K2 on the fast lane, 1 of
+K1, K2, K4f and K4b (P = 1, the frozen D3 window) on the slow lane, every=1
+against velocity Verlet, the card against the CPU; and a model written in
+the published key scheme (`convert.save_state_dict`, `torch.save`) into a
+temporary data directory and loaded back with ``pretrained=True``.  It
+prints a ``kernels`` JSON line (all eight kernels) and, last, ``{"ok": true,
+"device": {...}}``.  Any failed check raises, and the script exits non-zero
+without that last line; so does a machine with no CUDA device, or a
+directory without the package.  A little over a minute of command time on
+an H100.
 """
 
 import json
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -83,6 +95,21 @@ SUM_TOL = K2_TOL
 #: card vs CPU after 10 MD steps (rounding grows along a trajectory)
 REBUILD_FORCE_ATOL = 1e-4
 MD_COORD_ATOL, MD_FORCE_ATOL = 1e-4, 1e-4
+#: ANI-1x Langevin: steps and friction of the timed run (1 fs); without
+#: friction BAOAB is velocity Verlet: coordinates within LANGEVIN_NVE_ATOL of
+#: `run_nve`'s after 10 steps (K3b's shared-memory sums may round forces
+#: differently from one launch to the next)
+X1_STEPS, X1_FRICTION = 20, 0.1
+LANGEVIN_NVE_ATOL = 1e-5
+#: ANI-2dr under `MultipleTimestepMD`: the JAX bench's equilibration
+#: settings (every 4 inner steps of 0.25 fs, Langevin friction 0.1/fs), and
+#: the outer steps run.  every = 1 against velocity Verlet at the tolerance
+#: of tests/test_md_mts.py: |dx| <= 2e-6 + 2e-5 |x|, |dE| <= 1e-5 (1 + |E|)
+MTS_EVERY, MTS_DT, MTS_FRICTION, MTS_OUTER = 4, 0.25, 0.1, 10
+MTS_COORD_ATOL, MTS_COORD_RTOL, MTS_E_TOL = 2e-6, 2e-5, 1e-5
+#: a model saved in the published key scheme and loaded back: the same
+#: weights on the same card
+PRETRAINED_FORCE_ATOL = 1e-6
 
 
 def check(ok: bool, what: str) -> None:
@@ -216,6 +243,12 @@ def launch_shape(what: str, g: int, c: int, p: int) -> dict:
     return shape
 
 
+def held_gib() -> float:
+    """Device memory allocated now, in GiB (part of every peak measured
+    after it)."""
+    return torch.cuda.memory_allocated() / 2**30
+
+
 def within(out: torch.Tensor, ref: torch.Tensor, tol: float) -> bool:
     """|out - ref| <= tol (1 + |ref|) everywhere, and out finite."""
     return bool(torch.isfinite(out).all()) and bool(
@@ -262,7 +295,7 @@ def main() -> int:
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"python {sys.version.split()[0]}")
 
-    from torchani_tpu_torch import csrc
+    from torchani_tpu_torch import convert, csrc, paths
     from torchani_tpu_torch.aev.kernels import (
         angular_aev,
         angular_aev_bwd,
@@ -273,6 +306,7 @@ def main() -> int:
     )
     from torchani_tpu_torch.aev.terms import ANIAngular
     from torchani_tpu_torch.bucket_refresh import (
+        BucketTables,
         _cand_table,
         _flat_index,
         _occupied_lanes,
@@ -300,10 +334,11 @@ def main() -> int:
     from torchani_tpu_torch.md import (
         CachedSinglePoint,
         MolecularDynamics,
+        MultipleTimestepMD,
         _refresh_neighbors,
         kinetic_temperature,
     )
-    from torchani_tpu_torch.models import ANI2dr, ANI2x
+    from torchani_tpu_torch.models import ANI1x, ANI2dr, ANI2x
     from torchani_tpu_torch.neighbors import CellList, _static_grid_shape
     from torchani_tpu_torch.profiling import peak_gib, wall_times_ms
     from torchani_tpu_torch.testing import make_water_box
@@ -879,7 +914,17 @@ def main() -> int:
     check(within(k2_dr_out, k2_dr_ref, K2_TOL), "K2 within tolerance at the ANI-2dr tables")
     sindex3 = _flat_index(dt.keys, dc)[:, :, None].expand(-1, -1, 3)
     sd_flat = torch.empty((dg, 28 * dc, 3), device=dev)
-    k1_dr = kernels_ms(lambda: bucket_select_fwd(scand, dt.keys, dnl), reps=20)
+    k1_dr_out = bucket_select_fwd(scand, dt.keys, dnl)
+    torch.cuda.synchronize()
+    k1_dr_err = float((k1_dr_out - bucket_select_reference(scand, dt.keys, dnl))[docc].abs().max())
+    check(k1_dr_err == 0.0, "K1 is an exact selection at the ANI-2dr tables")
+    s_flat = torch.nn.functional.pad(scand.reshape(dg, 27 * dc, 3), (0, 0, 0, dc))
+    k1_dr_all = dict(
+        ms=kernels_ms(lambda: bucket_select_fwd(scand, dt.keys, dnl), reps=20),
+        plain=kernels_ms(lambda: bucket_select_reference(scand, dt.keys, dnl), reps=10),
+        lib=kernels_ms(lambda: torch.gather(s_flat, 1, sindex3), reps=20),
+    )
+    k1_dr = k1_dr_all["ms"]
     k2_dr = dict(
         ms=kernels_ms(lambda: bucket_select_bwd(sgrows, dt.keys, dc, dnl), reps=20),
         plain=kernels_ms(lambda: bucket_select_bwd_reference(sgrows, dt.keys, dc, dnl), reps=10),
@@ -887,13 +932,14 @@ def main() -> int:
     )
     k1_dr_bound = select_bound_ms(dlanes, dg, dc, adds=False)
     k2_dr_bound = select_bound_ms(dlanes, dg, dc, adds=True)
-    print(f"{card}: at the same box the slot layout's K1 takes {k1_dr:.4f} ms (bound "
-          f"{k1_dr_bound[0]:.4f} ms by {k1_dr_bound[1]}, {k1_dr_bound[2] / 1e6:.1f} MB)")
+    print(f"{card}: K1 at the ANI-2dr tables: max abs err {k1_dr_err:.3e}; {k1_dr:.4f} ms; plain "
+          f"{k1_dr_all['plain']:.4f} ms; torch.gather {k1_dr_all['lib']:.4f} ms; bound "
+          f"{k1_dr_bound[0]:.4f} ms by {k1_dr_bound[1]} ({k1_dr_bound[2] / 1e6:.1f} MB)")
     print(f"{card}: K2 at the ANI-2dr tables: max abs err {k2_dr_err:.3e}; {k2_dr['ms']:.4f} ms; "
           f"plain {k2_dr['plain']:.4f} ms; zero_ + scatter_add_ {k2_dr['lib']:.4f} ms; bound "
           f"{k2_dr_bound[0]:.4f} ms by {k2_dr_bound[1]} ({k2_dr_bound[2] / 1e6:.1f} MB)")
     del pcand, pout, pref, pgout, pback, pbref, pindex, pflat, pacc, scand, sgrows, wcand, wg
-    del k2_dr_out, k2_dr_ref, sindex3, sd_flat
+    del k2_dr_out, k2_dr_ref, sindex3, sd_flat, k1_dr_out, s_flat
 
     # ---- 12. ANI-2dr energies and forces on the water box ----
     dr_model.neighborlist = CellList()
@@ -1008,6 +1054,262 @@ def main() -> int:
         check(dc_ <= MD_COORD_ATOL and df <= MD_FORCE_ATOL,
               f"ANI-2dr MD {kw or 'default'} agrees with the CPU")
 
+    # ---- 15. ANI-1x: card vs CPU, E+F at the model's own K3/K3b inputs ----
+    # free what the earlier phases hold (the frozen window's start state
+    # alone holds over a GiB): each peak below also prints what was still
+    # allocated before its call
+    del dr_md, probe, pprobe, dt, pt, dnl, docc, idx_flat, dr_start, dr_forces, ends, ref_end
+    del e_dr, f_dr, dr_model
+    torch.cuda.empty_cache()
+    x1_outs = {}
+    for where in ("cuda", "cpu"):
+        m = ANI1x(seed=0, device=where)
+        x1_outs[where] = single_point(
+            m, sp_s, co_s, cell_s, pbc_np, forces=True, atomic_energies=True
+        )
+    df = float((x1_outs["cuda"]["forces"].cpu() - x1_outs["cpu"]["forces"]).abs().max())
+    dae = float((x1_outs["cuda"]["atomic_energies"].cpu()
+                 - x1_outs["cpu"]["atomic_energies"]).abs().max())
+    print(f"ANI-1x card vs CPU, {sp_s.shape[1]} atoms: max |dF| {df:.3e} Ha/A, "
+          f"max |dE_atomic| {dae:.3e} Ha")
+    check(df <= FORCE_ATOL, "ANI-1x forces agree with the CPU")
+    check(dae <= ATOMIC_E_ATOL, "ANI-1x atomic energies agree with the CPU")
+
+    x1_model = ANI1x(seed=0)
+    x1_aevc = x1_model.aev_computer
+    x1_elem = x1_model._convert(species)
+    x1_nbrs = x1_model.neighborlist(x1_model.cutoff, x1_elem, coords, cell, pbc)
+    _, x1_angular, x1_overflow = x1_aevc.flat_tables(x1_elem, x1_nbrs)
+    check(not bool(x1_overflow), "ANI-1x water-box neighbor tables do not overflow")
+    x1_in = x1_aevc.angular_inputs(x1_elem.reshape(-1), x1_angular)
+    x1_kw = x1_aevc.kernel_kwargs()
+    x1_sh, x1_se = len(x1_kw["shifts"]), len(x1_kw["sections"])
+    check((x1_sh, x1_se, x1_kw["num_species"]) == (4, 8, 4), "ANI-1x's K3 template is 4 x 8, S = 4")
+    x1_out = angular_aev(*x1_in, **x1_kw)
+    torch.cuda.synchronize()
+    x1_k3_err = kernel_errors(x1_out, angular_aev_reference(*x1_in, **x1_kw),
+                              "K3 ANI-1x water box vs plain")
+    x1_species = lane_species(x1_in[2], x1_in[3])
+    x1_block = x1_aevc._atom_block(x1_in[0].shape[1])
+    x1_g = torch.randn(x1_out.shape, device=dev, generator=torch.Generator(dev).manual_seed(12))
+    x1_k3b_err = bwd_errors(
+        angular_aev_bwd(x1_g, *x1_in, x1_species, **x1_kw),
+        angular_aev_bwd_reference(x1_g, *x1_in, atom_block=x1_block, **x1_kw),
+        x1_in[2], "K3b ANI-1x water box vs plain")
+    x1_lanes = x1_in[2].sum(1).to(torch.float64)
+    x1_pairs = float((x1_lanes * (x1_lanes - 1) / 2).sum())
+    x1_lane_bytes = sum(t.numel() * t.element_size() for t in (x1_in[0], x1_in[1], x1_species))
+    x1_k3 = dict(
+        ms=kernels_ms(lambda: angular_aev(*x1_in, species=x1_species, **x1_kw), reps=20),
+        plain=kernels_ms(lambda: angular_aev_reference(*x1_in, **x1_kw), reps=3),
+        bound=angular_bound_ms(x1_pairs, float(x1_lanes.sum()), x1_sh, x1_se,
+                               x1_lane_bytes + x1_out.numel() * 4, False),
+    )
+    x1_k3b = dict(
+        ms=kernels_ms(lambda: angular_aev_bwd(x1_g, *x1_in, x1_species, **x1_kw), reps=20),
+        plain=kernels_ms(lambda: angular_aev_bwd_reference(
+            x1_g, *x1_in, atom_block=x1_block, **x1_kw), reps=3),
+        bound=angular_bound_ms(x1_pairs, float(x1_lanes.sum()), x1_sh, x1_se,
+                               x1_lane_bytes + x1_g.numel() * 4 + 4 * x1_in[0].numel()
+                               + 4 * x1_in[1].numel(), True),
+    )
+    for name, k in (("K3", x1_k3), ("K3b", x1_k3b)):
+        print(f"{card}: {name} at the ANI-1x tables (N={x1_in[0].shape[0]}, "
+              f"Ka={x1_in[0].shape[1]}, {x1_sh} x {x1_se}): {k['ms']:.4f} ms; plain "
+              f"{k['plain']:.3f} ms; bound "
+              f"{k['bound'][0]:.4f} ms by {k['bound'][1]}")
+    del x1_nbrs, x1_angular, x1_in, x1_out, x1_g, x1_species, x1_lanes
+
+    reset_counts()
+    e_x1, f_x1 = energies_and_forces(x1_model, species, coords, cell, pbc)
+    torch.cuda.synchronize()
+    x1_ef_launches = read_counts()
+    print(f"ANI-1x E+F: E = {float(e_x1[0]):.6f} Ha, launches {x1_ef_launches}, "
+          f"angular_grid calls {angular_grid.calls}")
+    check(tuple(f_x1.shape) == (1, num_atoms, 3), "ANI-1x forces shape (1, A, 3)")
+    check(bool(torch.isfinite(e_x1).all()) and bool(torch.isfinite(f_x1).all()),
+          "ANI-1x energies and forces finite")
+    check(x1_ef_launches["angular_aev"] == 1 and x1_ef_launches["angular_aev_bwd"] == 1
+          and angular_grid.calls == 0,
+          "one ANI-1x E+F launches K3 and K3b once each and builds no plain angular grid")
+    check(all(v == 0 for k_, v in x1_ef_launches.items() if not k_.startswith("angular")),
+          "ANI-1x E+F launches no other kernel")
+
+    def x1_ef():
+        energies_and_forces(x1_model, species, coords, cell, pbc)
+
+    # the model's default neighbor list (a cell list of estimated capacity),
+    # then the capacity that the ANI-2x E+F above runs with
+    for nl in (x1_model.neighborlist, CellList(capacity=96)):
+        x1_model.neighborlist = nl
+        x1_ef_ms = wall_times_ms(x1_ef, reps=10)
+        held = held_gib()
+        print(f"{card}: ANI-1x E+F {num_atoms} atoms ({nl}): median {np.median(x1_ef_ms):.3f} ms, "
+              f"min {np.min(x1_ef_ms):.3f}, max {np.max(x1_ef_ms):.3f} over 10 calls; peak device "
+              f"memory {peak_gib(x1_ef):.3f} GiB ({held:.3f} held before the call)")
+
+    # ---- 16. ANI-1x Langevin MD: friction 0 against NVE, then a thermostatted run ----
+    x1_md = MolecularDynamics(x1_model, species, cell=cell, pbc=True)
+    x1_start = x1_md.init(coords, temperature=300.0, generator=gen0())
+    check(isinstance(x1_start.bucket, BucketTables) and not bool(x1_start.overflow),
+          "the ANI-1x MD cache has slot-layout bucket tables and does not overflow")
+    check(x1_start.generator is not None and x1_start.generator.device.type == "cuda",
+          "the Langevin generator lies on the card")
+    no_friction = x1_md.run_langevin(x1_start, 10, 300.0, friction_per_fs=0.0)
+    nve = x1_md.run_nve(x1_start, 10)
+    dx = float((no_friction.coords - nve.coords).abs().max())
+    print(f"ANI-1x Langevin with friction 0 against NVE, 10 steps: max |dx| {dx:.3e} A")
+    check(dx <= LANGEVIN_NVE_ATOL, "Langevin without friction is velocity Verlet")
+    reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    x1_end = x1_md.run_langevin(x1_start, X1_STEPS, 300.0, friction_per_fs=X1_FRICTION)
+    torch.cuda.synchronize()
+    x1_run_ms = (time.perf_counter() - t0) * 1e3 / X1_STEPS
+    x1_md_launches = read_counts()
+    x1_temp = float(kinetic_temperature(x1_end.velocities, x1_md.masses))
+    check(x1_end.step == X1_STEPS and not bool(x1_end.overflow),
+          f"ANI-1x Langevin: {X1_STEPS} steps without overflow")
+    for what, t in (("energy", x1_end.energy), ("forces", x1_end.forces),
+                    ("coords", x1_end.coords), ("velocities", x1_end.velocities)):
+        check(bool(torch.isfinite(t).all()), f"ANI-1x Langevin {what} finite")
+    want = {"angular_aev", "angular_aev_bwd", "bucket_select_fwd", "bucket_select_bwd"}
+    check(all(x1_md_launches[k_] == X1_STEPS for k_ in want) and angular_grid.calls == 0,
+          f"ANI-1x Langevin: K1, K2, K3 and K3b each launched once per step, no plain grid")
+    check(all(v == 0 for k_, v in x1_md_launches.items() if k_ not in want),
+          "ANI-1x Langevin: no other kernel launched")
+    state, step_ms = x1_start, []
+    for _ in range(10):
+        t0 = time.perf_counter()
+        state = x1_md.step_langevin(state, 300.0, X1_FRICTION)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+    held = held_gib()
+    x1_peak = peak_gib(lambda: x1_md.step_langevin(state, 300.0, X1_FRICTION))
+    print(f"{card}: ANI-1x Langevin MD {num_atoms} atoms (1 fs, {X1_FRICTION}/fs): step median "
+          f"{np.median(step_ms):.3f} ms, min {np.min(step_ms):.3f}, max {np.max(step_ms):.3f} "
+          f"over 10 steps; as one run of {X1_STEPS} {x1_run_ms:.3f} ms/step; launches per step "
+          f"{ {k_: x1_md_launches[k_] / X1_STEPS for k_ in sorted(want)} }; {x1_end.rebuilds} "
+          f"rebuilds; kinetic temperature 300 -> {x1_temp:.1f} K; E_pot "
+          f"{float(x1_end.energy):.6f} Ha; step peak memory {x1_peak:.3f} GiB ({held:.3f} "
+          f"held before the step)")
+    del x1_md, x1_start, x1_end, no_friction, nve, state, x1_model
+    torch.cuda.empty_cache()
+
+    # ---- 17. ANI-2dr under MultipleTimestepMD (RESPA, every = 4) ----
+    mts_model = ANI2dr(pretrained=False, seed=0)
+    mts = MultipleTimestepMD(mts_model, species, cell=cell, pbc=True, every=MTS_EVERY,
+                             timestep_fs=MTS_DT)
+    mts_start = mts.init(coords, temperature=300.0, generator=gen0())
+    for lane, st in (("fast", mts_start.fast), ("slow", mts_start.slow)):
+        check(isinstance(st.bucket, BucketTables) and not bool(st.overflow),
+              f"MTS {lane} lane: slot-layout bucket tables, no overflow")
+    check(mts.slow_names == ("dispersion_d3",) and mts_start.slow.pair_aux is not None,
+          "MTS: D3 on the slow lane with its frozen window")
+    print(f"MTS lanes: fast cutoff {mts.fast.cutoff} A, build {mts.fast.build_radius:.2f} A, grid "
+          f"{mts.fast.grid_shape}, K={mts_start.fast.nbr_idx.shape[1]}, angular prefix "
+          f"{mts.fast._ang_prefix}; slow cutoff {mts.slow.cutoff} A, build "
+          f"{mts.slow.build_radius:.2f} A, grid {mts.slow.grid_shape}, "
+          f"K={mts_start.slow.nbr_idx.shape[1]}")
+    lang = dict(ensemble="langevin", temperature=300.0, friction_per_fs=MTS_FRICTION)
+    reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    mts_end = mts.run(mts_start, MTS_EVERY * MTS_OUTER, **lang)
+    torch.cuda.synchronize()
+    mts_run_ms = (time.perf_counter() - t0) * 1e3 / MTS_OUTER
+    mts_launches = read_counts()
+    per_outer = {
+        "angular_aev": MTS_EVERY, "angular_aev_bwd": MTS_EVERY,
+        "bucket_select_fwd": MTS_EVERY + 1, "bucket_select_bwd": MTS_EVERY + 1,
+        "vals_select_fwd": 1, "vals_select_bwd": 1,
+        "packed_select_fwd": 0, "packed_select_bwd": 0,
+    }
+    print(f"MTS launches in {MTS_OUTER} outer steps: {mts_launches}")
+    check(mts_launches == {k_: v * MTS_OUTER for k_, v in per_outer.items()}
+          and angular_grid.calls == 0,
+          f"MTS: per outer step {per_outer}, and no plain angular grid")
+    check(mts_end.step == MTS_EVERY * MTS_OUTER and not bool(mts_end.overflow),
+          "MTS run: every inner step taken, no overflow")
+    for what, t in (("energy", mts_end.energy), ("forces", mts_end.forces),
+                    ("coords", mts_end.coords), ("velocities", mts_end.velocities)):
+        check(bool(torch.isfinite(t).all()), f"MTS {what} finite")
+    mts_temp = float(kinetic_temperature(mts_end.velocities, mts.masses))
+    outer_ms, state = [], mts_start
+    for _ in range(MTS_OUTER):
+        t0 = time.perf_counter()
+        state = mts.run(state, MTS_EVERY, **lang)
+        torch.cuda.synchronize()
+        outer_ms.append((time.perf_counter() - t0) * 1e3)
+    inner_ms, fast = [], state.fast
+    for _ in range(2 * MTS_EVERY):
+        t0 = time.perf_counter()
+        fast = mts.fast.step_langevin(fast, 300.0, MTS_FRICTION)
+        torch.cuda.synchronize()
+        inner_ms.append((time.perf_counter() - t0) * 1e3)
+    held = held_gib()
+    mts_peak = peak_gib(lambda: mts.run(state, MTS_EVERY, **lang))
+    print(f"{card}: ANI-2dr MTS {num_atoms} atoms (every {MTS_EVERY}, {MTS_DT} fs, Langevin "
+          f"{MTS_FRICTION}/fs): outer step median {np.median(outer_ms):.3f} ms, min "
+          f"{np.min(outer_ms):.3f}, max {np.max(outer_ms):.3f} over {MTS_OUTER}; inner (fast-lane) "
+          f"step median {np.median(inner_ms):.3f} ms over {len(inner_ms)}; as one run "
+          f"{mts_run_ms:.3f} ms per outer step; rebuilds fast {mts_end.fast.rebuilds}, slow "
+          f"{mts_end.slow.rebuilds} in {MTS_OUTER} outer steps; kinetic temperature 300 -> "
+          f"{mts_temp:.1f} K; outer-step peak memory {mts_peak:.3f} GiB ({held:.3f} held "
+          f"before the step)")
+    del mts_start, mts_end, state, fast
+
+    # every = 1 is velocity Verlet on the whole model: against the plain
+    # `MolecularDynamics` with the same frozen D3 window, 6 NVE steps at 1 fs
+    mts1 = MultipleTimestepMD(mts_model, species, cell=cell, pbc=True, every=1)
+    plain = MolecularDynamics(mts_model, species, cell=cell, pbc=True,
+                              freeze_pair_window=("dispersion_d3",))
+    end1 = mts1.run(mts1.init(coords, temperature=300.0, generator=gen0()), 6)
+    endp = plain.run_nve(plain.init(coords, temperature=300.0, generator=gen0()), 6)
+    dx = (end1.coords - endp.coords).abs()
+    de = abs(float(end1.energy) - float(endp.energy))
+    print(f"MTS every=1 against plain MolecularDynamics, 6 NVE steps: max |dx| "
+          f"{float(dx.max()):.3e} A, |dE| {de:.3e} Ha of {float(endp.energy):.3f}")
+    check(bool((dx <= MTS_COORD_ATOL + MTS_COORD_RTOL * endp.coords.abs()).all()),
+          "MTS every=1 coordinates equal velocity Verlet's")
+    check(de <= MTS_E_TOL * (1 + abs(float(endp.energy))),
+          "MTS every=1 energy equals velocity Verlet's")
+    del mts1, plain, end1, endp, mts
+    torch.cuda.empty_cache()
+
+    # the card against the CPU: 8 inner NVE steps on the 2,001-atom box
+    mts_ends = {}
+    for where in ("cuda", "cpu"):
+        m = ANI2dr(pretrained=False, seed=0, device=where)
+        runner = MultipleTimestepMD(m, sp_m, cell=cell_m, pbc=True, every=MTS_EVERY,
+                                    timestep_fs=MTS_DT, device=where)
+        start = runner.init(co_m, temperature=300.0, generator=gen0())
+        check(start.fast.bucket is not None and start.slow.bucket is not None,
+              f"bucket refresh on both MTS lanes of the 2,001-atom box ({where})")
+        mts_ends[where] = runner.run(start, 2 * MTS_EVERY)
+    dc_ = float((mts_ends["cuda"].coords.cpu() - mts_ends["cpu"].coords).abs().max())
+    print(f"MTS card vs CPU, {sp_m.shape[1]} atoms, {2 * MTS_EVERY} inner steps: max |dx| "
+          f"{dc_:.3e} A")
+    check(dc_ <= MD_COORD_ATOL, "MTS coordinates agree with the CPU")
+
+    # ---- 18. pretrained: a model written in the published key scheme loads back ----
+    src = ANI2x(pretrained=False, seed=3)
+    with tempfile.TemporaryDirectory() as tmp:
+        paths.set_data_dir(tmp)
+        try:
+            sd = {k_: torch.as_tensor(v) for k_, v in convert.save_state_dict(src).items()}
+            torch.save(sd, paths.state_dicts_dir() / "ani2x_state_dict.pt")
+            loaded = ANI2x(pretrained=True)
+        finally:
+            paths.set_data_dir(None)
+    check(loaded.device.type == "cuda", "the pretrained model lies on the card")
+    e_src, f_src = energies_and_forces(src, species, coords, cell, pbc)
+    e_ld, f_ld = energies_and_forces(loaded, species, coords, cell, pbc)
+    df = float((f_ld - f_src).abs().max())
+    print(f"pretrained ANI-2x ({len(sd)} keys through torch.save and the data directory): max "
+          f"|dF| {df:.3e} Ha/A, |dE| {float((e_ld - e_src).abs().max()):.3e} Ha against the source")
+    check(df <= PRETRAINED_FORCE_ATOL, "the loaded model's forces equal the source model's")
+
     def entry(name, source, replaces, err, ms, plain, bound, by, library):
         return {
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
@@ -1016,6 +1318,8 @@ def main() -> int:
                 "ef": launches.get(name, 0), "md": md_launches[name],
                 "ani2dr_ef": dr_ef_launches[name],
                 **{f"ani2dr_md_{v}": dr_launches[v][name] for v in dr_launches},
+                "ani1x_ef": x1_ef_launches[name], "ani1x_langevin": x1_md_launches[name],
+                "ani2dr_mts_langevin": mts_launches[name],
             },
             "max_abs_err": err, "ms": ms, "plain_ms": plain, "bound_ms": bound,
             "bound_by": by, "library_ms": library,
@@ -1034,15 +1338,23 @@ def main() -> int:
     vals_cu = "torchani_tpu_torch/csrc/vals_select.cu"
     packed_cu = "torchani_tpu_torch/csrc/packed_select.cu"
     kernels = [
-        entry("angular_aev", angular_cu, "torchani_tpu/aev/pallas_kernels.py:186", k3_err,
-              k3_ms, plain_ms, k3_bound[0], k3_bound[1], None),
+        {**entry("angular_aev", angular_cu, "torchani_tpu/aev/pallas_kernels.py:186", k3_err,
+                 k3_ms, plain_ms, k3_bound[0], k3_bound[1], None),
+         "at_ani1x": {"max_abs_err": x1_k3_err, "ms": x1_k3["ms"], "plain_ms": x1_k3["plain"],
+                      "bound_ms": x1_k3["bound"][0]}},
         {**entry("angular_aev_bwd", angular_cu,
                  "torchani_tpu/aev/computer.py:1045 (_angular_pallas_bwd, XLA recompute; "
                  "no pallas_call)", k3b_err, k3b_ms, k3b_plain_ms, k3b_bound[0], k3b_bound[1],
                  None),
-         "replaced_recompute_ms": recompute_ms},
-        entry("bucket_select_fwd", select_cu, "torchani_tpu/bucket_refresh.py:504",
-              k1_err, k1_ms, k1_plain_ms, k1_bound, k1_by, k1_lib_ms),
+         "replaced_recompute_ms": recompute_ms,
+         "at_ani1x": {"max_abs_err": x1_k3b_err, "ms": x1_k3b["ms"], "plain_ms": x1_k3b["plain"],
+                      "bound_ms": x1_k3b["bound"][0]}},
+        {**entry("bucket_select_fwd", select_cu, "torchani_tpu/bucket_refresh.py:504",
+                 k1_err, k1_ms, k1_plain_ms, k1_bound, k1_by, k1_lib_ms),
+         "at_ani2dr": {
+             "max_abs_err": k1_dr_err, "ms": k1_dr, "plain_ms": k1_dr_all["plain"],
+             "bound_ms": k1_dr_bound[0], "library_ms": k1_dr_all["lib"],
+         }},
         {**entry("bucket_select_bwd", select_cu, "torchani_tpu/bucket_refresh.py:544",
                  k2_err, k2_ms, k2_plain_ms, k2_bound, k2_by, k2_lib_ms),
          "split": k2_shape["split"], "threads": k2_shape["threads"],

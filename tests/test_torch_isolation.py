@@ -14,7 +14,7 @@ from torchani_tpu_torch.aev import AEVComputer
 from torchani_tpu_torch.aev.terms import ANIRadial
 from torchani_tpu_torch.arch import simple_ani
 from torchani_tpu_torch.interop import load_jax_md_state
-from torchani_tpu_torch.md import CachedSinglePoint, MolecularDynamics
+from torchani_tpu_torch.md import CachedSinglePoint, MolecularDynamics, MultipleTimestepMD
 from torchani_tpu_torch.potentials import RepulsionXTB, RepulsionZBL, TwoBodyDispersionD3
 from torchani_tpu_torch.sae import SelfEnergy
 from torchani_tpu_torch.utils import resolve_device
@@ -38,7 +38,7 @@ def test_new_modules_are_covered():
     for module in (
         "md.py", "bucket_refresh.py", "interop.py", "profiling.py",
         "bucket_refresh_packed.py", "potentials/core.py", "potentials/repulsion.py",
-        "potentials/dispersion.py",
+        "potentials/dispersion.py", "convert.py", "paths.py",
     ):
         assert f"torchani_tpu_torch/{module}" in names
 
@@ -62,6 +62,8 @@ def no_cuda(monkeypatch):
         lambda: models.ANI2x(seed=1, device="cuda"),
         lambda: models.ANI2dr(),
         lambda: models.ANI2xr(model_index=0),
+        lambda: models.ANI1x(),
+        lambda: models.ANI1ccx(model_index=0),
         lambda: simple_ani(("H", "O"), dispersion=True),
         lambda: RepulsionXTB(("H", "O")),
         lambda: RepulsionZBL(("H", "O")),
@@ -72,12 +74,13 @@ def no_cuda(monkeypatch):
         lambda: resolve_device("cuda"),
         lambda: MolecularDynamics(models.ANI2x(model_index=0, device="cpu"), WATER),
         lambda: CachedSinglePoint(models.ANI2x(model_index=0, device="cpu"), WATER),
+        lambda: MultipleTimestepMD(simple_ani(("H", "O"), dispersion=True, device="cpu"), WATER),
         lambda: load_jax_md_state({}),
     ],
     ids=[
-        "ANI2x", "ANI2x-cuda", "ANI2dr", "ANI2xr", "simple_ani", "RepulsionXTB", "RepulsionZBL",
+        "ANI2x", "ANI2x-cuda", "ANI2dr", "ANI2xr", "ANI1x", "ANI1ccx", "simple_ani", "RepulsionXTB", "RepulsionZBL",
         "TwoBodyDispersionD3", "AEVComputer", "ANIRadial", "SelfEnergy", "resolve_device",
-        "MolecularDynamics", "CachedSinglePoint", "load_jax_md_state",
+        "MolecularDynamics", "CachedSinglePoint", "MultipleTimestepMD", "load_jax_md_state",
     ],
 )
 def test_default_device_raises_without_cuda(no_cuda, entry):

@@ -20,7 +20,7 @@ from torchani_tpu.convert import load_state_dict
 from torchani_tpu.grad import energies_and_forces as j_energies_and_forces
 from torchani_tpu.grad import single_point as j_single_point
 from torchani_tpu.neighbors import CellList as JCellList
-from torchani_tpu_torch import models
+from torchani_tpu_torch import models, paths
 from torchani_tpu_torch.grad import energies, energies_and_forces, forces, single_point
 from torchani_tpu_torch.interop import load_jax_arrays
 from torchani_tpu_torch.neighbors import CellList
@@ -205,6 +205,81 @@ def test_weight_bridge_rejects_bad_input(zoo):
         load_jax_arrays(port, bad)
 
 
-def test_pretrained_waits_for_converter():
-    with pytest.raises(NotImplementedError):
+def test_pretrained_reads_the_data_dir(tmp_path, monkeypatch):
+    """`pretrained=True` loads ``ani2x_state_dict.npz`` from the data
+    directory through the port's converter, and raises when it is absent."""
+    monkeypatch.setattr(paths, "_data_dir_override", None)
+    paths.set_data_dir(tmp_path)
+    with pytest.raises(FileNotFoundError, match="No pretrained weights for 'ani2x'"):
         models.ANI2x(pretrained=True, device=CPU)
+    golden = load_golden("zoo_goldens_ani2x.npz")
+    sd = {k[len("sd."):]: v for k, v in golden.items() if k.startswith("sd.")}
+    np.savez(paths.state_dicts_dir() / "ani2x_state_dict.npz", **sd)
+    assert paths.state_dicts_dir() == tmp_path / "StateDicts"
+    model = models.ANI2x(pretrained=True, device=CPU)
+    e, f = energies_and_forces(model, golden["species"], golden["coords"])
+    assert np.abs(e.numpy() - golden["energies"]).max() < 1e-5
+    assert np.abs(f.numpy() - golden["forces"]).max() < 1e-5
+    member = models.ANI2x(model_index=3, pretrained=True, device=CPU)
+    assert isinstance(member.neural_networks, AtomicNetworks)
+    np.testing.assert_array_equal(
+        member.neural_networks.weights[0].detach().numpy(),
+        model.neural_networks.weights[0][3].detach().numpy(),
+    )
+
+
+@pytest.mark.parametrize(
+    "override,tpu_env,env",
+    [
+        ("override", "tpu", "plain"),
+        (None, "tpu", "plain"),
+        (None, None, "plain"),
+        (None, None, None),
+    ],
+    ids=["override", "TORCHANI_TPU_DATA_DIR", "TORCHANI_DATA_DIR", "home"],
+)
+def test_data_dir_resolves_as_in_jax(override, tpu_env, env, tmp_path, monkeypatch):
+    from torchani_tpu import paths as jpaths
+
+    monkeypatch.setenv("HOME", str(tmp_path / "home"))
+    for name, value in (("TORCHANI_TPU_DATA_DIR", tpu_env), ("TORCHANI_DATA_DIR", env)):
+        if value is None:
+            monkeypatch.delenv(name, raising=False)
+        else:
+            monkeypatch.setenv(name, str(tmp_path / value))
+    for module in (paths, jpaths):
+        monkeypatch.setattr(module, "_data_dir_override", None)
+        module.set_data_dir(None if override is None else tmp_path / override)
+    assert paths.data_dir() == jpaths.data_dir()
+    assert paths.state_dicts_dir() == jpaths.state_dicts_dir()
+    assert paths.state_dicts_dir().is_dir()
+    assert paths.data_dir().is_relative_to(tmp_path)
+
+
+@pytest.mark.parametrize("ctor", ["ani1x", "ani1ccx", "ani2x", "anidr", "aniala"])
+def test_network_constructors_match_jax(ctor):
+    """`Assembler.set_atomic_networks` builds the JAX package's widths,
+    activation and biases for every constructor name."""
+    from torchani_tpu.arch import Assembler as JAssembler
+    from torchani_tpu.nn import AtomicNetworks as JAtomicNetworks
+
+    from torchani_tpu_torch.arch import Assembler
+
+    symbols = ("H", "C", "N", "O", "S", "F", "Cl", "Br")
+    nets = {}
+    for name, asm in (("port", Assembler()), ("jax", JAssembler())):
+        asm.set_symbols(symbols)
+        asm.set_aev_computer(radial="ani2x", angular="ani2x")
+        asm.set_atomic_networks(ctor=ctor)
+        kw = dict(device=CPU) if name == "port" else {}
+        nets[name] = asm.assemble(1, **kw).neural_networks
+    assert nets["port"].layer_dims == nets["jax"].layer_dims
+    assert nets["port"].activation == nets["jax"].activation
+    assert (nets["port"].biases is None) == (nets["jax"].biases is None)
+    like = {"ani1x": "like_1x", "ani1ccx": "like_1x", "anidr": "like_dr", "aniala": "like_ala"}
+    if ctor in like:
+        port = getattr(AtomicNetworks, like[ctor])(device=CPU)
+        ref = getattr(JAtomicNetworks, like[ctor])()
+        assert (port.layer_dims, port.activation) == (ref.layer_dims, ref.activation)
+    with pytest.raises(ValueError, match="unknown network constructor"):
+        Assembler().set_atomic_networks(ctor="ani3x")

@@ -2,6 +2,9 @@
 ``torchani_tpu`` to an NVIDIA H100.
 
 Models are ``torch.nn.Module``s, everything else plain functions on tensors.
+Published-scheme weights load through `convert` (``models.*(pretrained=True)``
+reads them from `paths.state_dicts_dir`); MD runs NVE, Langevin and RESPA
+multiple-timestep dynamics.
 Entry points run on CUDA unless the caller passes ``device="cpu"``; without a
 CUDA device such a call raises.  The angular AEV (forward and backward), the
 MD loop's per-step neighbor refresh (slot-row or atom-packed) and the per-lane
@@ -25,6 +28,7 @@ from torchani_tpu_torch import (  # noqa: E402
     bucket_refresh,
     bucket_refresh_packed,
     constants,
+    convert,
     cutoffs,
     grad,
     interop,
@@ -32,6 +36,7 @@ from torchani_tpu_torch import (  # noqa: E402
     models,
     neighbors,
     nn,
+    paths,
     potentials,
     sae,
     testing,
@@ -45,6 +50,8 @@ from torchani_tpu_torch.md import (  # noqa: E402
     CachedSinglePoint,
     MDState,
     MolecularDynamics,
+    MTSState,
+    MultipleTimestepMD,
     kinetic_temperature,
     maxwell_boltzmann_velocities,
 )
@@ -59,7 +66,9 @@ __all__ = [
     "CachedSinglePoint",
     "Ensemble",
     "MDState",
+    "MTSState",
     "MolecularDynamics",
+    "MultipleTimestepMD",
     "SelfEnergy",
     "SpeciesConverter",
     "energies_and_forces",
@@ -71,6 +80,7 @@ __all__ = [
     "bucket_refresh",
     "bucket_refresh_packed",
     "constants",
+    "convert",
     "cutoffs",
     "grad",
     "interop",
@@ -78,6 +88,7 @@ __all__ = [
     "models",
     "neighbors",
     "nn",
+    "paths",
     "potentials",
     "sae",
     "testing",

@@ -23,7 +23,7 @@ from torchani_tpu_torch.neighbors import (
     parse_neighborlist,
 )
 from torchani_tpu_torch.nn import AtomicNetworks, Ensemble, SpeciesConverter
-from torchani_tpu_torch.nn.containers import SpeciesRanges, layer_dims_for
+from torchani_tpu_torch.nn.containers import NETWORK_WIDTHS, SpeciesRanges, layer_dims_for
 from torchani_tpu_torch.potentials import (
     NNPotential,
     Potential,
@@ -35,6 +35,16 @@ from torchani_tpu_torch.tuples import SpeciesEnergies
 from torchani_tpu_torch.utils import resolve_device
 
 __all__ = ["ANI", "Assembler", "as_tensor", "simple_ani"]
+
+#: `Assembler.set_atomic_networks`' constructor names, by the width table
+#: each selects
+_NETWORK_CTORS = {
+    "ani1x": "like_1x",
+    "ani1ccx": "like_1x",
+    "ani2x": "like_2x",
+    "anidr": "like_dr",
+    "aniala": "like_ala",
+}
 
 
 def as_tensor(x, dtype: torch.dtype, device: torch.device) -> Tensor:
@@ -156,7 +166,8 @@ class ANI(torch.nn.Module):
                 species_ranges=species_ranges,
             ).energies
             energies = e if energies is None else energies + e
-        energies = energies + self.energy_shifter(elem_idxs, atomic=atomic)
+        if self.energy_shifter.enabled:
+            energies = energies + self.energy_shifter(elem_idxs, atomic=atomic)
         return SpeciesEnergies(elem_idxs, energies)
 
     def members_energies(self, species, coords, cell=None, pbc=None) -> Tensor:
@@ -173,7 +184,8 @@ class Assembler:
         self.symbols: tp.Optional[Symbols] = None
         self._global_cutoff_fn = "smooth"
         self._aev_terms: tp.Tuple[tp.Any, tp.Any] = ("ani2x", "ani2x")
-        self._networks: tp.Dict[str, tp.Any] = dict(activation="celu", bias=True)
+        self._networks: tp.Dict[str, tp.Any] = {}
+        self.set_atomic_networks("ani2x")
         self._lot: tp.Optional[str] = None
         self._extra_potentials: tp.Dict[str, tp.Callable[[torch.device], Potential]] = {}
         self._neighborlist: NeighborlistArg = "adaptive"
@@ -193,15 +205,26 @@ class Assembler:
         return self
 
     def set_atomic_networks(
-        self, ctor: str = "ani2x", activation: str = "celu", bias: bool = True
+        self,
+        ctor: str = "ani2x",
+        activation: tp.Optional[str] = None,
+        bias: tp.Optional[bool] = None,
     ) -> "Assembler":
-        """The per-element networks: ``ctor`` names the layer widths (only
-        ANI-2x's, ``"ani2x"``, are ported)."""
-        if ctor != "ani2x":
-            raise NotImplementedError(
-                f"network constructor {ctor!r} is not ported; only 'ani2x' is"
-            )
-        self._networks = dict(activation=activation, bias=bias)
+        """The per-element networks: ``ctor`` names the layer widths
+        (``"ani1x"``, ``"ani1ccx"``, ``"ani2x"``, ``"anidr"``, ``"aniala"``);
+        ``activation`` and ``bias`` default to that family's."""
+        try:
+            dims, default_dims, default_act, default_bias = NETWORK_WIDTHS[_NETWORK_CTORS[ctor]]
+        except KeyError:
+            raise ValueError(
+                f"unknown network constructor {ctor!r}; expected one of {sorted(_NETWORK_CTORS)}"
+            ) from None
+        self._networks = dict(
+            dims=dims,
+            default_dims=default_dims,
+            activation=default_act if activation is None else activation,
+            bias=default_bias if bias is None else bias,
+        )
         return self
 
     def set_gsaes_as_self_energies(self, lot: str) -> "Assembler":
@@ -241,15 +264,19 @@ class Assembler:
             cutoff_fn=self._global_cutoff_fn,
             device=dev,
         )
-        layer_dims = layer_dims_for(self.symbols, aev.out_dim)
+        nets = self._networks
+        layer_dims = layer_dims_for(
+            self.symbols, aev.out_dim, nets["dims"], nets["default_dims"]
+        )
         generator = torch.Generator().manual_seed(seed)
+        kw = dict(activation=nets["activation"], bias=nets["bias"])
         if ensemble_size == 1:
             networks: Ensemble = AtomicNetworks.random(
-                self.symbols, layer_dims, generator, dev, **self._networks
+                self.symbols, layer_dims, generator, dev, **kw
             )
         else:
             networks = Ensemble.random(
-                ensemble_size, self.symbols, layer_dims, generator, dev, **self._networks
+                ensemble_size, self.symbols, layer_dims, generator, dev, **kw
             )
         if self._lot is not None:
             shifter = SelfEnergy.from_lot(self.symbols, self._lot, dev)
@@ -321,8 +348,8 @@ def simple_ani(
             cutoff_fn=cutoff_fn, device=dev,
         ),
     )
-    # the "default" constructor of this container is ANI-2x's widths with
-    # the activation and bias passed here
+    # the "default" constructor of this container is ANI-2x's widths; the
+    # activation and bias passed here override the family's
     ctor = "ani2x" if container_ctor == "default" else container_ctor
     asm.set_atomic_networks(ctor=ctor, activation=activation, bias=bias)
     asm.set_neighborlist(neighborlist)

@@ -134,8 +134,11 @@ def load_jax_md_state(
     bucket tables of either layout (`BucketTables` or `PackedTables`, told
     apart by their leaves) and the frozen pair channels ``pair_aux``.
 
-    ``nbr_rev`` and ``key`` are ignored.  A state that carries what the port
-    does not have (``scale``, ``nhc``) is refused.
+    ``nbr_rev`` and ``key`` are ignored.  A JAX PRNG key does not carry
+    over: the state has no Langevin generator (``generator`` is None), so
+    `MolecularDynamics.step_langevin` needs one set with
+    ``state.replace(generator=...)`` or its noise passed in.  A state that
+    carries what the port does not have (``scale``, ``nhc``) is refused.
     """
     dev = resolve_device(device)
     packed = ".bucket.keys_flat" in arrays

@@ -1,6 +1,7 @@
 """Molecular dynamics with Verlet-cached neighbors (counterpart of
-``torchani_tpu/md.py``, as far as the NVE loop and `CachedSinglePoint`, for
-models of one or several potentials).
+``torchani_tpu/md.py``, as far as NVE, Langevin (BAOAB), multiple-timestep
+RESPA (`MultipleTimestepMD`) and `CachedSinglePoint`, for models of one or
+several potentials).
 
 The neighbor topology is a cell list built at ``cutoff + skin`` and reused
 until a pair can have closed the skin gap.  Each step recomputes only the
@@ -19,8 +20,10 @@ service for runtime per-atom values (`bucket_refresh.select_lane_values`:
 K4f and K4b inside D3).
 
 Where the JAX package compiles the whole step and scans over it, this is
-a Python loop over `MolecularDynamics.step_nve`; the rebuild decision is one
-boolean read on the host per step.
+a Python loop over `MolecularDynamics.step_nve` (or `step_langevin`); the
+rebuild decision is one boolean read on the host per step.  Langevin noise
+is drawn from a `torch.Generator` on the model's device that the state
+carries, where the JAX package carries a PRNG key.
 
 Units: Angstrom, Hartree, AMU, femtoseconds.
 """
@@ -64,7 +67,10 @@ __all__ = [
     "KB_HARTREE",
     "CachedSinglePoint",
     "MDState",
+    "MTSState",
     "MolecularDynamics",
+    "MultipleTimestepMD",
+    "langevin_o_step",
     "maxwell_boltzmann_velocities",
     "kinetic_temperature",
 ]
@@ -107,6 +113,9 @@ class MDState:
     # recomputed at every rebuild for the potentials named in `MolecularDynamics`'
     # ``freeze_pair_window`` (see `Neighbors.pair_aux`); None when off
     pair_aux: tp.Optional[tp.Dict[str, Tensor]] = None
+    # the Langevin noise's generator, on the model's device; advanced in
+    # place by every draw, so states of one run share it
+    generator: tp.Optional[torch.Generator] = None
 
     def replace(self, **changes) -> "MDState":
         return dataclasses.replace(self, **changes)
@@ -138,6 +147,25 @@ def kinetic_temperature(velocities: Tensor, masses: Tensor) -> Tensor:
     return 2 * ke / (dof * KB_HARTREE)
 
 
+def langevin_o_step(
+    velocities: Tensor,
+    masses: Tensor,
+    dt: float,
+    temperature: float,
+    friction_per_fs: float,
+    noise: Tensor,
+) -> Tensor:
+    """The O step of BAOAB: the exact Ornstein-Uhlenbeck update of the
+    velocities over ``dt`` fs, ``c1 v + sigma noise`` with ``c1 = exp(-gamma
+    dt)`` and ``sigma = sqrt((1 - c1^2) kB T / m)``, ``noise`` a standard
+    normal draw of the velocities' shape."""
+    c1 = math.exp(-friction_per_fs * dt)
+    sigma = torch.sqrt(
+        (1 - c1**2) * KB_HARTREE * temperature / masses
+    )[:, None] * math.sqrt(ACCEL_UNIT)
+    return c1 * velocities + sigma * noise
+
+
 def _shallow_copy(module: torch.nn.Module) -> torch.nn.Module:
     """A copy of ``module`` with its own attribute and submodule tables that
     shares every parameter, buffer and submodule with the original."""
@@ -161,6 +189,24 @@ def _with_angular_preslice(model, prefix: int):
     model = _shallow_copy(model)
     model.potentials = potentials
     return model
+
+
+def _with_enabled(model, names: tp.Collection[str], self_energies: bool):
+    """A model copy in which only the potentials in ``names`` (of those
+    enabled) are enabled, and the self energies only if ``self_energies``.
+    The caller's model stays as it was; weights and buffers are shared."""
+    potentials = _shallow_copy(model.potentials)
+    for name, pot in model.potentials.items():
+        lane_pot = _shallow_copy(pot)
+        lane_pot.enabled = pot.enabled and name in names
+        potentials[name] = lane_pot
+    new = _shallow_copy(model)
+    new.potentials = potentials
+    if not self_energies:
+        shifter = _shallow_copy(model.energy_shifter)
+        shifter.enabled = False
+        new.energy_shifter = shifter
+    return new
 
 
 def _slice_lanes(nb: Neighbors, p: int) -> Neighbors:
@@ -583,7 +629,9 @@ class MolecularDynamics:
                     species_ranges=self._species_ranges,
                 ).energies
             )
-        return e + torch.sum(self.model.energy_shifter(self.elem_idxs))
+        if self.model.energy_shifter.enabled:
+            e = e + torch.sum(self.model.energy_shifter(self.elem_idxs))
+        return e
 
     def _energy_and_forces(self, state: MDState, coords: Tensor) -> tp.Tuple[Tensor, Tensor]:
         """Energy and forces at ``coords`` (user order) on the cached
@@ -604,7 +652,9 @@ class MolecularDynamics:
         """The state at ``coords``: capacities measured (first call only),
         the Verlet cache built, energy and forces evaluated.  Velocities are
         zero, or drawn at ``temperature`` from ``generator`` (a CPU generator
-        seeded with 0 by default)."""
+        seeded with 0 by default).  The state's Langevin generator is
+        ``generator`` itself where it lies on the model's device, else a
+        generator there seeded by one draw from ``generator``."""
         coords = as_tensor(coords, torch.float32, self.device).detach()
         if coords.dim() == 3:
             coords = coords[0]
@@ -618,12 +668,16 @@ class MolecularDynamics:
             if tight < self.capacity:
                 self.capacity = tight
         self._ensure_bucket(coords)  # after the final K is known
+        if generator is None:
+            generator = torch.Generator().manual_seed(0)
         if temperature is not None:
-            if generator is None:
-                generator = torch.Generator().manual_seed(0)
             velocities = maxwell_boltzmann_velocities(generator, self.masses, temperature)
         else:
             velocities = torch.zeros_like(coords)
+        noise_gen = generator
+        if generator.device.type != self.device.type:
+            seed = int(torch.randint(0, 2**62, (), generator=generator, device=generator.device))
+            noise_gen = torch.Generator(device=self.device).manual_seed(seed)
         idx, mask, shift, nbr_elem, overflow, tables, pair_aux = self._build_cache(coords)
         state = MDState(
             coords=coords,
@@ -639,6 +693,7 @@ class MolecularDynamics:
             nbr_perm=self._species_perm,
             bucket=tables,
             pair_aux=pair_aux,
+            generator=noise_gen,
         )
         e, f = self._energy_and_forces(state, coords)
         return state.replace(energy=e, forces=f)
@@ -687,6 +742,250 @@ class MolecularDynamics:
         """Run ``num_steps`` NVE steps."""
         for _ in range(num_steps):
             state = self.step_nve(state)
+        return state
+
+    def step_langevin(
+        self,
+        state: MDState,
+        temperature: float,
+        friction_per_fs: float = 0.01,
+        noise: tp.Optional[Tensor] = None,
+    ) -> MDState:
+        """One BAOAB Langevin (NVT) step: half kick, half drift, the O step
+        (`langevin_o_step`), half drift, then the rebuild check and forces,
+        and a half kick.  ``noise`` (``(A, 3)``, standard normal) is drawn
+        from ``state.generator`` unless given.
+
+        Nothing reads the position between the two half drifts, so their sum
+        is added to the coordinates at once: one rounding, as in
+        `step_nve`'s drift, so that without friction the step is velocity
+        Verlet to the bit (the JAX package rounds after each half drift)."""
+        dt = self.dt
+        with torch.no_grad():
+            v_half = state.velocities + 0.5 * dt * state.forces * self._inv_m
+            if noise is None:
+                gen = state.generator
+                if gen is None:
+                    raise ValueError(
+                        "the state has no generator for the Langevin noise; set one with "
+                        "state.replace(generator=torch.Generator(device).manual_seed(seed))"
+                    )
+                noise = torch.randn(
+                    tuple(v_half.shape), generator=gen, device=gen.device, dtype=v_half.dtype
+                ).to(v_half.device)
+            v = langevin_o_step(v_half, self.masses, dt, temperature, friction_per_fs, noise)
+            coords = state.coords + 0.5 * dt * (v_half + v)
+        state = self._maybe_rebuild(state, coords)
+        e, f = self._energy_and_forces(state, coords)
+        with torch.no_grad():
+            v = v + 0.5 * dt * f * self._inv_m
+        return state.replace(
+            coords=coords, velocities=v, forces=f, energy=e, step=state.step + 1
+        )
+
+    def run_langevin(
+        self,
+        state: MDState,
+        num_steps: int,
+        temperature: float,
+        friction_per_fs: float = 0.01,
+    ) -> MDState:
+        """Run ``num_steps`` Langevin steps at ``temperature`` (Kelvin)."""
+        for _ in range(num_steps):
+            state = self.step_langevin(state, temperature, friction_per_fs)
+        return state
+
+    def _ensemble_step(
+        self, ensemble: str, params: tp.Dict[str, tp.Any]
+    ) -> tp.Callable[[MDState], MDState]:
+        """The one-step function of an ensemble name (``"nve"``, or
+        ``"langevin"`` / ``"nvt"`` with ``temperature`` and optionally
+        ``friction_per_fs``)."""
+        p = dict(params)
+        if ensemble == "nve":
+            step = self.step_nve
+        elif ensemble in ("langevin", "nvt"):
+            t = float(p.pop("temperature"))
+            fr = float(p.pop("friction_per_fs", 0.01))
+
+            def step(st: MDState) -> MDState:
+                return self.step_langevin(st, t, fr)
+        else:
+            raise ValueError(f"unknown ensemble {ensemble!r}")
+        if p:
+            raise TypeError(f"unused {ensemble} parameters: {sorted(p)}")
+        return step
+
+
+@dataclasses.dataclass(frozen=True)
+class MTSState:
+    """State of a multiple-timestep (RESPA) run: the fast lane's full MD
+    state and the slow lane's (its ``forces`` and ``energy`` hold the slow
+    component; its ``coords`` mirror the fast state's at outer steps)."""
+
+    fast: MDState
+    slow: MDState
+
+    # combined views, valid at outer-step boundaries
+    @property
+    def coords(self) -> Tensor:
+        return self.fast.coords
+
+    @property
+    def velocities(self) -> Tensor:
+        return self.fast.velocities
+
+    @property
+    def energy(self) -> Tensor:
+        """Total potential energy (fast + slow lanes)."""
+        return self.fast.energy + self.slow.energy
+
+    @property
+    def forces(self) -> Tensor:
+        """Total forces (fast + slow lanes), user atom order."""
+        return self.fast.forces + self.slow.forces
+
+    @property
+    def overflow(self) -> Tensor:
+        return self.fast.overflow | self.slow.overflow
+
+    @property
+    def rebuilds(self) -> int:
+        return self.fast.rebuilds + self.slow.rebuilds
+
+    @property
+    def step(self) -> int:
+        return self.fast.step
+
+    def replace(self, **changes) -> "MTSState":
+        return dataclasses.replace(self, **changes)
+
+
+class MultipleTimestepMD:
+    """RESPA (impulse) multiple-timestep MD for models with a long-cutoff
+    smooth tail, such as ANI-2dr's 8 A D3 dispersion over a 5.2 A network
+    core.  Two independent Verlet-cached lanes, each a `MolecularDynamics`
+    on its own copy of the model (the caller's model is left as it was):
+
+    - **fast lane**: every enabled potential not in ``slow_names`` and the
+      self energies, with its own cell grid and neighbor table at the
+      fast cutoff + ``skin``, stepped every ``timestep_fs``;
+    - **slow lane**: the ``slow_names`` potentials only (by default every
+      enabled potential whose cutoff is past the networks'), evaluated
+      once per ``every`` inner steps as a velocity impulse of ``every * dt
+      * F_slow``, half before the inner steps and half after.  Its wide
+      table is checked for a rebuild only then, at ``slow_skin`` (default
+      ``skin``).  With ``cache_slow_constants`` its potentials' per-window
+      constants are frozen per rebuild (``freeze_pair_window``).
+
+    With ``every=1`` the scheme is velocity Verlet on the full model.  Keep
+    ``every * timestep_fs`` at or below ~4 fs (impulse RESPA resonates near
+    half the fastest period, ~10 fs X-H stretches).
+
+    >>> mts = MultipleTimestepMD(model, species, cell=cell, pbc=True, every=4)
+    >>> state = mts.init(coords, temperature=300.0)
+    >>> state = mts.run(state, 1000)            # 1000 fs of NVE
+    >>> e, f = state.energy, state.forces       # total (fast + slow)
+    """
+
+    def __init__(
+        self,
+        model,
+        species,  # (1, A) atomic numbers
+        cell=None,
+        pbc: bool = False,
+        every: int = 4,
+        slow_names: tp.Optional[tp.Sequence[str]] = None,
+        skin: float = 0.75,
+        slow_skin: tp.Optional[float] = None,
+        timestep_fs: float = 1.0,
+        cache_slow_constants: bool = True,
+        **md_kwargs,
+    ) -> None:
+        if every < 1:
+            raise ValueError("every must be >= 1")
+        self.every = int(every)
+        self.dt = timestep_fs
+        if slow_names is None:
+            r_fast = float(model.potentials["nnp"].cutoff)
+            slow_names = tuple(
+                n for n, p in model.potentials.items()
+                if p.enabled and float(p.cutoff) > r_fast
+            )
+        self.slow_names = tuple(slow_names)
+        if not self.slow_names:
+            raise ValueError(
+                "MTS needs at least one enabled potential with a cutoff "
+                "beyond the fast set (e.g. D3 dispersion over an NNP core)"
+            )
+        fast_names = [
+            n for n, p in model.potentials.items() if p.enabled and n not in self.slow_names
+        ]
+        if not fast_names:
+            raise ValueError("MTS fast set is empty; check slow_names")
+        # self energies do not depend on the coordinates: the fast lane
+        # alone carries them (state.energy sums the lanes)
+        self.fast = MolecularDynamics(
+            _with_enabled(model, fast_names, self_energies=True), species, cell=cell,
+            pbc=pbc, skin=skin, timestep_fs=timestep_fs, **md_kwargs,
+        )
+        self.slow = MolecularDynamics(
+            _with_enabled(model, self.slow_names, self_energies=False), species, cell=cell,
+            pbc=pbc, skin=slow_skin if slow_skin is not None else skin,
+            timestep_fs=timestep_fs,
+            freeze_pair_window=self.slow_names if cache_slow_constants else (),
+            **md_kwargs,
+        )
+
+    @property
+    def masses(self) -> Tensor:
+        return self.fast.masses
+
+    def init(
+        self,
+        coords,
+        temperature: tp.Optional[float] = None,
+        generator: tp.Optional[torch.Generator] = None,
+    ) -> MTSState:
+        """Both lanes' states at ``coords``; velocities (and the Langevin
+        generator) as `MolecularDynamics.init` makes them, on the fast lane."""
+        fast = self.fast.init(coords, temperature=temperature, generator=generator)
+        return MTSState(fast=fast, slow=self.slow.init(coords))
+
+    def _outer_step(
+        self, s: MTSState, inner_step: tp.Callable[[MDState], MDState]
+    ) -> MTSState:
+        """One RESPA outer step: slow half-impulse, ``every`` inner steps of
+        the fast lane, the slow lane's rebuild check and forces, slow
+        half-impulse."""
+        half = 0.5 * self.every * self.dt
+        inv_m = self.fast._inv_m
+        with torch.no_grad():
+            fast = s.fast.replace(velocities=s.fast.velocities + half * s.slow.forces * inv_m)
+        for _ in range(self.every):
+            fast = inner_step(fast)
+        slow = self.slow._maybe_rebuild(s.slow, fast.coords)
+        es, fs = self.slow._energy_and_forces(slow, fast.coords)
+        slow = slow.replace(coords=fast.coords, energy=es, forces=fs)
+        with torch.no_grad():
+            fast = fast.replace(velocities=fast.velocities + half * fs * inv_m)
+        return MTSState(fast=fast, slow=slow)
+
+    def run(
+        self, state: MTSState, num_steps: int, ensemble: str = "nve", **params
+    ) -> MTSState:
+        """Run ``num_steps`` INNER steps, a multiple of ``every``.
+        Ensembles: ``"nve"``, or ``"langevin"`` / ``"nvt"`` with
+        ``temperature`` and optionally ``friction_per_fs`` (the thermostat
+        acts on the fast dynamics; the slow impulses stay outside it).  NPT
+        and Nose-Hoover are not supported under MTS."""
+        if num_steps % self.every:
+            raise ValueError("num_steps must be a multiple of `every`")
+        if ensemble in ("npt", "nvt-nhc"):
+            raise ValueError(f"ensemble {ensemble!r} not supported under MTS")
+        inner_step = self.fast._ensemble_step(ensemble, params)
+        for _ in range(num_steps // self.every):
+            state = self._outer_step(state, inner_step)
         return state
 
 

@@ -23,12 +23,22 @@ __all__ = [
     "Ensemble",
     "SpeciesConverter",
     "parse_activation",
+    "DIMS_1X",
     "DIMS_2X",
+    "DIMS_DR",
+    "DIMS_ALA",
+    "NETWORK_WIDTHS",
     "SpeciesRanges",
     "layer_dims_for",
 ]
 
-#: per-symbol hidden dims of the ANI-2x networks
+#: per-symbol hidden dims of the pretrained model families
+DIMS_1X: tp.Dict[str, tp.Tuple[int, ...]] = {
+    "H": (160, 128, 96),
+    "C": (144, 112, 96),
+    "N": (128, 112, 96),
+    "O": (128, 112, 96),
+}
 DIMS_2X: tp.Dict[str, tp.Tuple[int, ...]] = {
     "H": (256, 192, 160),
     "C": (224, 192, 160),
@@ -38,7 +48,37 @@ DIMS_2X: tp.Dict[str, tp.Tuple[int, ...]] = {
     "F": (160, 128, 96),
     "Cl": (160, 128, 96),
 }
+DIMS_DR: tp.Dict[str, tp.Tuple[int, ...]] = {
+    "H": (256, 192, 160),
+    "C": (256, 192, 160),
+    "N": (192, 160, 128),
+    "O": (192, 160, 128),
+    "S": (160, 128, 96),
+    "F": (160, 128, 96),
+    "Cl": (160, 128, 96),
+}
+DIMS_ALA: tp.Dict[str, tp.Tuple[int, ...]] = {
+    "H": (256, 192, 160),
+    "C": (224, 196, 160),
+    "N": (192, 160, 128),
+    "O": (192, 160, 128),
+    "S": (160, 128, 96),
+    "F": (160, 128, 96),
+    "Cl": (160, 128, 96),
+}
 _DEFAULT_DIMS = (160, 128, 96)
+_DEFAULT_DIMS_1X = (128, 112, 96)
+
+#: the network constructors by name: (hidden dims per symbol, dims of any
+#: other symbol, activation, bias), as the JAX package's ``like_*``
+NETWORK_WIDTHS: tp.Dict[
+    str, tp.Tuple[tp.Dict[str, tp.Tuple[int, ...]], tp.Tuple[int, ...], str, bool]
+] = {
+    "like_1x": (DIMS_1X, _DEFAULT_DIMS_1X, "celu", True),
+    "like_2x": (DIMS_2X, _DEFAULT_DIMS, "celu", True),
+    "like_dr": (DIMS_DR, _DEFAULT_DIMS, "gelu", False),
+    "like_ala": (DIMS_ALA, _DEFAULT_DIMS, "celu", True),
+}
 
 LayerDims = tp.Tuple[tp.Tuple[int, ...], ...]
 #: ``(species, start, stop)`` row ranges of a flat element array that is
@@ -268,6 +308,57 @@ class AtomicNetworks(Ensemble):
             [w[0].to(dev) for w in weights], [b[0].to(dev) for b in biases] if bias else None,
             layer_dims, tuple(symbols), activation,
         )
+
+    @classmethod
+    def _like(
+        cls,
+        ctor: str,
+        symbols: tp.Sequence[str],
+        in_dim: int,
+        out_dim: int,
+        activation: tp.Optional[str],
+        bias: tp.Optional[bool],
+        generator: tp.Optional[torch.Generator],
+        device: DeviceArg,
+    ) -> "AtomicNetworks":
+        dims, default_dims, default_act, default_bias = NETWORK_WIDTHS[ctor]
+        return cls.random(
+            symbols,
+            layer_dims_for(symbols, in_dim, dims, default_dims, out_dim),
+            generator if generator is not None else torch.Generator().manual_seed(0),
+            device,
+            activation=default_act if activation is None else activation,
+            bias=default_bias if bias is None else bias,
+        )
+
+    @classmethod
+    def like_1x(
+        cls, symbols: tp.Sequence[str] = ("H", "C", "N", "O"), in_dim: int = 384,
+        out_dim: int = 1, activation: tp.Optional[str] = None, bias: tp.Optional[bool] = None,
+        generator: tp.Optional[torch.Generator] = None, device: DeviceArg = None,
+    ) -> "AtomicNetworks":
+        """ANI-1x widths (CELU with biases by default)."""
+        return cls._like("like_1x", symbols, in_dim, out_dim, activation, bias, generator, device)
+
+    @classmethod
+    def like_dr(
+        cls, symbols: tp.Sequence[str] = ("H", "C", "N", "O", "S", "F", "Cl"),
+        in_dim: int = 1008, out_dim: int = 1, activation: tp.Optional[str] = None,
+        bias: tp.Optional[bool] = None, generator: tp.Optional[torch.Generator] = None,
+        device: DeviceArg = None,
+    ) -> "AtomicNetworks":
+        """ANI-dr widths (gelu without biases by default)."""
+        return cls._like("like_dr", symbols, in_dim, out_dim, activation, bias, generator, device)
+
+    @classmethod
+    def like_ala(
+        cls, symbols: tp.Sequence[str] = ("H", "C", "N", "O", "S", "F", "Cl"),
+        in_dim: int = 1008, out_dim: int = 1, activation: tp.Optional[str] = None,
+        bias: tp.Optional[bool] = None, generator: tp.Optional[torch.Generator] = None,
+        device: DeviceArg = None,
+    ) -> "AtomicNetworks":
+        """ANI-ala widths (CELU with biases by default)."""
+        return cls._like("like_ala", symbols, in_dim, out_dim, activation, bias, generator, device)
 
     def forward(
         self,

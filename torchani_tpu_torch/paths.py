@@ -1,7 +1,11 @@
-"""Filesystem locations of the port's bundled resources and kernel builds."""
+"""Filesystem locations of the port's bundled resources, kernel builds and
+user data (counterpart of ``torchani_tpu/paths.py``)."""
 
 import os
+import typing as tp
 from pathlib import Path
+
+_data_dir_override: tp.Optional[Path] = None
 
 
 def resources_dir() -> Path:
@@ -24,3 +28,33 @@ def kernel_build_dir() -> Path:
     if env:
         return Path(env)
     return Path(__file__).resolve().parent.parent / "build" / "torch_kernels"
+
+
+def set_data_dir(path: tp.Union[str, Path, None]) -> None:
+    """Override the data root for this process; ``None`` restores the
+    default resolution (environment, then ``~/.local/share``)."""
+    global _data_dir_override
+    _data_dir_override = None if path is None else Path(path)
+
+
+def data_dir() -> Path:
+    """Root directory for user data (state dicts).
+
+    Resolution order: the `set_data_dir` override, ``TORCHANI_TPU_DATA_DIR``,
+    ``TORCHANI_DATA_DIR``, then ``~/.local/share/TorchaniTPU``.
+    """
+    if _data_dir_override is not None:
+        d = _data_dir_override
+    else:
+        env = os.getenv("TORCHANI_TPU_DATA_DIR") or os.getenv("TORCHANI_DATA_DIR")
+        d = Path(env) if env else Path.home() / ".local" / "share" / "TorchaniTPU"
+    d.mkdir(parents=True, exist_ok=True)
+    return d
+
+
+def state_dicts_dir() -> Path:
+    """Where ``models.*(pretrained=True)`` looks for ``{name}_state_dict.npz``
+    or ``.pt``."""
+    d = data_dir() / "StateDicts"
+    d.mkdir(parents=True, exist_ok=True)
+    return d

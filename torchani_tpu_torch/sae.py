@@ -24,7 +24,9 @@ class SelfEnergy(torch.nn.Module):
     """Adds constant atomic energies depending only on the element.
 
     The per-atom values are f32 and are summed in f32 over the atom axis,
-    as the JAX ``SelfEnergy`` does.
+    as the JAX ``SelfEnergy`` does.  A model whose ``energy_shifter`` has
+    ``enabled`` False adds none (the slow lane of
+    `torchani_tpu_torch.md.MultipleTimestepMD`).
     """
 
     self_energies: Tensor  # (S,)
@@ -37,6 +39,7 @@ class SelfEnergy(torch.nn.Module):
     ) -> None:
         super().__init__()
         self.symbols = tuple(symbols)
+        self.enabled = True
         if len(self_energies) != len(self.symbols):
             raise ValueError("self_energies must have one value per symbol")
         values = np.asarray(self_energies, dtype=np.float64).astype(np.float32)
