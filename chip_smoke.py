@@ -8,9 +8,10 @@ Run from the root of a checkout, on a machine with one NVIDIA GPU::
 In order: prints the card, builds every CUDA kernel from ``csrc/`` (one
 ``nvcc`` per source, all at once), holds each kernel against its plain
 PyTorch version on the card (K3, the fused angular AEV, and K3b, its
-backward, on contiguous and column-sliced cotangents; K1 and K2, the bucket
-refresh's selection and its transpose, with K2's cluster split S, blocks,
-threads and shared memory printed), runs ANI-2x energies and
+backward, on contiguous and column-sliced cotangents, with K3b's persistent
+grid printed; K1 and K2, the bucket refresh's selection and its transpose,
+with K1's split S and K2's cluster split S, blocks, threads and shared
+memory printed), runs ANI-2x energies and
 forces on the 10,002-atom periodic water box through the public entry points
 (counting kernel launches), compares the card with the CPU on a ~1,000-atom
 box, then drives the MD main path: `MolecularDynamics` with its defaults,
@@ -44,7 +45,8 @@ K1, K2, K4f and K4b (P = 1, the frozen D3 window) on the slow lane, every=1
 against velocity Verlet, the card against the CPU; and a model written in
 the published key scheme (`convert.save_state_dict`, `torch.save`) into a
 temporary data directory and loaded back with ``pretrained=True``.  It
-prints a ``kernels`` JSON line (all eight kernels) and, last, ``{"ok": true,
+prints K1's and K3b's times beside their earlier designs' as PERF.md
+records them, a ``kernels`` JSON line (all eight kernels) and, last, ``{"ok": true,
 "device": {...}}``.  Any failed check raises, and the script exits non-zero
 without that last line; so does a machine with no CUDA device, or a
 directory without the package.  A little over a minute of command time on
@@ -110,6 +112,12 @@ MTS_COORD_ATOL, MTS_COORD_RTOL, MTS_E_TOL = 2e-6, 2e-5, 1e-5
 #: a model saved in the published key scheme and loaded back: the same
 #: weights on the same card
 PRETRAINED_FORCE_ATOL = 1e-6
+#: the earlier K1 and K3b designs' device times on an H100 80GB HBM3 at
+#: 700 W, as PERF.md section 6 records them, printed beside this run's
+EARLIER_MS = {
+    "K1 ANI-2x": 0.0086, "K1 ANI-2dr": 0.0601,
+    "K3b ANI-2x": 0.0632, "K3b ANI-1x": 0.0604,
+}
 
 
 def check(ok: bool, what: str) -> None:
@@ -201,6 +209,21 @@ def angular_bound_ms(pairs: float, lanes: float, sh: int, se: int, nbytes: int,
             nbytes, by_f32, by_sfu)
 
 
+def k3b_bytes(lanes, species: torch.Tensor, num_species: int, nz: int) -> int:
+    """Bytes K3b must move: its lane inputs (dist, diff, the int32 lane
+    species) read and its two gradients written once, and of the cotangent
+    only the rows that meet a pair: for each atom the slots of the species
+    pairs among its valid lanes, (s, s) where s holds two lanes or more."""
+    n, ka = species.shape
+    counts = torch.zeros((n, num_species + 1), dtype=torch.int64, device=species.device)
+    counts.scatter_add_(1, (species.long() + 1), torch.ones_like(species, dtype=torch.int64))
+    counts = counts[:, 1:]  # column 0 took the masked lanes
+    held = (counts > 0).sum(1)
+    rows = int((held * (held - 1) // 2 + (counts > 1).sum(1)).sum())
+    lane_bytes = sum(t.numel() * t.element_size() for t in (lanes[0], lanes[1], species))
+    return 2 * lane_bytes - species.numel() * 4 + rows * nz * 4
+
+
 def select_bound_ms(lanes: int, g: int, c: int, adds: bool) -> tuple:
     """Least time for K1 or K2: the occupied lanes' keys (4 bytes) and
     positions or cotangents (12 bytes), the (G, 27, C, 3) candidate table and
@@ -240,6 +263,35 @@ def launch_shape(what: str, g: int, c: int, p: int) -> dict:
     print(f"{what} launch: G={g}, C={c}, P={p}: S={shape['split']} blocks a cluster, "
           f"{shape['blocks']} blocks of {shape['threads']} threads, "
           f"{shape['smem_bytes']} bytes of shared memory a block")
+    return shape
+
+
+def k1_launch_shape(what: str, g: int, c: int, r: int) -> dict:
+    """Print and return how K1 launches at G buckets of C slots and R
+    lanes: the split S (independent blocks a bucket), blocks, threads a
+    block, shared memory."""
+    from torchani_tpu_torch.bucket_refresh import fwd_launch_shape
+
+    shape = fwd_launch_shape(g, c, r, torch.device("cuda"))
+    print(f"{what} launch: G={g}, C={c}, R={r}: S={shape['split']} blocks a bucket, "
+          f"{shape['blocks']} blocks of {shape['threads']} threads, "
+          f"{shape['smem_bytes']} bytes of shared memory a block")
+    return shape
+
+
+def k3b_launch_shape(what: str, lanes, kw: dict) -> dict:
+    """Print and return K3b's persistent grid at these lanes and widths:
+    blocks, threads a block, shared memory a block (each warp's one buffer
+    of the cotangent rows that meet a pair, lanes and gradient planes),
+    atoms a warp."""
+    from torchani_tpu_torch.aev.kernels import bwd_launch_shape as k3b_shape
+
+    n, ka = lanes[0].shape
+    shape = k3b_shape(n, ka, kw["num_species"], len(kw["shifts"]), len(kw["sections"]),
+                      lanes[0].device)
+    print(f"{what} launch: N={n}, Ka={ka}: {shape['blocks']} blocks of {shape['threads']} "
+          f"threads, {shape['smem_bytes']} bytes of shared memory a block, at most "
+          f"{shape['atoms_per_warp']} atoms a warp")
     return shape
 
 
@@ -399,6 +451,7 @@ def main() -> int:
     # column slice of a wider tensor (as the AEV's cat hands it back)
     k3_species = lane_species(k3_in[2], k3_in[3])
     k3_block = aevc._atom_block(ka)
+    k3b_shape = k3b_launch_shape("K3b at the ANI-2x water box", k3_in, k3_kw)
     gen = torch.Generator(dev).manual_seed(11)
     g3 = torch.randn(out.shape, device=dev, generator=gen)
     k3b = angular_aev_bwd(g3, *k3_in, k3_species, **k3_kw)
@@ -439,6 +492,7 @@ def main() -> int:
     print(f"occupied lanes: {lanes} of {g_ * r_} ({lanes / (g_ * r_):.1%}); "
           f"{real_lanes} of them hold a neighbor")
     occupied = torch.arange(r_, device=dev)[None, :] < nlanes[:, None]
+    k1_shape = k1_launch_shape("K1 at the ANI-2x tables", g_, c_, r_)
     k1_out = bucket_select_fwd(cand, tables.keys, nlanes)
     torch.cuda.synchronize()
     k1_ref = bucket_select_reference(cand, tables.keys, nlanes)
@@ -465,6 +519,7 @@ def main() -> int:
     skeys = torch.as_tensor(((sec << 8) | rank).astype(np.int32), device=dev)
     scand = torch.as_tensor(rng.randn(sg, 27, sc, 3).astype(np.float32) * 20, device=dev)
     sgout = torch.as_tensor(rng.randn(sg, sc * sk, 3).astype(np.float32), device=dev)
+    k1_launch_shape("K1 on random keys", sg, sc, sc * sk)
     s1 = bucket_select_fwd(scand, skeys)
     launch_shape("K2 on random keys", sg, sc, 3)
     s2 = bucket_select_bwd(sgout, skeys, sc)
@@ -679,9 +734,10 @@ def main() -> int:
 
     recompute_ms = kernels_ms(recompute, reps=3)
     recompute_peak = peak_gib(recompute)
-    k3b_bytes = lane_bytes + g3_slice.numel() * 4 + 4 * k3_in[0].numel() + 4 * k3_in[1].numel()
-    k3b_bound = angular_bound_ms(pairs, valid_lanes, sh, se, k3b_bytes, True)
-    print(f"{card}: K3b alone: {k3b_ms:.4f} ms ({k3b_ev:.4f} between events); plain version "
+    k3b_bound = angular_bound_ms(pairs, valid_lanes, sh, se,
+                                 k3b_bytes(k3_in, k3_species, k3_kw["num_species"], sh * se), True)
+    print(f"{card}: K3b alone: {k3b_ms:.4f} ms (the earlier design: "
+          f"{EARLIER_MS['K3b ANI-2x']:.4f} ms, PERF.md) ({k3b_ev:.4f} between events); plain version "
           f"{k3b_plain_ms:.3f} ms "
           f"(blocks of {k3_block} atoms); the recompute it replaced {recompute_ms:.3f} ms, "
           f"peak {recompute_peak:.3f} GiB; bound {k3b_bound[0]:.4f} ms by {k3b_bound[1]} "
@@ -740,7 +796,8 @@ def main() -> int:
     k2_lib_ms, k2_lib_ev = both_ms(lambda: d_flat.zero_().scatter_add_(1, index3, g_rows))
     k1_bound, k1_by, k1_bytes = select_bound_ms(lanes, g_, c_, adds=False)
     k2_bound, k2_by, k2_bytes = select_bound_ms(lanes, g_, c_, adds=True)
-    print(f"{card}: K1 alone: {k1_ms:.4f} ms ({k1_ev:.4f} between events); plain version "
+    print(f"{card}: K1 alone: {k1_ms:.4f} ms (the earlier design: {EARLIER_MS['K1 ANI-2x']:.4f} "
+          f"ms, PERF.md) ({k1_ev:.4f} between events); plain version "
           f"{k1_plain_ms:.4f} ms ({k1_plain_ev:.4f}); torch.gather {k1_lib_ms:.4f} ms "
           f"({k1_lib_ev:.4f}); bound {k1_bound:.4f} ms by {k1_by} ({k1_bytes / 1e6:.1f} MB)")
     print(f"{card}: K2 alone: {k2_ms:.4f} ms ({k2_ev:.4f} between events); plain version "
@@ -914,6 +971,7 @@ def main() -> int:
     check(within(k2_dr_out, k2_dr_ref, K2_TOL), "K2 within tolerance at the ANI-2dr tables")
     sindex3 = _flat_index(dt.keys, dc)[:, :, None].expand(-1, -1, 3)
     sd_flat = torch.empty((dg, 28 * dc, 3), device=dev)
+    k1_dr_shape = k1_launch_shape("K1 at the ANI-2dr tables", dg, dc, dr)
     k1_dr_out = bucket_select_fwd(scand, dt.keys, dnl)
     torch.cuda.synchronize()
     k1_dr_err = float((k1_dr_out - bucket_select_reference(scand, dt.keys, dnl))[docc].abs().max())
@@ -932,7 +990,8 @@ def main() -> int:
     )
     k1_dr_bound = select_bound_ms(dlanes, dg, dc, adds=False)
     k2_dr_bound = select_bound_ms(dlanes, dg, dc, adds=True)
-    print(f"{card}: K1 at the ANI-2dr tables: max abs err {k1_dr_err:.3e}; {k1_dr:.4f} ms; plain "
+    print(f"{card}: K1 at the ANI-2dr tables: max abs err {k1_dr_err:.3e}; {k1_dr:.4f} ms (the "
+          f"earlier design: {EARLIER_MS['K1 ANI-2dr']:.4f} ms, PERF.md); plain "
           f"{k1_dr_all['plain']:.4f} ms; torch.gather {k1_dr_all['lib']:.4f} ms; bound "
           f"{k1_dr_bound[0]:.4f} ms by {k1_dr_bound[1]} ({k1_dr_bound[2] / 1e6:.1f} MB)")
     print(f"{card}: K2 at the ANI-2dr tables: max abs err {k2_dr_err:.3e}; {k2_dr['ms']:.4f} ms; "
@@ -1105,17 +1164,20 @@ def main() -> int:
         bound=angular_bound_ms(x1_pairs, float(x1_lanes.sum()), x1_sh, x1_se,
                                x1_lane_bytes + x1_out.numel() * 4, False),
     )
+    x1_k3b_shape = k3b_launch_shape("K3b at the ANI-1x water box", x1_in, x1_kw)
     x1_k3b = dict(
         ms=kernels_ms(lambda: angular_aev_bwd(x1_g, *x1_in, x1_species, **x1_kw), reps=20),
         plain=kernels_ms(lambda: angular_aev_bwd_reference(
             x1_g, *x1_in, atom_block=x1_block, **x1_kw), reps=3),
         bound=angular_bound_ms(x1_pairs, float(x1_lanes.sum()), x1_sh, x1_se,
-                               x1_lane_bytes + x1_g.numel() * 4 + 4 * x1_in[0].numel()
-                               + 4 * x1_in[1].numel(), True),
+                               k3b_bytes(x1_in, x1_species, x1_kw["num_species"], x1_sh * x1_se),
+                               True),
     )
     for name, k in (("K3", x1_k3), ("K3b", x1_k3b)):
+        earlier = (f" (the earlier design: {EARLIER_MS['K3b ANI-1x']:.4f} ms, PERF.md)"
+                   if name == "K3b" else "")
         print(f"{card}: {name} at the ANI-1x tables (N={x1_in[0].shape[0]}, "
-              f"Ka={x1_in[0].shape[1]}, {x1_sh} x {x1_se}): {k['ms']:.4f} ms; plain "
+              f"Ka={x1_in[0].shape[1]}, {x1_sh} x {x1_se}): {k['ms']:.4f} ms{earlier}; plain "
               f"{k['plain']:.3f} ms; bound "
               f"{k['bound'][0]:.4f} ms by {k['bound'][1]}")
     del x1_nbrs, x1_angular, x1_in, x1_out, x1_g, x1_species, x1_lanes
@@ -1346,14 +1408,16 @@ def main() -> int:
                  "torchani_tpu/aev/computer.py:1045 (_angular_pallas_bwd, XLA recompute; "
                  "no pallas_call)", k3b_err, k3b_ms, k3b_plain_ms, k3b_bound[0], k3b_bound[1],
                  None),
-         "replaced_recompute_ms": recompute_ms,
+         "replaced_recompute_ms": recompute_ms, "grid": k3b_shape,
          "at_ani1x": {"max_abs_err": x1_k3b_err, "ms": x1_k3b["ms"], "plain_ms": x1_k3b["plain"],
-                      "bound_ms": x1_k3b["bound"][0]}},
+                      "bound_ms": x1_k3b["bound"][0], "grid": x1_k3b_shape}},
         {**entry("bucket_select_fwd", select_cu, "torchani_tpu/bucket_refresh.py:504",
                  k1_err, k1_ms, k1_plain_ms, k1_bound, k1_by, k1_lib_ms),
+         "split": k1_shape["split"], "threads": k1_shape["threads"],
          "at_ani2dr": {
              "max_abs_err": k1_dr_err, "ms": k1_dr, "plain_ms": k1_dr_all["plain"],
              "bound_ms": k1_dr_bound[0], "library_ms": k1_dr_all["lib"],
+             "split": k1_dr_shape["split"], "threads": k1_dr_shape["threads"],
          }},
         {**entry("bucket_select_bwd", select_cu, "torchani_tpu/bucket_refresh.py:544",
                  k2_err, k2_ms, k2_plain_ms, k2_bound, k2_by, k2_lib_ms),

@@ -27,22 +27,30 @@ import torch
 from torchani_tpu_torch.aev import AEVComputer, angular_aev, angular_aev_reference
 from torchani_tpu_torch.aev.kernels import (
     angular_aev_bwd,
+    bwd_launch_shape as k3b_launch_shape,
     angular_aev_bwd_reference,
     angular_grid,
     lane_species,
 )
 from torchani_tpu_torch.aev.terms import ANIAngular
 from torchani_tpu_torch.bucket_refresh import (
-    BWD_THREADS,
+    BLOCK_RESERVED_BYTES,
     CLUSTER_SPLITS,
+    MAX_FWD_SPLIT,
     MAX_SHARED_BYTES,
+    SM_SHARED_BYTES,
+    SM_THREADS,
+    SPLIT_THREADS,
     _cluster_split,
+    _fwd_split,
+    _one_wave,
     bucket_nbr_pos,
     bucket_select_bwd,
     bucket_select_bwd_reference,
     bucket_select_fwd,
     bucket_select_reference,
     bwd_launch_shape,
+    fwd_launch_shape,
     make_wrapshift,
     tables_from_cell_aux,
     vals_select_bwd,
@@ -241,6 +249,73 @@ def test_kernels_take_other_term_widths_on_card(num_shifts, num_sections):
     g = _cotangent(97, out.shape[1], seed=8, device="cuda")
     _assert_bwd_close(angular_aev_bwd(g, *lanes, **kw), angular_aev_bwd_reference(g, *lanes, **kw),
                       lanes[2])
+
+
+def _lanes_with_counts(counts, ka: int, s: int, seed: int, device: str):
+    """Lanes whose row i has exactly ``counts[i]`` valid lanes, scattered over
+    the row (the rest masked as `_lanes` masks them)."""
+    rng = np.random.RandomState(seed)
+    n = len(counts)
+    mask = np.zeros((n, ka), bool)
+    for i, nv in enumerate(counts):
+        mask[i, rng.permutation(ka)[:nv]] = True
+    elem = rng.randint(0, s, (n, ka))
+    oh = np.eye(s, dtype=np.float32)[elem] * mask[..., None]
+    d = np.where(mask, rng.uniform(0.8, 3.4, (n, ka)), 1.0).astype(np.float32)
+    v = rng.randn(n, ka, 3).astype(np.float32)
+    v *= (d / np.linalg.norm(v, axis=-1))[..., None] * mask[..., None]
+    return [torch.as_tensor(a, device=device) for a in (d, v, mask, oh)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("version,cutoff_fn,ns", CASES)
+def test_bwd_kernel_rows_of_0_1_2_and_28_lanes_on_card(version, cutoff_fn, ns):
+    """Rows with no valid lane (fully masked), one (no pair), two (one pair)
+    and all 28 (the water box's Ka, 378 pairs) against the plain version,
+    on a column-sliced cotangent; 8 x 4 (like_2x), 4 x 8 (like_1x)."""
+    _cuda()
+    kw = _kwargs(version, cutoff_fn, ns)
+    counts = [0, 1, 2, 28, 0, 2, 28, 1, 17, 28, 3]
+    lanes = _lanes_with_counts(counts, 28, ns, seed=21, device="cuda")
+    width = ns * (ns + 1) // 2 * 32
+    g = _cotangent(len(counts), width + 112, seed=22, device="cuda")[:, 112:]
+    out = angular_aev_bwd(g, *lanes, **kw)
+    _assert_bwd_close(out, angular_aev_bwd_reference(g, *lanes, **kw), lanes[2])
+    for i, nv in enumerate(counts):
+        if nv < 2:  # no pair: every lane's cotangent is exactly 0
+            assert (out[0][i] == 0).all() and (out[1][i] == 0).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("version,cutoff_fn,ns,widths", [
+    ("like_2x", "cosine", 7, None), ("like_1x", "smooth", 4, None),
+    ("like_1x", "smooth", 3, (5, 3)),
+])
+def test_bwd_kernel_walks_more_atoms_than_its_grid_on_card(version, cutoff_fn, ns, widths):
+    """N past the persistent grid and not a multiple of its warps: warps
+    take two or three atoms, the last round ragged; the 8 x 4, 4 x 8 and
+    generic (5 x 3) instantiations."""
+    _cuda()
+    kw = _kwargs(version, cutoff_fn, ns)
+    if widths is not None:
+        kw["shifts"] = tuple(np.linspace(0.9, 3.2, widths[0]).tolist())
+        kw["sections"] = tuple(np.linspace(0.2, 3.0, widths[1]).tolist())
+    sh, se = len(kw["shifts"]), len(kw["sections"])
+    shape = k3b_launch_shape(10 ** 6, 28, ns, sh, se, "cuda")
+    warps = shape["blocks"] * shape["threads"] // 32
+    n = 2 * warps + 37
+    small = k3b_launch_shape(n, 28, ns, sh, se, "cuda")
+    assert small["blocks"] == shape["blocks"] and small["atoms_per_warp"] == 3
+    assert k3b_launch_shape(5, 28, ns, sh, se, "cuda")["blocks"] == -(-5 // (warps // shape[
+        "blocks"]))
+    lanes = _lanes(n, 28, ns, seed=23, device="cuda")
+    g = _cotangent(n, ns * (ns + 1) // 2 * sh * se, seed=24, device="cuda")
+    before = angular_aev_bwd.launches
+    out = angular_aev_bwd(g, *lanes, **kw)
+    torch.cuda.synchronize()
+    assert angular_aev_bwd.launches == before + 1
+    _assert_bwd_close(out, angular_aev_bwd_reference(g, *lanes, atom_block=2048, **kw), lanes[2])
+    assert (out[0][::7] == 0).all() and (out[1][::7] == 0).all()
 
 
 @pytest.mark.cuda
@@ -533,6 +608,114 @@ def test_vals_select_wrappers_check_on_card():
                         torch.zeros((1, 256), dtype=torch.int32, device="cuda"), 256)
 
 
+# ---- K1: each bucket's lanes split over S independent blocks ----
+
+#: the water box's K1 tables (G, C, K): ANI-2x MD, ANI-2dr MD, and the MTS
+#: fast lane's 7 x 7 x 7 grid at K = 112
+K1_TABLES = [(343, 64, 104), (125, 96, 336), (343, 64, 112)]
+
+
+@pytest.mark.parametrize("g,c,k", K1_TABLES)
+def test_fwd_split_fills_an_h100_in_one_wave(g, c, k):
+    """At the water box's tables every block is on an H100's 132 SMs at
+    once, every SM holds one at least, the block is the largest that allows
+    this, and S + 1 would need a second wave."""
+    tile = 27 * c * 3 * 4
+    threads, s = _fwd_split(g, c * k, tile, 132)
+    per_sm = min(SM_THREADS // threads, SM_SHARED_BYTES // (tile + BLOCK_RESERVED_BYTES))
+    assert threads in SPLIT_THREADS and 1 <= s <= MAX_FWD_SPLIT
+    assert 132 <= g * s <= 132 * per_sm
+    assert g * (s + 1) > 132 * per_sm
+    assert threads == SPLIT_THREADS[0] or g > 132 * (SM_THREADS // SPLIT_THREADS[0])
+
+
+@pytest.mark.parametrize("g,tile,want", [
+    (125, 27 * 96 * 12, (1024, 2)),  # the ANI-2dr tables: 264 blocks of 1,024 fit
+    (343, 27 * 64 * 12, (512, 1)),  # the ANI-2x tables: only 512 fits 343 blocks
+    (16, 27 * 64 * 12, (1024, 16)),  # few buckets: 264 blocks over 16
+    (2 * 10 ** 5, 27 * 64 * 12, (1024, 1)),  # no size holds them: one block each
+])
+def test_one_wave_cases(g, tile, want):
+    """K1's and K2's launch shapes start from one rule on 132 SMs: the block
+    size, and the most blocks a bucket may have with every block resident;
+    both pickers take that block size."""
+    assert _one_wave(g, tile, 132) == want
+    assert _cluster_split(g, tile, 132)[0] == want[0] == _fwd_split(g, 10 ** 6, tile, 132)[0]
+
+
+@pytest.mark.parametrize("g,r,tile,want", [
+    (125, 96 * 336, 27 * 96 * 12, (1024, 2)),  # the ANI-2dr tables: 250 blocks
+    (343, 64 * 104, 27 * 64 * 12, (512, 1)),  # the ANI-2x tables: 343 blocks of 512
+    (343, 64 * 112, 27 * 64 * 12, (512, 1)),  # the MTS fast lane
+    (1, 96 * 336, 27 * 96 * 12, (1024, 31)),  # one bucket: a lane a thread
+    (1, 10 ** 6, 1024, (1024, MAX_FWD_SPLIT)),
+    (5, 256 * 5, 27 * 256 * 12, (1024, 1)),  # C = 256: too few lanes to split
+    (2, 256 * 40, 27 * 256 * 12, (1024, 10)),  # 83 KB: two blocks an SM
+    (2000, 10_000, 1024, (1024, 1)),  # more buckets than one wave holds
+])
+def test_fwd_split_cases(g, r, tile, want):
+    assert _fwd_split(g, r, tile, 132) == want
+
+
+def test_fwd_split_refuses_a_tile_past_shared_memory():
+    with pytest.raises(ValueError, match="shared memory"):
+        _fwd_split(4, 1024, MAX_SHARED_BYTES + 4, 132)
+
+
+def _k1_at(cand, keys, nlanes, split: int, threads: int, fill: float = 1234.5):
+    """K1 at an explicit launch shape into an output filled with ``fill``."""
+    from torchani_tpu_torch.bucket_refresh import _launch
+
+    g, _, c, _ = cand.shape
+    out = torch.full((g, keys.shape[1], 3), fill, device=cand.device)
+    _launch("bucket_select_fwd", cand, keys, nlanes, out, g, c, keys.shape[1], split, threads)
+    torch.cuda.synchronize()
+    return out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("g,c,k", [(6, 64, 104), (3, 96, 336), (2, 256, 40), (5, 6, 3),
+                                   (4, 10, 4), (7, 16, 9)])
+@pytest.mark.parametrize("threads,split", [(512, 1), (512, 3), (512, 64), (1024, 1),
+                                           (1024, 2), (1024, 7)])
+def test_select_kernel_split_leaves_lanes_past_nlanes_untouched_on_card(g, c, k, threads, split):
+    """K1 over S blocks of each size: an empty bucket, buckets of 1 lane and
+    of lane counts that are not multiples of 4, full ones; exact on every
+    occupied lane and never writing past ``nlanes``.  C = 6 and C = 10 load
+    the tile 4 bytes at a time, the rest 16 bytes at a time."""
+    _cuda()
+    cand, _, keys, nlanes = _select_inputs(g, c, k, 30, True, "cuda")
+    r = c * k
+    counts = [0, 1, r, 5, r - 3, 2, 4 * (r // 8) + 1][:g]
+    nlanes = torch.tensor(counts, dtype=torch.int32, device="cuda")
+    lane = torch.arange(r, device="cuda")[None, :]
+    keys = torch.where(lane < nlanes[:, None], keys, 27 << 8).to(torch.int32).contiguous()
+    ref = bucket_select_reference(cand, keys, nlanes)
+    out = _k1_at(cand, keys, nlanes, split, threads)
+    occupied = _occupied(keys, nlanes)
+    assert torch.equal(out[occupied], ref[occupied])
+    assert (out[~occupied] == 1234.5).all()
+
+
+@pytest.mark.cuda
+def test_select_kernel_wrapper_splits_and_counts_on_card():
+    """Through the wrapper: its launch shape has S > 1 at few buckets, one
+    launch counted, an exact selection; no ``nlanes`` selects every lane."""
+    _cuda()
+    cand, _, keys, nlanes = _select_inputs(3, 64, 104, 31, True, "cuda")
+    shape = fwd_launch_shape(3, 64, 64 * 104, cand.device)
+    assert shape["split"] > 1 and shape["blocks"] == 3 * shape["split"]
+    assert shape["threads"] in SPLIT_THREADS and shape["smem_bytes"] == 27 * 64 * 12
+    before = bucket_select_fwd.launches
+    out = bucket_select_fwd(cand, keys, nlanes)
+    torch.cuda.synchronize()
+    assert bucket_select_fwd.launches == before + 1
+    occupied = _occupied(keys, nlanes)
+    assert torch.equal(out[occupied], bucket_select_reference(cand, keys, nlanes)[occupied])
+    full = bucket_select_fwd(cand, keys)
+    assert torch.equal(full, bucket_select_reference(cand, keys))
+
+
 # ---- K2 and K4b: each bucket's lanes split over a thread-block cluster ----
 
 #: the water box's tables: ANI-2x (G = 343, C = 64) and ANI-2dr (G = 125,
@@ -547,11 +730,11 @@ def test_cluster_split_fills_an_h100_in_one_wave(g, c, p):
     this and the next larger S would need a second wave."""
     tile = 27 * c * p * 4
     threads, s = _cluster_split(g, tile, 132)
-    assert s in CLUSTER_SPLITS and threads in BWD_THREADS and tile <= MAX_SHARED_BYTES
+    assert s in CLUSTER_SPLITS and threads in SPLIT_THREADS and tile <= MAX_SHARED_BYTES
     resident = 132 * (2048 // threads)  # these tiles fit that many blocks an SM
     assert 132 <= g * s <= resident
     assert s == CLUSTER_SPLITS[-1] or g * 2 * s > resident
-    assert threads == BWD_THREADS[0] or g > 132 * (2048 // BWD_THREADS[0])
+    assert threads == SPLIT_THREADS[0] or g > 132 * (2048 // SPLIT_THREADS[0])
 
 
 @pytest.mark.parametrize("g,tile,want", [
@@ -646,7 +829,7 @@ def test_select_bwd_cluster_split_matches_plain_on_card(case, p):
                        else (vals_select_bwd, vals_select_bwd_reference))
     shape = bwd_launch_shape(g, c, p, gout.device)
     assert shape["split"] in CLUSTER_SPLITS and shape["blocks"] == g * shape["split"]
-    assert shape["threads"] in BWD_THREADS
+    assert shape["threads"] in SPLIT_THREADS
     if g == 1:
         assert shape["split"] == 8
     before = wrapper.launches

@@ -33,6 +33,7 @@ __all__ = [
     "angular_aev_bwd_reference",
     "angular_aev_reference",
     "angular_grid",
+    "bwd_launch_shape",
     "lane_species",
     "CUTOFF_KINDS",
 ]
@@ -293,6 +294,10 @@ def _library() -> ctypes.CDLL:
         vp, vp, vp, vp, vp,  # dist, diff, species, gdist, gdiff
     ] + terms
     lib.angular_aev_launch.restype = lib.angular_aev_bwd_launch.restype = ci
+    ip = ctypes.POINTER(ci)
+    lib.angular_aev_bwd_shape.argtypes = [ci, ci, ci, ci, ci, ci, ip, ip,
+                                          ctypes.POINTER(ctypes.c_longlong)]
+    lib.angular_aev_bwd_shape.restype = ci
     lib.angular_aev_error_string.argtypes = [ci]
     lib.angular_aev_error_string.restype = ctypes.c_char_p
     return lib
@@ -430,9 +435,10 @@ def angular_aev_bwd(
     the output's cotangent ``g``.
 
     CPU tensors take `angular_aev_bwd_reference`, ``atom_block`` atoms at a
-    time; CUDA tensors launch K3b once (``atom_block`` unused) and raise if
-    it cannot run.  ``g`` may be a column slice of a wider tensor: the
-    kernel reads it with its row stride.  ``angular_aev_bwd.launches``
+    time; CUDA tensors launch K3b once (``atom_block`` unused; a persistent
+    grid, `bwd_launch_shape`) and raise if it cannot run.  ``g`` may be a
+    column slice of a wider tensor: the kernel reads it with its row
+    stride, and only the rows of the species pairs that meet a pair.  ``angular_aev_bwd.launches``
     counts launches.
     """
     kwargs = dict(
@@ -473,3 +479,27 @@ def angular_aev_bwd(
 
 
 angular_aev_bwd.launches = 0
+
+
+def bwd_launch_shape(
+    n: int, ka: int, num_species: int, num_shifts: int, num_sections: int,
+    device: torch.device,
+) -> tp.Dict[str, int]:
+    """K3b's persistent grid for ``N`` atoms of ``Ka`` lanes at these widths
+    on a CUDA ``device``: the blocks (as many as the card holds at once, no
+    more than the atoms need), the threads and the shared memory a block
+    (each warp's cotangent rows, lane records and gradient planes), and the
+    most atoms a warp takes."""
+    device = torch.device(device)
+    index = torch.cuda.current_device() if device.index is None else device.index
+    blocks, threads, smem = ctypes.c_int(), ctypes.c_int(), ctypes.c_longlong()
+    with torch.cuda.device(index):
+        rc = _library().angular_aev_bwd_shape(
+            n, ka, num_species, num_shifts, num_sections, index,
+            ctypes.byref(blocks), ctypes.byref(threads), ctypes.byref(smem),
+        )
+    if rc != 0:
+        msg = _library().angular_aev_error_string(rc).decode()
+        raise RuntimeError(f"angular_aev_bwd: no launch shape: CUDA error {rc} ({msg})")
+    return {"blocks": blocks.value, "threads": threads.value, "smem_bytes": smem.value,
+            "atoms_per_warp": -(-n // (blocks.value * threads.value // 32))}

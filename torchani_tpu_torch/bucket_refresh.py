@@ -68,6 +68,7 @@ __all__ = [
     "make_wrapshift",
     "tables_from_cell_aux",
     "bwd_launch_shape",
+    "fwd_launch_shape",
 ]
 
 #: lane key encoding: (section << 8) | rank; section 27 = masked sentinel
@@ -82,11 +83,13 @@ MAX_SHARED_BYTES = 227 * 1024
 SM_SHARED_BYTES = 228 * 1024
 BLOCK_RESERVED_BYTES = 1024
 SM_THREADS = 2048
-#: block sizes of K2 and K4b, in order of preference (their sources take
-#: these two), and the cluster sizes over which they split a bucket's lanes
-#: (8 is the portable maximum)
-BWD_THREADS = (1024, 512)
+#: block sizes of K1, K2 and K4b, in order of preference (their sources
+#: take these two); the cluster sizes over which K2 and K4b split a bucket's
+#: lanes (8 is the portable maximum), and the most independent blocks K1
+#: splits a bucket over
+SPLIT_THREADS = (1024, 512)
 CLUSTER_SPLITS = (1, 2, 4, 8)
+MAX_FWD_SPLIT = 64
 
 _SECTION_OFFSETS = np.mgrid[-1:2, -1:2, -1:2].reshape(3, -1).T  # (27, 3)
 
@@ -292,11 +295,10 @@ def _library() -> ctypes.CDLL:
     lib = load_library("bucket_select")
     if lib.bucket_select_fwd_launch.argtypes is None:
         vp, ci = ctypes.c_void_p, ctypes.c_int
-        # source, keys, nlanes (or null), destination; G, C, R (and for K2
-        # the cluster split S and the threads a block); device, stream
-        lib.bucket_select_fwd_launch.argtypes = [vp, vp, vp, vp, ci, ci, ci, ci, vp]
-        lib.bucket_select_bwd_launch.argtypes = [vp, vp, vp, vp, ci, ci, ci, ci, ci, ci, vp]
+        # source, keys, nlanes (or null), destination; G, C, R, the split S
+        # and the threads a block; device, stream
         for fn in (lib.bucket_select_fwd_launch, lib.bucket_select_bwd_launch):
+            fn.argtypes = [vp, vp, vp, vp, ci, ci, ci, ci, ci, ci, vp]
             fn.restype = ci
         lib.bucket_select_error_string.argtypes = [ci]
         lib.bucket_select_error_string.restype = ctypes.c_char_p
@@ -325,29 +327,36 @@ def _check_kernel_args(
             raise ValueError(f"{name}: {what} must be contiguous")
 
 
-def _cluster_split(g: int, tile_bytes: int, sms: int) -> tp.Tuple[int, int]:
-    """``(threads, S)`` for K2 and K4b at ``G`` buckets on ``sms`` SMs:
-    each bucket's occupied lanes go to a cluster of S blocks.
-
-    The first block size of `BWD_THREADS` at which all G buckets' blocks
-    fit on the card at once (an SM holds 2,048 threads, and fewer blocks
-    where a tile of ``tile_bytes`` takes more of its shared memory), with
-    the largest S in `CLUSTER_SPLITS` that keeps them in that one wave;
-    1,024 threads and S = 1 where no size does.  A block has a fixed
-    lifetime (its tile's zeros, two cluster barriers, the reduction), so a
-    second wave costs more than the threads it adds: on an H100 S = 2
-    beats S = 4 at 125 buckets, and 512 threads beat 1,024 at 343."""
+def _one_wave(g: int, tile_bytes: int, sms: int) -> tp.Tuple[int, int]:
+    """``(threads, most)`` for a selection kernel at ``G`` buckets on
+    ``sms`` SMs, each block holding a bucket's tile of ``tile_bytes``: the
+    first block size of `SPLIT_THREADS` at which all G buckets' blocks fit
+    on the card at once (an SM holds 2,048 threads, and fewer blocks where
+    the tile takes more of its shared memory), and the most blocks a bucket
+    may then have in that one wave; 1,024 threads and 1 where no size does.
+    A block has a fixed lifetime (its tile, and for K2 and K4b two cluster
+    barriers and the reduction), so a second wave costs more than the
+    threads it adds."""
     if not 0 < tile_bytes <= MAX_SHARED_BYTES:
         raise ValueError(
             f"a bucket's candidate tile of {tile_bytes} bytes does not fit the "
             f"{MAX_SHARED_BYTES} bytes of shared memory a block may have"
         )
     by_smem = SM_SHARED_BYTES // (tile_bytes + BLOCK_RESERVED_BYTES)
-    for threads in BWD_THREADS:
+    for threads in SPLIT_THREADS:
         resident = sms * max(min(SM_THREADS // threads, by_smem), 1)
         if g <= resident:
-            return threads, max(s for s in CLUSTER_SPLITS if g * s <= resident)
-    return BWD_THREADS[0], 1
+            return threads, resident // g
+    return SPLIT_THREADS[0], 1
+
+
+def _cluster_split(g: int, tile_bytes: int, sms: int) -> tp.Tuple[int, int]:
+    """``(threads, S)`` for K2 and K4b: each bucket's occupied lanes go to
+    a cluster of S blocks, the largest S in `CLUSTER_SPLITS` that
+    `_one_wave` allows.  On an H100 S = 2 beats S = 4 at 125 buckets, and
+    512 threads beat 1,024 at 343."""
+    threads, most = _one_wave(g, tile_bytes, sms)
+    return threads, max(s for s in CLUSTER_SPLITS if s <= most)
 
 
 @functools.lru_cache(maxsize=None)
@@ -364,9 +373,29 @@ def bwd_launch_shape(g: int, c: int, p: int, device: torch.device) -> tp.Dict[st
     return {"split": s, "blocks": g * s, "threads": threads, "smem_bytes": smem}
 
 
+def _fwd_split(g: int, r: int, tile_bytes: int, sms: int) -> tp.Tuple[int, int]:
+    """``(threads, S)`` for K1 at ``G`` buckets of ``R`` lanes: each
+    bucket's occupied lanes go to S independent blocks, each of which loads
+    the bucket's tile, the most that `_one_wave` allows (no more than
+    leaves each block of a full bucket a lane a thread, at most
+    `MAX_FWD_SPLIT`).  On an H100 this gives S = 2 of 1,024 threads at the
+    ANI-2dr tables and S = 1 of 512 at the ANI-2x ones."""
+    threads, most = _one_wave(g, tile_bytes, sms)
+    return threads, max(1, min(most, r // threads, MAX_FWD_SPLIT))
+
+
+def fwd_launch_shape(g: int, c: int, r: int, device: torch.device) -> tp.Dict[str, int]:
+    """How K1 launches for ``G`` buckets of ``C`` slots and ``R`` lanes on
+    a CUDA ``device``: the split S, the blocks, the threads a block and the
+    shared memory a block (its candidate tile)."""
+    smem = 27 * c * 3 * 4
+    threads, s = _fwd_split(g, r, smem, _sm_count(torch.device(device)))
+    return {"split": s, "blocks": g * s, "threads": threads, "smem_bytes": smem}
+
+
 def _launch(name: str, src: Tensor, keys: Tensor, nlanes, dst: Tensor, *dims: int) -> None:
     """Launch ``{name}_launch`` on ``src``'s device and current stream with
-    ``dims`` (G, C, R, and for K2 the cluster split S and the threads)."""
+    ``dims`` (G, C, R, the split S and the threads a block)."""
     lib = _library()
     fn = getattr(lib, f"{name}_launch")
     with torch.cuda.device(src.device):
@@ -389,7 +418,8 @@ def bucket_select_fwd(
 
     ``nlanes (G,)`` int32 bounds each bucket's occupied lanes: lanes at or
     past it must all be sentinels, and the kernel leaves them unwritten
-    (callers read occupied slots' rows only).  CPU tensors take
+    (callers read occupied slots' rows only).  The kernel splits each
+    bucket's lanes over S blocks (`fwd_launch_shape`).  CPU tensors take
     `bucket_select_reference`; CUDA tensors launch the kernel or raise.
     ``bucket_select_fwd.launches`` counts launches.
     """
@@ -405,7 +435,9 @@ def bucket_select_fwd(
     out = torch.empty((g, r, 3), dtype=torch.float32, device=cand.device)
     if g == 0 or r == 0:
         return out
-    _launch("bucket_select_fwd", cand, keys, nlanes, out, g, c, r)
+    shape = fwd_launch_shape(g, c, r, cand.device)
+    _launch("bucket_select_fwd", cand, keys, nlanes, out, g, c, r, shape["split"],
+            shape["threads"])
     bucket_select_fwd.launches += 1
     return out
 

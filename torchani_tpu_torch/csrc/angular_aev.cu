@@ -45,8 +45,8 @@
 // Design (both kernels):
 // - one warp per centre atom, four atoms per block; the atom's valid lanes
 //   (r, dx, dy, dz, fc, species; K3b also fc') are compacted into shared
-//   memory first, sorted by species (a ballot per species and 32 lanes), so
-//   the pair loop has no masked lane and no per-j branch;
+//   memory first (K3: sorted by species, a ballot per species and 32
+//   lanes), so the pair loop has no masked lane and no per-j branch;
 // - lanes take the atom's nv (nv - 1) / 2 pairs 32 at a time, one pair a
 //   lane, and compute its factors once: num_shifts exp and num_sections
 //   pow, not one of each per feature.  pow is exp2(zeta log2(base)) rather
@@ -60,32 +60,68 @@
 //   and added to the lane's own z column of the P x Z accumulator tile (bank
 //   = z) when the slot changes, so no atomics are needed; the tile is
 //   written out coalesced.
-// K3b:
-// - the atom's cotangent row is staged in shared memory once, with a slot
-//   stride of Z + 1: lanes that read different slots at the same z then fall
-//   on different banks;
-// - pairs in rounds (`pair_of`): in round d lane j of the compacted list
-//   pairs with lane (j + d) mod nv, so within a round no two pairs share a j
-//   or a k;
-// - each lane computes its pair's three sums over (a, b) and the chain rule,
-//   and adds the 4 values of each side (r, dx, dy, dz) into per-warp planes
-//   with shared-memory atomics: the j side and the k side are separate
-//   instructions, and within a round their addresses are distinct, so two
-//   lanes collide only where a batch spans two rounds.  The order of the
-//   sums changes from run to run;
+// K3b: what held its first design (one warp an atom, the row staged with
+// plain loads, 2,501 blocks of 4 warps), timed apart on an H100 (ablated
+// copies, torch.profiler): at the water box 0.064 ms, of which the staging and
+// write-out alone take 0.023 and the 8 shared-memory atomics of a pair
+// (compare-and-swap loops, `ATOMS.CAST.SPIN`: the card has no shared f32
+// add) 0.009; the rest is the pair loop, whose dependent chains (5 IEEE
+// divisions, a square root and a division for the pair's index among them)
+// the 32 warps an SM do not hide.  A persistent grid that double-buffers the
+// next atom's row (cp.async) was slower: its ~10 KB a warp and 72-121
+// registers leave 20 warps an SM.  The design:
+// - a persistent grid of one wave, 8 blocks of 4 warps an SM (at most 64
+//   registers); warp w of W takes atoms w, w + W, ...;
+// - of the atom's cotangent row it copies (cp.async) only the slots of the
+//   species pairs among its valid lanes: the others meet no pair.  At the
+//   water box that is 3 of ANI-2x's 28 slots, so the kernel reads ~4 MB of
+//   the 36 MB cotangent (chip_smoke.py's bound counts those rows).  Asking
+//   the next atom's row into L2 ahead was slower;
+// - the row's slots are Z + 4 floats apart where Z is a multiple of 4 (Z + 1
+//   else): a lane reads its slot 16 bytes at a time, and lanes reading
+//   different slots at one z fall on 8 different groups of banks;
+// - the valid lanes are compacted in lane order (`stage_bwd_lanes`: one
+//   ballot per 32 lanes, every lane's loads issued at once; K3's species
+//   order, a ballot per species, serialised the loads), each into two float4
+//   records, (r, dx, dy, dz) and (fc, fc', 1 / r, species): 4 loads a pair;
+// - pairs in rounds: in round d (1 <= d <= nv / 2) lane j of the compacted
+//   list pairs with lane (j + d) mod nv, so within a round no two pairs
+//   share a j or a k; pair q is j = q mod nv of round q / nv + 1 (for an
+//   even nv the last round takes j < nv / 2 only), and a lane's q advances
+//   by 32 a step without a division;
+// - no division in the pair loop: 1 / max(r_j r_k, 1e-10) from the staged
+//   1 / r, 1 / sin(theta) from rsqrtf, exp(-eta dr^2) as exp2f of a
+//   prescaled exponent;
+// - each lane adds the 4 values of each side (r, dx, dy, dz) into per-warp
+//   planes with shared-memory atomics: the j side and the k side are
+//   separate instructions, and within a round their addresses are distinct,
+//   so two lanes collide only where a batch spans two rounds.  Holding the
+//   sums in registers and passing the k side by shuffles would need rounds
+//   of nv pairs a warp: at nv of 17 to 20 (the water box averages ~120
+//   pairs an atom, nv ~ 16) that idles 38-47% of the lanes, against the 15%
+//   the atomics cost.  The order of the sums changes from run to run;
 // - masked lanes and fully masked rows are written as exact zeros.
+// On an H100 it takes 0.043 ms at the water box (its first design 0.064);
+// ablated the same way, ~0.028 ms of it is the pair loop's
+// arithmetic and ~0.008 the atomics, against a bound of 0.0065 ms set by
+// the special-function units once only the rows that meet a pair are read.
 // Compiled without --use_fast_math: expf, log2f, exp2f, sqrtf, cosf and sinf
 // keep their full-precision forms (the parity target against the plain
-// version is 1e-5).  Templates: the widths 8 x 4 (ANI-2x) and 4 x 8 (ANI-1x)
+// version is 1e-5); K3b's rsqrtf and reciprocals are within a few units of
+// the last place.  Templates: the widths 8 x 4 (ANI-2x) and 4 x 8 (ANI-1x)
 // are compiled with constant loop bounds; other widths up to 16 x 16 take
 // the generic instantiation (<0, 0>), whose loops run to 16 with guards.
 
 #include <cuda_runtime.h>
 
+#include <algorithm>
+
 namespace {
 
 constexpr int kWarpsPerBlock = 4;
 constexpr int kThreads = kWarpsPerBlock * 32;
+// K3b: blocks an SM must hold (bounds its registers at 64 a thread)
+constexpr int kBwdBlocksPerSM = 8;
 constexpr int kMaxShifts = 16;
 constexpr int kMaxSections = 16;
 constexpr unsigned kFullMask = 0xffffffffu;
@@ -120,10 +156,34 @@ __host__ __device__ __forceinline__ size_t fwd_warp_floats(int num_pairs, int nz
   return static_cast<size_t>(num_pairs) * nz + 32 * ts + 32 + 6 * static_cast<size_t>(ka);
 }
 
+// slot stride of K3b's staged cotangent: Z + 4 where Z is a multiple of 4
+// (rows on 16 bytes, read 4 floats at a time; lanes reading different slots
+// at one z fall on 8 different groups of banks), else Z + 1
+__host__ __device__ __forceinline__ int bwd_slot_stride(int nz) {
+  return nz % 4 == 0 ? nz + 4 : nz + 1;
+}
+
+__host__ __device__ __forceinline__ size_t round4(size_t n) { return (n + 3) / 4 * 4; }
+
+// floats of K3b's shared memory a warp: g (P, slot stride) | per compacted
+// lane (r, x, y, z) and (fc, fc', 1 / r, species) as float4s | lane map (Ka)
+// | gradient planes r, x, y, z (Ka each)
 __host__ __device__ __forceinline__ size_t bwd_warp_floats(int num_pairs, int nz, int ka) {
-  // g (P, Z + 1) | r, x, y, z, fc, fc' (Ka each) | species, lane map (Ka each)
-  // | gradient planes r, x, y, z (Ka each)
-  return static_cast<size_t>(num_pairs) * (nz + 1) + 12 * static_cast<size_t>(ka);
+  return round4(static_cast<size_t>(num_pairs) * bwd_slot_stride(nz)) +
+         8 * static_cast<size_t>(ka) + round4(ka) + 4 * static_cast<size_t>(ka);
+}
+
+// 4-byte asynchronous copies from device to shared memory (cp.async): each
+// lane waits for its own copies, and a __syncwarp then shows every lane's
+// copies to the warp
+__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
+  const unsigned addr = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(addr), "l"(src) : "memory");
+}
+
+// waits until all of this lane's copies have landed
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
 }
 
 // fc(r) and, with kDeriv, fc'(r) (the cutoffs of torchani_tpu_torch/cutoffs.py)
@@ -214,26 +274,6 @@ __device__ __forceinline__ void advance_pair(int step, int nv, int& j, int& k) {
 // of the last place of powf where the result matters, in fewer instructions.
 __device__ __forceinline__ float pow_pos(float base, float e) {
   return exp2f(e * log2f(base));
-}
-
-// The q-th of the nv (nv - 1) / 2 unordered pairs of compacted lanes, in
-// rounds: round d (1 <= d <= nv / 2) pairs lane j with lane (j + d) mod nv
-// for j = 0 .. nv - 1; for an even nv the last round (d = nv / 2) takes
-// j < nv / 2 only, since (j, j + nv / 2) and (j + nv / 2, j) are one pair.
-__device__ __forceinline__ void pair_of(int q, int nv, int& j, int& k) {
-  const int full = nv * ((nv - 1) / 2);
-  int d;
-  if (q < full) {
-    d = q / nv + 1;
-    j = q - (d - 1) * nv;
-  } else {
-    d = nv / 2;
-    j = q - full;
-  }
-  k = j + d;
-  if (k >= nv) {
-    k -= nv;
-  }
 }
 
 // K3.  SH, SE > 0: the term's widths, as constants; 0: read from p.
@@ -362,9 +402,164 @@ angular_aev_kernel(const float* __restrict__ dist,   // (N, Ka)
   }
 }
 
-// K3b.  SH, SE as for K3.
+// Starts copying the rows of an atom's cotangent that its pairs read, those
+// of the species pairs among its nv staged lanes (slot rows `bwd_slot_stride`
+// floats apart): for a water box 3 of the 28 rows of ANI-2x.
+__device__ __forceinline__ void copy_slot_rows(const float* __restrict__ grow, int lane, int nv,
+                                               const float4* lb, int num_species, int nz,
+                                               float* gs) {
+  unsigned present = 0;
+  for (int c = lane; c < nv; c += 32) {
+    present |= 1u << __float_as_int(lb[c].w);
+  }
+  present = __reduce_or_sync(kFullMask, present);
+  const int gz = bwd_slot_stride(nz);
+  for (unsigned ms = present; ms != 0; ms &= ms - 1) {
+    const int s = __ffs(ms) - 1;
+    for (unsigned mt = present >> s; mt != 0; mt &= mt - 1) {
+      const int slot = triu_slot(s, s + __ffs(mt) - 1, num_species);
+      for (int i = lane; i < nz; i += 32) {
+        cp_async4(gs + slot * gz + i, grow + slot * nz + i);
+      }
+    }
+  }
+}
+
+// K3b's staging of an atom's valid lanes (species >= 0), compacted in lane
+// order: K3b reads each pair's slot, so it needs no species order, and one
+// ballot per 32 lanes stands in for `stage_lanes`'s one per species.  Each
+// lane's loads are issued together.  Returns their number (the same in
+// every lane of the warp); map[l] is lane l's compacted index, -1 for a
+// masked lane; la[c] = (r, dx, dy, dz), lb[c] = (fc, fc', 1 / r, species
+// bits) of compacted lane c.
+__device__ int stage_bwd_lanes(const float* __restrict__ dist, const float* __restrict__ diff,
+                               const int* __restrict__ species, size_t row, int lane,
+                               const AngularParams& p, float4* la, float4* lb, int* map) {
+  int nv = 0;
+  const unsigned below = (1u << lane) - 1u;
+  for (int base = 0; base < p.ka; base += 32) {
+    const int l = base + lane;
+    const bool in = l < p.ka;
+    const int t = in ? species[row + l] : -1;
+    const float r = in ? dist[row + l] : 1.0f;
+    const float dx = in ? diff[(row + l) * 3 + 0] : 0.0f;
+    const float dy = in ? diff[(row + l) * 3 + 1] : 0.0f;
+    const float dz = in ? diff[(row + l) * 3 + 2] : 0.0f;
+    const bool mine = t >= 0;
+    const unsigned found = __ballot_sync(kFullMask, mine);
+    const int c = nv + __popc(found & below);
+    if (in) {
+      map[l] = mine ? c : -1;
+    }
+    if (mine) {
+      float fc, dfc;
+      cutoff_fn<true>(r, p, fc, dfc);
+      la[c] = make_float4(r, dx, dy, dz);
+      lb[c] = make_float4(fc, dfc, 1.0f / r, __int_as_float(t));
+    }
+    nv += __popc(found);
+  }
+  return nv;
+}
+
+// What pair {j, k} adds to its lanes: v[0..3] to r, x, y, z of j and v[4..7]
+// to those of k.  No division: 1 / max(r_j r_k, 1e-10) comes from the lanes'
+// staged 1 / r, 1 / sin(theta) from a reciprocal square root, and
+// exp(-eta dr^2) is exp2 of a prescaled exponent.
 template <int SH, int SE>
-__global__ void __launch_bounds__(kThreads)
+__device__ __forceinline__ void pair_grads(int j, int k, const float4* la, const float4* lb,
+                                           const float* gs, int gz, const AngularParams& p,
+                                           float* v) {
+  constexpr int kSh = SH > 0 ? SH : kMaxShifts;
+  constexpr int kSe = SE > 0 ? SE : kMaxSections;
+  const int sh = SH > 0 ? SH : p.num_shifts;
+  const int se = SE > 0 ? SE : p.num_sections;
+  const float4 aj = la[j], ak = la[k];
+  const float4 bj = lb[j], bk = lb[k];
+  const float rr = aj.x * ak.x;
+  const bool through_r = rr >= 1e-10f;
+  const float inv_den = through_r ? bj.z * bk.z : 1e10f;
+  const float c = 0.95f * (aj.y * ak.y + aj.z * ak.z + aj.w * ak.w) * inv_den;
+  const float s2 = 1.0f - c * c;
+  const float s2c = fmaxf(s2, 1e-20f);
+  const float inv_sin = rsqrtf(s2c);
+  const float sin_t = s2c * inv_sin;
+  const float dsin = s2 > 1e-20f ? -c * inv_sin : 0.0f;
+  const float mean = 0.5f * (aj.x + ak.x);
+  const float f = bj.x * bk.x;
+  const float zeta_m1 = p.zeta - 1.0f;
+
+  float ang[kSe], dang[kSe];
+#pragma unroll
+  for (int b = 0; b < kSe; ++b) {
+    ang[b] = 0.0f;
+    dang[b] = 0.0f;
+    if (b < se) {
+      const float cs = p.cossec[b];
+      const float sn = p.sinsec[b];
+      const float base = 0.5f * (1.0f + c * cs + sin_t * sn);
+      const float pw = zeta_m1 > 0.0f ? pow_pos(base, zeta_m1) : 1.0f;
+      ang[b] = 2.0f * base * pw;
+      dang[b] = p.zeta * pw * (cs + sn * dsin);
+    }
+  }
+  const int slot = triu_slot(__float_as_int(bj.w), __float_as_int(bk.w), p.num_species);
+  const float* gp = gs + slot * gz;
+  const float eta_log2e = -p.eta * 1.4426950408889634f;
+  float s_f = 0.0f, s_m = 0.0f, s_c = 0.0f;
+#pragma unroll
+  for (int a = 0; a < kSh; ++a) {
+    if (a < sh) {
+      const float dr = mean - p.shift[a];
+      const float ra = exp2f(eta_log2e * dr * dr);
+      const float dra = -2.0f * p.eta * dr * ra;
+      float gv[kSe];
+      if (SE > 0 && SE % 4 == 0) {
+#pragma unroll
+        for (int b = 0; b < kSe; b += 4) {
+          const float4 g4 = *reinterpret_cast<const float4*>(gp + a * kSe + b);
+          gv[b] = g4.x;
+          gv[b + 1] = g4.y;
+          gv[b + 2] = g4.z;
+          gv[b + 3] = g4.w;
+        }
+      } else {
+#pragma unroll
+        for (int b = 0; b < kSe; ++b) {
+          gv[b] = b < se ? gp[a * se + b] : 0.0f;
+        }
+      }
+      float t1 = 0.0f, t2 = 0.0f;
+#pragma unroll
+      for (int b = 0; b < kSe; ++b) {
+        t1 += gv[b] * ang[b];
+        t2 += gv[b] * dang[b];
+      }
+      s_f += ra * t1;
+      s_m += dra * t1;
+      s_c += ra * t2;
+    }
+  }
+  const float dl_dm = f * s_m;
+  const float dl_dc = f * s_c;
+  const float dl_df = s_f;
+  const float coef = 0.95f * dl_dc * inv_den;
+  v[0] = 0.5f * dl_dm + dl_df * bj.y * bk.x + (through_r ? dl_dc * (-c * bj.z) : 0.0f);
+  v[1] = coef * ak.y;
+  v[2] = coef * ak.z;
+  v[3] = coef * ak.w;
+  v[4] = 0.5f * dl_dm + dl_df * bj.x * bk.y + (through_r ? dl_dc * (-c * bk.z) : 0.0f);
+  v[5] = coef * aj.y;
+  v[6] = coef * aj.z;
+  v[7] = coef * aj.w;
+}
+
+// K3b.  SH, SE as for K3.  A persistent grid of one wave: warp w of W takes
+// atoms w, w + W, w + 2 W, ...; once its lanes are staged, the cotangent
+// rows its pairs read are copied (cp.async) while it zeroes its gradient
+// planes.  At most 64 registers, so 8 blocks of 4 warps fit an SM.
+template <int SH, int SE>
+__global__ void __launch_bounds__(kThreads, kBwdBlocksPerSM)
 angular_aev_bwd_kernel(const float* __restrict__ g,        // (N, P * Z), row stride g_stride
                        long long g_stride,
                        const float* __restrict__ dist,     // (N, Ka)
@@ -373,129 +568,67 @@ angular_aev_bwd_kernel(const float* __restrict__ g,        // (N, P * Z), row st
                        float* __restrict__ gdist,          // (N, Ka)
                        float* __restrict__ gdiff,          // (N, Ka, 3)
                        const AngularParams p) {
-  constexpr int kSh = SH > 0 ? SH : kMaxShifts;
-  constexpr int kSe = SE > 0 ? SE : kMaxSections;
-  extern __shared__ float smem[];
+  extern __shared__ __align__(16) float bwd_smem[];
   const int warp = threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
-  const int atom = blockIdx.x * kWarpsPerBlock + warp;
-  const int sh = SH > 0 ? SH : p.num_shifts;
-  const int se = SE > 0 ? SE : p.num_sections;
-  const int nz = sh * se;
-  const int gz = nz + 1;  // padded slot stride of the staged cotangent
-  const int pz = p.num_pairs * nz;
+  const int nz = (SH > 0 ? SH : p.num_shifts) * (SE > 0 ? SE : p.num_sections);
+  const int gz = bwd_slot_stride(nz);
   const int ka = p.ka;
 
-  float* gs = smem + warp * bwd_warp_floats(p.num_pairs, nz, ka);
-  float* lr = gs + p.num_pairs * gz;
-  float* lx = lr + ka;
-  float* ly = lx + ka;
-  float* lz = ly + ka;
-  float* lfc = lz + ka;
-  float* ldfc = lfc + ka;
-  int* lsp = reinterpret_cast<int*>(ldfc + ka);
-  int* map = lsp + ka;
-  float* acc_r = reinterpret_cast<float*>(map + ka);
-  float* acc_d = acc_r + ka;  // three planes: x, y, z
+  float* gs = bwd_smem + warp * bwd_warp_floats(p.num_pairs, nz, ka);
+  float4* la = reinterpret_cast<float4*>(gs + round4(static_cast<size_t>(p.num_pairs) * gz));
+  float4* lb = la + ka;
+  int* map = reinterpret_cast<int*>(lb + ka);
+  float* acc = reinterpret_cast<float*>(map + round4(ka));  // planes r, x, y, z
 
-  if (atom >= p.n) {
-    return;  // the whole warp leaves together; only __syncwarp is used below
-  }
-  const float* grow = g + static_cast<long long>(atom) * g_stride;
-  for (int i = lane; i < pz; i += 32) {
-    gs[(i / nz) * gz + i % nz] = grow[i];
-  }
-  for (int i = lane; i < 4 * ka; i += 32) {
-    acc_r[i] = 0.0f;
-  }
-  const size_t row = static_cast<size_t>(atom) * ka;
-  const int nv = stage_lanes<true>(dist, diff, species, row, lane, p, lr, lx, ly, lz, lfc,
-                                   ldfc, lsp, map);
-  __syncwarp();
-
-  const int num = nv * (nv - 1) / 2;
-  const float zeta_m1 = p.zeta - 1.0f;
-  for (int q = lane; q < num; q += 32) {
-    int j, k;
-    pair_of(q, nv, j, k);
-    const float rj = lr[j];
-    const float rk = lr[k];
-    const float xj = lx[j], yj = ly[j], zj = lz[j];
-    const float xk = lx[k], yk = ly[k], zk = lz[k];
-    const float rr = rj * rk;
-    const float den = fmaxf(rr, 1e-10f);
-    const float c = 0.95f * (xj * xk + yj * yk + zj * zk) / den;
-    const float s2 = 1.0f - c * c;
-    const float sin_t = sqrtf(fmaxf(s2, 1e-20f));
-    const float dsin = s2 > 1e-20f ? -c / sin_t : 0.0f;
-    const float mean = 0.5f * (rj + rk);
-    const float fcj = lfc[j];
-    const float fck = lfc[k];
-    const float f = fcj * fck;
-
-    float ang[kSe], dang[kSe];
-#pragma unroll
-    for (int b = 0; b < kSe; ++b) {
-      ang[b] = 0.0f;
-      dang[b] = 0.0f;
-      if (b < se) {
-        const float cs = p.cossec[b];
-        const float sn = p.sinsec[b];
-        const float base = 0.5f * (1.0f + c * cs + sin_t * sn);
-        const float pw = zeta_m1 > 0.0f ? pow_pos(base, zeta_m1) : 1.0f;
-        ang[b] = 2.0f * base * pw;
-        dang[b] = p.zeta * pw * (cs + sn * dsin);
-      }
+  const int warps = gridDim.x * kWarpsPerBlock;
+  for (int atom = blockIdx.x * kWarpsPerBlock + warp; atom < p.n; atom += warps) {
+    const size_t row = static_cast<size_t>(atom) * ka;
+    const int nv = stage_bwd_lanes(dist, diff, species, row, lane, p, la, lb, map);
+    __syncwarp();
+    copy_slot_rows(g + static_cast<long long>(atom) * g_stride, lane, nv, lb, p.num_species, nz,
+                   gs);
+    for (int i = lane; i < 4 * ka; i += 32) {
+      acc[i] = 0.0f;
     }
-    const float* gp = gs + triu_slot(lsp[j], lsp[k], p.num_species) * gz;
-    float s_f = 0.0f, s_m = 0.0f, s_c = 0.0f;
+    cp_async_wait_all();
+    __syncwarp();
+
+    // pair q = (d - 1) nv + j of the rounds, advanced by 32 a step without a
+    // division
+    const int num = nv * (nv - 1) / 2;
+    if (lane < num) {
+      const int step_d = 32 / nv, step_j = 32 % nv;
+      int d = lane / nv + 1, j = lane % nv;
+      for (int q = lane; q < num; q += 32) {
+        int k = j + d;
+        k -= k >= nv ? nv : 0;
+        float v[8];
+        pair_grads<SH, SE>(j, k, la, lb, gs, gz, p, v);
 #pragma unroll
-    for (int a = 0; a < kSh; ++a) {
-      if (a < sh) {
-        const float dr = mean - p.shift[a];
-        const float ra = expf(-p.eta * dr * dr);
-        const float dra = -2.0f * p.eta * dr * ra;
-        float t1 = 0.0f, t2 = 0.0f;
-#pragma unroll
-        for (int b = 0; b < kSe; ++b) {
-          if (b < se) {
-            const float gv = gp[a * se + b];
-            t1 += gv * ang[b];
-            t2 += gv * dang[b];
-          }
+        for (int e = 0; e < 4; ++e) {
+          atomicAdd(acc + e * ka + j, v[e]);
+          atomicAdd(acc + e * ka + k, v[4 + e]);
         }
-        s_f += ra * t1;
-        s_m += dra * t1;
-        s_c += ra * t2;
+        j += step_j;
+        d += step_d;
+        if (j >= nv) {
+          j -= nv;
+          ++d;
+        }
       }
     }
-    const float dl_dm = f * s_m;
-    const float dl_dc = f * s_c;
-    const float dl_df = s_f;
-    const bool through_r = rr >= 1e-10f;
-    const float g_rj =
-        0.5f * dl_dm + dl_df * ldfc[j] * fck + (through_r ? dl_dc * (-c / rj) : 0.0f);
-    const float g_rk =
-        0.5f * dl_dm + dl_df * fcj * ldfc[k] + (through_r ? dl_dc * (-c / rk) : 0.0f);
-    const float coef = 0.95f * dl_dc / den;
-    atomicAdd(acc_r + j, g_rj);
-    atomicAdd(acc_d + j, coef * xk);
-    atomicAdd(acc_d + ka + j, coef * yk);
-    atomicAdd(acc_d + 2 * ka + j, coef * zk);
-    atomicAdd(acc_r + k, g_rk);
-    atomicAdd(acc_d + k, coef * xj);
-    atomicAdd(acc_d + ka + k, coef * yj);
-    atomicAdd(acc_d + 2 * ka + k, coef * zj);
-  }
-  __syncwarp();
+    __syncwarp();
 
-  for (int l = lane; l < ka; l += 32) {
-    const int c = map[l];
-    gdist[row + l] = c >= 0 ? acc_r[c] : 0.0f;
-  }
-  for (int i = lane; i < 3 * ka; i += 32) {
-    const int c = map[i / 3];
-    gdiff[row * 3 + i] = c >= 0 ? acc_d[(i % 3) * ka + c] : 0.0f;
+    for (int l = lane; l < ka; l += 32) {
+      const int c = map[l];
+      gdist[row + l] = c >= 0 ? acc[c] : 0.0f;
+    }
+    for (int i = lane; i < 3 * ka; i += 32) {
+      const int c = map[i / 3];
+      gdiff[row * 3 + i] = c >= 0 ? acc[(1 + i % 3) * ka + c] : 0.0f;
+    }
+    __syncwarp();  // every lane is done with this atom's shared memory
   }
 }
 
@@ -529,8 +662,8 @@ cudaError_t make_params(AngularParams& p, int n, int ka, int num_species, const 
                         int num_shifts, const float* cos_sections, const float* sin_sections,
                         int num_sections, float eta, float zeta, float cutoff,
                         float pi_over_cutoff, int cutoff_kind) {
-  if (n <= 0 || ka <= 0 || num_species <= 0 || num_shifts <= 0 || num_shifts > kMaxShifts ||
-      num_sections <= 0 || num_sections > kMaxSections) {
+  if (n <= 0 || ka <= 0 || num_species <= 0 || num_species > 32 || num_shifts <= 0 ||
+      num_shifts > kMaxShifts || num_sections <= 0 || num_sections > kMaxSections) {
     return cudaErrorInvalidValue;
   }
   for (int a = 0; a < kMaxShifts; ++a) {
@@ -564,6 +697,33 @@ cudaError_t allow_shared(const void* kernel, size_t smem) {
     return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                 static_cast<int>(smem));
   }
+  return cudaSuccess;
+}
+
+// K3b's persistent grid: as many blocks as the card holds at once (from
+// the kernel's registers and shared memory), no more than the atoms need;
+// raises the kernel's shared memory limit on the way
+cudaError_t bwd_shape(BwdKernel kernel, const AngularParams& p, int device, int& blocks,
+                      size_t& smem) {
+  smem = kWarpsPerBlock * sizeof(float) *
+         bwd_warp_floats(p.num_pairs, p.num_shifts * p.num_sections, p.ka);
+  cudaError_t err = allow_shared(reinterpret_cast<const void*>(kernel), smem);
+  if (err != cudaSuccess) {
+    return err;
+  }
+  int per_sm = 0, sms = 0;
+  if ((err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kThreads, smem)) !=
+      cudaSuccess) {
+    return err;
+  }
+  if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device)) !=
+      cudaSuccess) {
+    return err;
+  }
+  if (per_sm == 0) {
+    return cudaErrorInvalidConfiguration;  // not one block fits an SM
+  }
+  blocks = std::min((p.n + kWarpsPerBlock - 1) / kWarpsPerBlock, per_sm * sms);
   return cudaSuccess;
 }
 
@@ -624,16 +784,36 @@ int angular_aev_bwd_launch(const float* g, long long g_row_stride, const float* 
   if ((err = cudaSetDevice(device)) != cudaSuccess) {
     return static_cast<int>(err);
   }
-  const int nz = num_shifts * num_sections;
-  const size_t smem = kWarpsPerBlock * sizeof(float) * bwd_warp_floats(p.num_pairs, nz, ka);
+  int blocks = 0;
+  size_t smem = 0;
   const BwdKernel kernel = pick_bwd(num_shifts, num_sections);
-  if ((err = allow_shared(reinterpret_cast<const void*>(kernel), smem)) != cudaSuccess) {
+  if ((err = bwd_shape(kernel, p, device, blocks, smem)) != cudaSuccess) {
     return static_cast<int>(err);
   }
-  const int blocks = (n + kWarpsPerBlock - 1) / kWarpsPerBlock;
   kernel<<<blocks, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
       g, g_row_stride, dist, diff, species, gdist, gdiff, p);
   return static_cast<int>(cudaGetLastError());
+}
+
+// K3b's persistent grid for these widths on `device`, without launching:
+// blocks, threads a block and shared memory a block
+int angular_aev_bwd_shape(int n, int ka, int num_species, int num_shifts, int num_sections,
+                          int device, int* blocks, int* threads, long long* smem_bytes) {
+  AngularParams p;
+  const float zeros[kMaxShifts > kMaxSections ? kMaxShifts : kMaxSections] = {};
+  cudaError_t err = make_params(p, n, ka, num_species, zeros, num_shifts, zeros, zeros,
+                                num_sections, 0.0f, 1.0f, 1.0f, 1.0f, 0);
+  if (err != cudaSuccess) {
+    return static_cast<int>(err);
+  }
+  if ((err = cudaSetDevice(device)) != cudaSuccess) {
+    return static_cast<int>(err);
+  }
+  size_t smem = 0;
+  err = bwd_shape(pick_bwd(num_shifts, num_sections), p, device, *blocks, smem);
+  *threads = kThreads;
+  *smem_bytes = static_cast<long long>(smem);
+  return static_cast<int>(err);
 }
 
 const char* angular_aev_error_string(int code) {

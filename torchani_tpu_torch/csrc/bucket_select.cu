@@ -26,14 +26,29 @@
 // (G = 343, C = 64, K = 104) 1.04 M lanes are occupied; each kernel moves
 // their keys (4 bytes a lane), one (lanes, 3) f32 table (12 bytes a lane)
 // and the (G, 27, C, 3) candidate table (7.1 MB): 23.8 MB, 7 us at
-// 3.35 TB/s.  Its design: one block of 256 threads per bucket; the
-// bucket's 27 * C * 3 candidate tile lives in shared memory (20.7 KB at
-// C = 64, 83 KB at C = 256: dynamic shared memory, raised above 48 KB with
-// cudaFuncSetAttribute), so each candidate is read from device memory
-// once, coalesced, however many lanes select it; threads stride over the
-// flat (lane, component) elements of the bucket's occupied lanes, so the
-// (lanes, 3) table is written coalesced.  It has no sums and is
-// deterministic.
+// 3.35 TB/s; at the ANI-2dr tables (G = 125, C = 96, K = 336, 3.36 M
+// lanes) 57.7 MB, 17 us.  What held its first design (one block of 256
+// threads a bucket) was latency, as for K2: timed apart on an H100
+// (ablated copies, torch.profiler), its tile load took 2.5 us and its selection 56.6 of
+// its 60 us at the ANI-2dr tables, 125 blocks of 8 warps each walking ~315
+// elements a thread through a dependent key -> shared -> store chain.
+// Reading the candidates from L2 in place of a shared tile was slower.
+// Its design:
+// - a bucket's occupied lanes are split over S independent blocks (grid
+//   S * G; no cluster: a selection has no sum to reduce), each of which
+//   loads the bucket's 27 * C * 3 candidate tile into shared memory (20.7
+//   KB at C = 64, 31 KB at C = 96, 83 KB at C = 256: dynamic shared
+//   memory, raised above 48 KB with cudaFuncSetAttribute), 16 bytes a load
+//   where C is a multiple of 4;
+// - the wrapper picks the block size and S by K2's rule (`_fwd_split`):
+//   1,024 threads, or 512 where only that puts every bucket's block on the
+//   card at once, and the largest S that keeps one wave: S = 2 of 1,024 at
+//   the ANI-2dr tables, S = 1 of 512 at the ANI-2x ones;
+// - threads stride over the flat (lane, component) elements of their
+//   lanes, so the (lanes, 3) table is written coalesced.  Writing 4 lanes a
+//   thread as three 16-byte stores was slower (a warp's store then spans 48
+//   sectors a third written), and so was loading 2 to 8 keys ahead.
+// It has no sums and is deterministic.
 //
 // K2, the backward, replaces `_bwd_kernel`/`_bwd_chunk`
 // (torchani_tpu/bucket_refresh.py:406-470).  Its bound is bytes too (the
@@ -84,19 +99,24 @@
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
+#include <cstdint>
+
 namespace cg = cooperative_groups;
 
 namespace {
 
-constexpr int kThreads = 256;
 constexpr int kSections = 27;
 constexpr int kSentinelKey = kSections << 8;
-// K2: threads a block (this or half of it, as the wrapper's BWD_THREADS
+// K2: threads a block (this or half of it, as the wrapper's SPLIT_THREADS
 // says), elements each thread loads before its atomics, and the largest
 // cluster (the portable maximum)
 constexpr int kBwdThreads = 1024;
 constexpr int kBwdUnroll = 4;
 constexpr int kMaxSplit = 8;
+// K1: threads a block (this or half of it, as the wrapper's SPLIT_THREADS
+// says) and the largest split
+constexpr int kFwdThreads = 1024;
+constexpr int kMaxFwdSplit = 64;
 
 __device__ __forceinline__ int lane_limit(const int* nlanes, int g, int r) {
   if (nlanes == nullptr) {
@@ -116,33 +136,57 @@ __device__ __forceinline__ int tile_slot(int key, int c) {
   return sec * c + rank;
 }
 
-__global__ void __launch_bounds__(kThreads)
+// Copies a bucket's tile of `len` floats into shared memory, 16 bytes a load
+// where `vec` (the tile starts on 16 bytes and len is a multiple of 4)
+template <int kBlock>
+__device__ __forceinline__ void load_tile(const float* __restrict__ src, int len, int vec,
+                                          float* tile) {
+  if (vec) {
+    const float4* src4 = reinterpret_cast<const float4*>(src);
+    float4* tile4 = reinterpret_cast<float4*>(tile);
+#pragma unroll 4
+    for (int i = threadIdx.x; i < len / 4; i += kBlock) {
+      tile4[i] = __ldg(src4 + i);
+    }
+  } else {
+#pragma unroll 4
+    for (int i = threadIdx.x; i < len; i += kBlock) {
+      tile[i] = __ldg(src + i);
+    }
+  }
+}
+
+// K1 over S blocks per bucket of kBlock threads.  Block `part` of bucket g
+// takes lanes [first, last) of its L = nlanes[g] occupied lanes; it loads
+// the bucket's tile into shared memory (16 bytes a load where `vec` says
+// that the tile starts on 16 bytes), and its threads walk the flat
+// (lane, component) elements of those lanes, so a warp's store covers 32
+// consecutive floats.
+template <int kBlock>
+__global__ void __launch_bounds__(kBlock)
 bucket_select_fwd_kernel(const float* __restrict__ cand,   // (G, 27, C, 3)
                          const int* __restrict__ keys,     // (G, R)
                          const int* __restrict__ nlanes,   // (G,) or null
                          float* __restrict__ out,          // (G, R, 3)
-                         int c, int r) {
+                         int c, int r, int split, int vec) {
   extern __shared__ float tile[];
-  const int g = blockIdx.x;
+  const int g = blockIdx.x / split;
+  const int part = blockIdx.x - g * split;
   const int limit = lane_limit(nlanes, g, r);
-  if (limit == 0) {
-    return;  // block-uniform: an empty bucket writes nothing
+  const int first = static_cast<int>(static_cast<long long>(part) * limit / split);
+  const int last = static_cast<int>(static_cast<long long>(part + 1) * limit / split);
+  if (first >= last) {
+    return;  // block-uniform: no lanes here, nothing to write
   }
-  const int tile_len = kSections * c * 3;
-  const float* src = cand + static_cast<size_t>(g) * tile_len;
-  for (int i = threadIdx.x; i < tile_len; i += kThreads) {
-    tile[i] = src[i];
-  }
+  load_tile<kBlock>(cand + static_cast<size_t>(g) * kSections * c * 3, kSections * c * 3, vec,
+                    tile);
   __syncthreads();
 
   const int* bucket_keys = keys + static_cast<size_t>(g) * r;
   float* dst = out + static_cast<size_t>(g) * r * 3;
-  const int elems = limit * 3;
-  for (int e = threadIdx.x; e < elems; e += kThreads) {
-    const int lane = e / 3;
-    const int d = e - lane * 3;
-    const int slot = tile_slot(bucket_keys[lane], c);
-    dst[e] = slot >= 0 ? tile[slot * 3 + d] : 0.0f;
+  for (int e = first * 3 + threadIdx.x; e < last * 3; e += kBlock) {
+    const int slot = tile_slot(__ldg(bucket_keys + e / 3), c);
+    dst[e] = slot >= 0 ? tile[slot * 3 + e % 3] : 0.0f;
   }
 }
 
@@ -208,10 +252,11 @@ bucket_select_bwd_kernel(const float* __restrict__ g_out,  // (G, R, 3)
   cluster.sync();  // no block leaves while another reads its tile
 }
 
-template <typename Kernel>
-int launch(Kernel kernel, const float* src, const int* keys, const int* nlanes,
-           float* dst, int g, int c, int r, int device, void* stream) {
-  if (g <= 0 || c <= 0 || c > 256 || r < 0) {
+// K1 over `split` blocks of `threads` per bucket
+int launch_fwd(const float* cand, const int* keys, const int* nlanes, float* out, int g,
+               int c, int r, int split, int threads, int device, void* stream) {
+  if (g <= 0 || c <= 0 || c > 256 || r < 0 || split < 1 || split > kMaxFwdSplit ||
+      (threads != kFwdThreads && threads != kFwdThreads / 2)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   cudaError_t err = cudaSetDevice(device);
@@ -219,6 +264,9 @@ int launch(Kernel kernel, const float* src, const int* keys, const int* nlanes,
     return static_cast<int>(err);
   }
   const size_t smem = static_cast<size_t>(kSections) * c * 3 * sizeof(float);
+  void (*kernel)(const float*, const int*, const int*, float*, int, int, int, int) =
+      threads == kFwdThreads ? bucket_select_fwd_kernel<kFwdThreads>
+                             : bucket_select_fwd_kernel<kFwdThreads / 2>;
   if (smem > 48 * 1024) {
     err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                static_cast<int>(smem));
@@ -226,8 +274,9 @@ int launch(Kernel kernel, const float* src, const int* keys, const int* nlanes,
       return static_cast<int>(err);
     }
   }
-  kernel<<<g, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(src, keys, nlanes,
-                                                                  dst, c, r);
+  const int vec = c % 4 == 0 && reinterpret_cast<uintptr_t>(cand) % 16 == 0;
+  kernel<<<g * split, threads, smem, static_cast<cudaStream_t>(stream)>>>(cand, keys, nlanes,
+                                                                          out, c, r, split, vec);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -287,12 +336,14 @@ extern "C" {
 // Both launch on `stream` (a cudaStream_t) of `device` and return the
 // cudaError_t of the launch (0 on success).  All arrays are contiguous
 // device arrays; `nlanes` may be null (every lane is then processed).
-// The backward splits each bucket over a cluster of `split` blocks (1, 2,
-// 4 or 8) of `threads` (1024 or 512).
+// The forward splits each bucket's lanes over `split` independent blocks
+// (1 to 64) of `threads` (1024 or 512); the backward over a cluster of
+// `split` blocks (1, 2, 4 or 8) of `threads` (1024 or 512).
 
 int bucket_select_fwd_launch(const float* cand, const int* keys, const int* nlanes,
-                             float* out, int g, int c, int r, int device, void* stream) {
-  return launch(bucket_select_fwd_kernel, cand, keys, nlanes, out, g, c, r, device, stream);
+                             float* out, int g, int c, int r, int split, int threads,
+                             int device, void* stream) {
+  return launch_fwd(cand, keys, nlanes, out, g, c, r, split, threads, device, stream);
 }
 
 int bucket_select_bwd_launch(const float* g_out, const int* keys, const int* nlanes,

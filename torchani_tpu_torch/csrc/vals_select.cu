@@ -89,7 +89,7 @@ constexpr int kSentinelKey = kSections << 8;
 constexpr size_t kMaxSharedBytes = 227 * 1024;
 // K4b: elements each thread loads before its atomics, and the largest
 // cluster (the portable maximum); it launches kThreads or kThreads / 2 a
-// block, as the wrapper's BWD_THREADS says
+// block, as the wrapper's SPLIT_THREADS says
 constexpr int kBwdUnroll = 4;
 constexpr int kMaxSplit = 8;
 
