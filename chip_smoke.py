@@ -26,9 +26,11 @@ kernels' times.  On every main path K3 and K3b launch once per evaluation
 and the plain angular grid is never built.  Then the ANI-2dr paths
 (networks, xTB repulsion and D3 dispersion): K4f and K4b (the per-lane
 selection of runtime values, at P = 1 and P = 5 channels; K4b's launch
-shape printed as K2's), K5f and K5b (the atom-packed refresh) and K1 and K2
-against their plain versions at the ANI-2dr box's own tables, with their
-times, bounds, plain versions and library calls; ANI-2dr energies and forces on the same
+shape printed as K2's), K5f and K5b (the atom-packed refresh; their split S,
+blocks, threads and shared memory printed at the box's tables and at
+C = 256, where hand-made tables check them too) and K1 and K2 against their
+plain versions at the ANI-2dr box's own tables, with their times, bounds,
+plain versions and library calls; ANI-2dr energies and forces on the same
 box; `MolecularDynamics` under ANI-2dr three ways (its defaults, the frozen
 pair window, the atom-packed refresh), each with `init` at 300 K, NVE steps,
 launch counts, energy drift, MD forces against single-point forces, a forced
@@ -44,9 +46,9 @@ outer step 4 launches of K3 and K3b and 4 of K1 and K2 on the fast lane, 1 of
 K1, K2, K4f and K4b (P = 1, the frozen D3 window) on the slow lane, every=1
 against velocity Verlet, the card against the CPU; and a model written in
 the published key scheme (`convert.save_state_dict`, `torch.save`) into a
-temporary data directory and loaded back with ``pretrained=True``.  It
-prints K1's and K3b's times beside their earlier designs' as PERF.md
-records them, a ``kernels`` JSON line (all eight kernels) and, last, ``{"ok": true,
+temporary data directory and loaded back with ``pretrained=True``.  Every
+number it prints was measured or computed in the run.  It prints a
+``kernels`` JSON line (all eight kernels) and, last, ``{"ok": true,
 "device": {...}}``.  Any failed check raises, and the script exits non-zero
 without that last line; so does a machine with no CUDA device, or a
 directory without the package.  A little over a minute of command time on
@@ -112,12 +114,6 @@ MTS_COORD_ATOL, MTS_COORD_RTOL, MTS_E_TOL = 2e-6, 2e-5, 1e-5
 #: a model saved in the published key scheme and loaded back: the same
 #: weights on the same card
 PRETRAINED_FORCE_ATOL = 1e-6
-#: the earlier K1 and K3b designs' device times on an H100 80GB HBM3 at
-#: 700 W, as PERF.md section 6 records them, printed beside this run's
-EARLIER_MS = {
-    "K1 ANI-2x": 0.0086, "K1 ANI-2dr": 0.0601,
-    "K3b ANI-2x": 0.0632, "K3b ANI-1x": 0.0604,
-}
 
 
 def check(ok: bool, what: str) -> None:
@@ -142,20 +138,25 @@ def cuda_ms(fn, reps: int, warmup: int = 2) -> float:
 
 def kernels_ms(fn, reps: int) -> float:
     """Device time of the kernels that ``fn()`` launches, per call, summed
-    by ``torch.profiler`` (no idle time of the stream in it)."""
+    by ``torch.profiler`` (no idle time of the stream in it).  A window in
+    which the profiler recorded no device time at all is taken again, up to
+    three times; then the measurement fails."""
     fn()
     torch.cuda.synchronize()
     activities = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=activities) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    device_us = sum(
-        e.self_device_time_total
-        for e in prof.key_averages()
-        if e.device_type == torch.autograd.DeviceType.CUDA
-    )
-    return device_us / reps / 1e3
+    for _ in range(3):
+        with torch.profiler.profile(activities=activities) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        device_us = sum(
+            e.self_device_time_total
+            for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA
+        )
+        if device_us > 0:
+            return device_us / reps / 1e3
+    raise RuntimeError("torch.profiler recorded no device time in three windows")
 
 
 def kernel_errors(out: torch.Tensor, ref: torch.Tensor, what: str) -> float:
@@ -244,11 +245,14 @@ def vals_bound_ms(lanes: int, g: int, c: int, p: int, adds: bool) -> tuple:
     return max(by_bytes, by_ops), "operations" if by_ops > by_bytes else "bytes", nbytes
 
 
-def packed_bound_ms(lanes: int, g: int, c: int, tiles: int, adds: bool) -> tuple:
-    """Least time for K5f or K5b: every lane of every row's keys (4 bytes)
-    and positions or cotangents (12 bytes: all of them are written or read),
-    the (G, 27, C, 3) candidate table and the tile table, each moved once."""
-    nbytes = 16 * lanes + g * 27 * c * 12 + 4 * tiles
+def packed_bound_ms(lanes: int, value_lanes: int, g: int, c: int, tiles: int,
+                    adds: bool) -> tuple:
+    """Least time for K5f or K5b: every lane of every row's keys (4 bytes),
+    the positions or cotangents (12 bytes) of ``value_lanes`` of them (K5f
+    writes every lane's; K5b needs only the cotangents of the lanes that hold
+    a neighbor), the (G, 27, C, 3) candidate table and the tile table, each
+    moved once."""
+    nbytes = 4 * lanes + 12 * value_lanes + g * 27 * c * 12 + 4 * tiles
     by_bytes = nbytes / PEAK_HBM_BYTES * 1e3
     by_ops = (3 * lanes if adds else 0) / PEAK_F32_FLOPS * 1e3
     return max(by_bytes, by_ops), "operations" if by_ops > by_bytes else "bytes", nbytes
@@ -292,6 +296,20 @@ def k3b_launch_shape(what: str, lanes, kw: dict) -> dict:
     print(f"{what} launch: N={n}, Ka={ka}: {shape['blocks']} blocks of {shape['threads']} "
           f"threads, {shape['smem_bytes']} bytes of shared memory a block, at most "
           f"{shape['atoms_per_warp']} atoms a warp")
+    return shape
+
+
+def k5_launch_shape(what: str, g: int, c: int, tiles: int) -> dict:
+    """Print and return how K5f and K5b launch at G buckets of C slots that
+    own ``tiles`` row tiles each: the split S (independent blocks in K5f, a
+    cluster in K5b), blocks, threads a block, each kernel's shared memory."""
+    from torchani_tpu_torch.bucket_refresh import packed_launch_shape
+
+    shape = packed_launch_shape(g, c, tiles, torch.device("cuda"))
+    print(f"{what} launch: G={g}, C={c}, {tiles} tiles a bucket: S={shape['split']} blocks a "
+          f"bucket, {shape['blocks']} blocks of {shape['threads']} threads, "
+          f"{shape['fwd_smem_bytes']} (K5f) and {shape['bwd_smem_bytes']} (K5b) bytes of shared "
+          f"memory a block")
     return shape
 
 
@@ -736,8 +754,7 @@ def main() -> int:
     recompute_peak = peak_gib(recompute)
     k3b_bound = angular_bound_ms(pairs, valid_lanes, sh, se,
                                  k3b_bytes(k3_in, k3_species, k3_kw["num_species"], sh * se), True)
-    print(f"{card}: K3b alone: {k3b_ms:.4f} ms (the earlier design: "
-          f"{EARLIER_MS['K3b ANI-2x']:.4f} ms, PERF.md) ({k3b_ev:.4f} between events); plain version "
+    print(f"{card}: K3b alone: {k3b_ms:.4f} ms ({k3b_ev:.4f} between events); plain version "
           f"{k3b_plain_ms:.3f} ms "
           f"(blocks of {k3_block} atoms); the recompute it replaced {recompute_ms:.3f} ms, "
           f"peak {recompute_peak:.3f} GiB; bound {k3b_bound[0]:.4f} ms by {k3b_bound[1]} "
@@ -796,8 +813,7 @@ def main() -> int:
     k2_lib_ms, k2_lib_ev = both_ms(lambda: d_flat.zero_().scatter_add_(1, index3, g_rows))
     k1_bound, k1_by, k1_bytes = select_bound_ms(lanes, g_, c_, adds=False)
     k2_bound, k2_by, k2_bytes = select_bound_ms(lanes, g_, c_, adds=True)
-    print(f"{card}: K1 alone: {k1_ms:.4f} ms (the earlier design: {EARLIER_MS['K1 ANI-2x']:.4f} "
-          f"ms, PERF.md) ({k1_ev:.4f} between events); plain version "
+    print(f"{card}: K1 alone: {k1_ms:.4f} ms ({k1_ev:.4f} between events); plain version "
           f"{k1_plain_ms:.4f} ms ({k1_plain_ev:.4f}); torch.gather {k1_lib_ms:.4f} ms "
           f"({k1_lib_ev:.4f}); bound {k1_bound:.4f} ms by {k1_by} ({k1_bytes / 1e6:.1f} MB)")
     print(f"{card}: K2 alone: {k2_ms:.4f} ms ({k2_ev:.4f} between events); plain version "
@@ -919,9 +935,13 @@ def main() -> int:
           "the packed run packs its tables without overflow")
     _, pg, pc, pns, ps_cap, pkl = _packed_statics(pt)
     planes = pns * ps_cap * pkl
+    pindex = _flat_rows_index(pt.keys_flat, pt.tile_bucket, pg, pc).reshape(-1)
+    pvalid = int((pindex < pg * 27 * pc).sum())
     print(f"ANI-2dr packed tables: {pns} spans of {pg // pns} bucket(s), S_cap={ps_cap} rows, "
           f"KL={pkl} lanes: {pns * ps_cap} rows for {num_atoms} atoms ({planes} lanes against the "
-          f"slot layout's {dlanes} occupied)")
+          f"slot layout's {dlanes} occupied; {pvalid} of them hold a neighbor)")
+    k5_shape = k5_launch_shape("K5f and K5b at the ANI-2dr packed tables", pg, pc,
+                               max(1, ps_cap // 8 * pns // pg))
     pcanon = dr_md["packed"]._to_internal(pprobe.coords) - pt.wrap_offset
     pcand = _cand_table(pcanon, pt.atom_of_slot, pt.wrapshift, dgrid, pc)
     pout = packed_select_fwd(pcand, pt.keys_flat, pt.tile_bucket)
@@ -935,7 +955,30 @@ def main() -> int:
     pbref = packed_select_bwd_reference(pgout, pt.keys_flat, pt.tile_bucket, pc, pg)
     k5b_err = float((pback - pbref).abs().max())
     check(within(pback, pbref, SUM_TOL), "K5b within tolerance")
-    pindex = _flat_rows_index(pt.keys_flat, pt.tile_bucket, pg, pc).reshape(-1)
+    # C = 256 (an 83 KB candidate tile), hand-made tables: a bucket owning
+    # separate runs of tiles, one owning a single tile, a span of sentinels
+    # only
+    rng = np.random.RandomState(9)
+    hg, hc, hns, htiles, hkl = 6, 256, 3, 4, 128
+    hlanes = htiles * 8 * hkl
+    hsec = np.where(rng.rand(hns, hlanes) < 0.8, rng.randint(0, 27, (hns, hlanes)), 27)
+    hkeys_np = (hsec << 8) | np.where(hsec < 27, rng.randint(0, hc, (hns, hlanes)), 0)
+    hkeys_np[1] = 27 << 8
+    hkeys = torch.as_tensor(hkeys_np.astype(np.int32), device=dev).reshape(hns, 1, hlanes)
+    htb = torch.tensor([[1, 0, 1, 1], [0, 0, 1, 1], [0, 1, 1, 0]], dtype=torch.int32, device=dev)
+    hcand = torch.as_tensor(rng.randn(hg, 27, hc, 3).astype(np.float32), device=dev)
+    hgout = torch.as_tensor(rng.randn(hns, hlanes, 3).astype(np.float32), device=dev)
+    k5_launch_shape("K5f and K5b on hand-made tables", hg, hc, htiles * hns // hg)
+    h5f = packed_select_fwd(hcand, hkeys, htb)
+    h5b = packed_select_bwd(hgout, hkeys, htb, hc, hg)
+    torch.cuda.synchronize()
+    h5f_err = float((h5f - packed_select_reference(hcand, hkeys, htb)).abs().max())
+    h5b_ref = packed_select_bwd_reference(hgout, hkeys, htb, hc, hg)
+    print(f"K5f, K5b hand-made tables (C=256) vs plain: max abs err {h5f_err:.3e}, "
+          f"{float((h5b - h5b_ref).abs().max()):.3e}")
+    check(h5f_err == 0.0, "K5f exact at C = 256")
+    check(within(h5b, h5b_ref, SUM_TOL), "K5b within tolerance at C = 256")
+    check(bool((h5b[2:4] == 0).all()), "K5b: a span of sentinels only gives zero tiles")
     pflat = torch.cat([pcand.reshape(-1, 3), pcand.new_zeros((1, 3))])
     pacc = torch.empty_like(pflat)
     k5 = dict(
@@ -950,14 +993,16 @@ def main() -> int:
             reps=10),
         b_lib=kernels_ms(lambda: pacc.zero_().index_add_(0, pindex, pgout.reshape(-1, 3)), reps=20),
     )
-    k5fb = packed_bound_ms(planes, pg, pc, pt.tile_bucket.numel(), adds=False)
-    k5bb = packed_bound_ms(planes, pg, pc, pt.tile_bucket.numel(), adds=True)
+    k5fb = packed_bound_ms(planes, planes, pg, pc, pt.tile_bucket.numel(), adds=False)
+    k5bb = packed_bound_ms(planes, pvalid, pg, pc, pt.tile_bucket.numel(), adds=True)
+    k5bb_all = packed_bound_ms(planes, planes, pg, pc, pt.tile_bucket.numel(), adds=True)
     print(f"{card}: K5f: max abs err {k5f_err:.3e}; {k5['f']:.4f} ms; plain {k5['f_plain']:.4f} "
           f"ms; index_select {k5['f_lib']:.4f} ms; bound {k5fb[0]:.4f} ms by {k5fb[1]} "
           f"({k5fb[2] / 1e6:.1f} MB)")
     print(f"{card}: K5b: max abs err {k5b_err:.3e}; {k5['b']:.4f} ms; plain {k5['b_plain']:.4f} "
           f"ms; zero_ + index_add_ {k5['b_lib']:.4f} ms; bound {k5bb[0]:.4f} ms by {k5bb[1]} "
-          f"({k5bb[2] / 1e6:.1f} MB)")
+          f"({k5bb[2] / 1e6:.1f} MB: the cotangents of the lanes that hold a neighbor; "
+          f"{k5bb_all[0]:.4f} ms, {k5bb_all[2] / 1e6:.1f} MB, with every lane's)")
     # K1 and K2 at the same box, for the slot layout against the packed one;
     # K2 there against its plain version, with its own bound
     scanon = dr_md["default"]._to_internal(probe.coords) - dt.wrap_offset
@@ -990,14 +1035,14 @@ def main() -> int:
     )
     k1_dr_bound = select_bound_ms(dlanes, dg, dc, adds=False)
     k2_dr_bound = select_bound_ms(dlanes, dg, dc, adds=True)
-    print(f"{card}: K1 at the ANI-2dr tables: max abs err {k1_dr_err:.3e}; {k1_dr:.4f} ms (the "
-          f"earlier design: {EARLIER_MS['K1 ANI-2dr']:.4f} ms, PERF.md); plain "
+    print(f"{card}: K1 at the ANI-2dr tables: max abs err {k1_dr_err:.3e}; {k1_dr:.4f} ms; plain "
           f"{k1_dr_all['plain']:.4f} ms; torch.gather {k1_dr_all['lib']:.4f} ms; bound "
           f"{k1_dr_bound[0]:.4f} ms by {k1_dr_bound[1]} ({k1_dr_bound[2] / 1e6:.1f} MB)")
     print(f"{card}: K2 at the ANI-2dr tables: max abs err {k2_dr_err:.3e}; {k2_dr['ms']:.4f} ms; "
           f"plain {k2_dr['plain']:.4f} ms; zero_ + scatter_add_ {k2_dr['lib']:.4f} ms; bound "
           f"{k2_dr_bound[0]:.4f} ms by {k2_dr_bound[1]} ({k2_dr_bound[2] / 1e6:.1f} MB)")
     del pcand, pout, pref, pgout, pback, pbref, pindex, pflat, pacc, scand, sgrows, wcand, wg
+    del hkeys, htb, hcand, hgout, h5f, h5b, h5b_ref
     del k2_dr_out, k2_dr_ref, sindex3, sd_flat, k1_dr_out, s_flat
 
     # ---- 12. ANI-2dr energies and forces on the water box ----
@@ -1174,10 +1219,8 @@ def main() -> int:
                                True),
     )
     for name, k in (("K3", x1_k3), ("K3b", x1_k3b)):
-        earlier = (f" (the earlier design: {EARLIER_MS['K3b ANI-1x']:.4f} ms, PERF.md)"
-                   if name == "K3b" else "")
         print(f"{card}: {name} at the ANI-1x tables (N={x1_in[0].shape[0]}, "
-              f"Ka={x1_in[0].shape[1]}, {x1_sh} x {x1_se}): {k['ms']:.4f} ms{earlier}; plain "
+              f"Ka={x1_in[0].shape[1]}, {x1_sh} x {x1_se}): {k['ms']:.4f} ms; plain "
               f"{k['plain']:.3f} ms; bound "
               f"{k['bound'][0]:.4f} ms by {k['bound'][1]}")
     del x1_nbrs, x1_angular, x1_in, x1_out, x1_g, x1_species, x1_lanes
@@ -1434,10 +1477,13 @@ def main() -> int:
                  k4[5]["b_err"], k4[5]["b"], k4[5]["b_plain"], k4[5]["bb"][0], k4[5]["bb"][1],
                  k4[5]["b_lib"]),
          "split": k4[5]["split"], "threads": k4[5]["threads"]},
-        entry("packed_select_fwd", packed_cu, "torchani_tpu/bucket_refresh_packed.py:290",
-              k5f_err, k5["f"], k5["f_plain"], k5fb[0], k5fb[1], k5["f_lib"]),
-        entry("packed_select_bwd", packed_cu, "torchani_tpu/bucket_refresh_packed.py:316",
-              k5b_err, k5["b"], k5["b_plain"], k5bb[0], k5bb[1], k5["b_lib"]),
+        {**entry("packed_select_fwd", packed_cu, "torchani_tpu/bucket_refresh_packed.py:290",
+                 k5f_err, k5["f"], k5["f_plain"], k5fb[0], k5fb[1], k5["f_lib"]),
+         "split": k5_shape["split"], "threads": k5_shape["threads"]},
+        {**entry("packed_select_bwd", packed_cu, "torchani_tpu/bucket_refresh_packed.py:316",
+                 k5b_err, k5["b"], k5["b_plain"], k5bb[0], k5bb[1], k5["b_lib"]),
+         "split": k5_shape["split"], "threads": k5_shape["threads"],
+         "bound_every_lane_ms": k5bb_all[0]},
     ]
     for p_, name in ((1, "vals_select_fwd"), (1, "vals_select_bwd")):
         side = "f" if name.endswith("fwd") else "b"

@@ -44,6 +44,8 @@ from torchani_tpu_torch.bucket_refresh import (
     _cluster_split,
     _fwd_split,
     _one_wave,
+    _packed_smem,
+    _packed_split,
     bucket_nbr_pos,
     bucket_select_bwd,
     bucket_select_bwd_reference,
@@ -52,6 +54,7 @@ from torchani_tpu_torch.bucket_refresh import (
     bwd_launch_shape,
     fwd_launch_shape,
     make_wrapshift,
+    packed_launch_shape,
     tables_from_cell_aux,
     vals_select_bwd,
     vals_select_bwd_reference,
@@ -849,6 +852,56 @@ def test_select_bwd_cluster_split_matches_plain_on_card(case, p):
         assert int((out != 0).any(-1).sum()) <= 3
 
 
+# ---- K5f and K5b: each bucket's tiles split over S blocks ----
+
+#: the water box's ANI-2dr packed tables: G = 125 buckets (one a span) of
+#: C = 96 slots, 13 tiles each
+K5_BOX = (125, 96, 13)
+
+
+@pytest.mark.parametrize("g,c,tiles,want", [
+    (*K5_BOX, (1024, 2)),  # the water box: 250 blocks of 1,024 on 132 SMs
+    (5, 256, 3, (1024, 2)),  # C = 256 (83 KB tile): capped by 3 tiles a bucket
+    (4, 256, 13, (1024, 8)),  # C = 256, few buckets: the largest cluster
+    (66, 256, 13, (1024, 4)),  # C = 256: 264 blocks of 99 KB fill the card
+    (2, 96, 1, (1024, 1)),  # one tile a bucket: one block
+    (343, 64, 13, (512, 1)),  # only 512 threads put 343 blocks on the card
+    (2000, 96, 13, (1024, 1)),  # G past one wave at any block size: one block each
+])
+def test_packed_split_cases(g, c, tiles, want):
+    """K5's launch shape on 132 SMs, a pure function of G, C and the tiles a
+    bucket owns: K1's and K2's one-wave rule at K5f's block (its tile and a
+    512-byte offset buffer a warp), a cluster size, no more than the tiles."""
+    assert _packed_split(g, c, tiles, 132) == want
+    assert _one_wave(g, _packed_smem(c, 1024, True), 132)[0] == want[0]
+
+
+def test_packed_split_fills_an_h100_in_one_wave_at_the_water_box():
+    """At the water box every K5 block is resident at once on an H100's 132
+    SMs (K5f's block holds its tile and 16 KB of offsets; two fit an SM),
+    every SM holds one at least, and the next cluster size would need a
+    second wave."""
+    g, c, tiles = K5_BOX
+    threads, s = _packed_split(g, c, tiles, 132)
+    smem = _packed_smem(c, threads, True)
+    assert smem == 27 * 96 * 12 + 16 * 1024 and _packed_smem(c, threads, False) == 27 * 96 * 12
+    per_sm = min(SM_THREADS // threads, SM_SHARED_BYTES // (smem + BLOCK_RESERVED_BYTES))
+    assert per_sm == 2 and 132 <= g * s <= 132 * per_sm < g * 2 * s
+    assert s in CLUSTER_SPLITS and s <= tiles
+
+
+def test_packed_smem_fits_a_block_at_c_256():
+    """K5f's block at C = 256 (an 83 KB tile and 16 KB of offsets) fits the
+    227 KB of shared memory a block may have, twice on an SM."""
+    smem = _packed_smem(256, 1024, True)
+    assert smem == 27 * 256 * 12 + 16 * 1024 <= MAX_SHARED_BYTES
+    assert SM_SHARED_BYTES // (smem + BLOCK_RESERVED_BYTES) == 2
+    # C = 255: 20,655 floats, rounded up to 20,656 so that the buffers start
+    # on 16 bytes; 16 bytes of offsets a thread
+    assert _packed_smem(255, 512, True) == 20656 * 4 + 512 * 16
+    assert _packed_smem(255, 512, False) == 20656 * 4
+
+
 # ---- K5f and K5b ----
 
 
@@ -882,53 +935,112 @@ def _packed_system(device: str, a: int = 400, c: int = 32, sb: int = 2, seed: in
     return move(tables), move(packed), crd.to(device), nbrs.mask[0].to(device), g, c
 
 
+def _k5_at(name: str, src, keys_flat, tile_bucket, shape, g: int, c: int, split: int,
+           threads: int, fill: float = 1234.5):
+    """K5f or K5b at an explicit launch shape into an output filled with
+    ``fill``."""
+    from torchani_tpu_torch.bucket_refresh_packed import _launch
+
+    ns, n_tiles = tile_bucket.shape
+    kl = keys_flat.shape[2] // (8 * n_tiles)
+    dst = torch.full(shape, fill, device=src.device)
+    _launch(name, src, keys_flat, tile_bucket, dst, ns, g // ns, c, n_tiles, kl, split, threads)
+    torch.cuda.synchronize()
+    return dst
+
+
+def _within_sum_tol(out, ref) -> bool:
+    """K5b against its plain version: |k - p| <= 1e-5 (1 + |p|)."""
+    return bool(((out - ref).abs() <= 1e-5 * (1 + ref.abs())).all())
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("sb", [1, 2, 4])
 def test_packed_select_kernels_match_plain_on_card(sb):
     """Real tables (grid 4 x 4 x 4; empty buckets, pad tiles of sentinels
-    only), random candidates and cotangents."""
+    only), random candidates and cotangents: through the wrappers at the
+    shape of `packed_launch_shape`, and at every split and block size."""
     _cuda()
     _, packed, _, _, g, c = _packed_system("cuda", sb=sb)
     gen = torch.Generator("cuda").manual_seed(3)
     cand = torch.randn((g, 27, c, 3), device="cuda", generator=gen) * 20.0
+    keys, tiles = packed.keys_flat, packed.tile_bucket
     before = packed_select_fwd.launches, packed_select_bwd.launches
-    out = packed_select_fwd(cand, packed.keys_flat, packed.tile_bucket)
-    ref = packed_select_reference(cand, packed.keys_flat, packed.tile_bucket)
+    out = packed_select_fwd(cand, keys, tiles)
+    ref = packed_select_reference(cand, keys, tiles)
     assert torch.equal(out, ref)
     gout = torch.randn(out.shape, device="cuda", generator=gen)
-    d = packed_select_bwd(gout, packed.keys_flat, packed.tile_bucket, c, g)
+    d = packed_select_bwd(gout, keys, tiles, c, g)
     torch.cuda.synchronize()
     assert (packed_select_fwd.launches, packed_select_bwd.launches) == (
         before[0] + 1, before[1] + 1
     )
-    d_ref = packed_select_bwd_reference(gout, packed.keys_flat, packed.tile_bucket, c, g)
+    d_ref = packed_select_bwd_reference(gout, keys, tiles, c, g)
     assert d.shape == (g, 27, c, 3)
     np.testing.assert_allclose(d.cpu().numpy(), d_ref.cpu().numpy(), atol=1e-5, rtol=1e-5)
+    shape = packed_launch_shape(g, c, tiles.shape[1] // sb, "cuda")
+    assert shape["split"] in CLUSTER_SPLITS and shape["split"] <= max(1, tiles.shape[1] // sb)
+    assert shape["blocks"] == g * shape["split"] and shape["threads"] in SPLIT_THREADS
+    for threads in SPLIT_THREADS:
+        for split in CLUSTER_SPLITS:
+            assert torch.equal(_k5_at("packed_select_fwd", cand, keys, tiles, out.shape, g, c,
+                                      split, threads), ref)
+            assert _within_sum_tol(_k5_at("packed_select_bwd", gout, keys, tiles, d.shape, g, c,
+                                          split, threads), d_ref)
 
 
 @pytest.mark.cuda
-def test_packed_select_sentinel_rows_repeats_and_wide_tiles_on_card():
-    """Hand-made tables: C = 256 (83 KB of shared memory), a bucket that owns
-    two separate runs of tiles, a span of sentinels only, one repeated key."""
+@pytest.mark.parametrize("threads", SPLIT_THREADS)
+@pytest.mark.parametrize("split", CLUSTER_SPLITS)
+def test_packed_select_sentinel_rows_repeats_and_wide_tiles_on_card(split, threads):
+    """Hand-made tables at every split and block size: C = 256 (83 KB of
+    shared memory); a bucket that owns separate runs of tiles, and one that
+    owns fewer tiles than S; a span of sentinels only, whose d_cand tiles
+    must be all zeros; one key repeated over a whole tile, and a tile of
+    heavily repeated keys (32 candidates for its 1,024 lanes); a tile whose
+    id is outside [0, SB), left unwritten and adding nothing."""
     _cuda()
-    g, c, ns, n_tiles, kl = 4, 256, 2, 3, 128
+    g, c, ns, n_tiles, kl = 6, 256, 3, 4, 128  # SB = 2
     rng = np.random.RandomState(9)
-    lanes = n_tiles * 8 * kl
+    tile_lanes = 8 * kl
+    lanes = n_tiles * tile_lanes
     sec = np.where(rng.rand(ns, lanes) < 0.8, rng.randint(0, 27, (ns, lanes)), 27)
     keys = (sec << 8) | np.where(sec < 27, rng.randint(0, c, (ns, lanes)), 0)
     keys[1] = 27 << 8
-    keys[0, : 8 * kl] = (5 << 8) | 200
+    keys[0, :tile_lanes] = (5 << 8) | 200
+    keys[2, tile_lanes: 2 * tile_lanes] = (
+        (rng.randint(0, 4, tile_lanes) << 8) | rng.randint(0, 8, tile_lanes)
+    )
     keys_flat = torch.as_tensor(keys.astype(np.int32), device="cuda").reshape(ns, 1, lanes)
-    tile_bucket = torch.tensor([[1, 0, 1], [0, 0, 1]], dtype=torch.int32, device="cuda")
+    # span 0: bucket 1 owns tiles 0, 2 and 3, bucket 0 tile 1 alone; span 2:
+    # bucket 4 owns tiles 0 and 3, bucket 5 tile 1, tile 2 has no owner
+    tile_bucket = torch.tensor([[1, 0, 1, 1], [0, 0, 1, 1], [0, 1, 5, 0]], dtype=torch.int32,
+                               device="cuda")
+    owned = (tile_bucket < 2).repeat_interleave(tile_lanes, dim=1)  # (ns, lanes)
+    ref_keys = torch.where(owned[:, None], keys_flat, 27 << 8).to(torch.int32)
+    ref_tiles = torch.where(tile_bucket < 2, tile_bucket, 0).to(torch.int32)
     cand = torch.as_tensor(rng.randn(g, 27, c, 3).astype(np.float32), device="cuda")
-    out = packed_select_fwd(cand, keys_flat, tile_bucket)
-    assert torch.equal(out, packed_select_reference(cand, keys_flat, tile_bucket))
-    assert (out[1] == 0).all() and torch.equal(out[0, : 8 * kl], cand[1, 5, 200].expand(8 * kl, 3))
+    out = _k5_at("packed_select_fwd", cand, keys_flat, tile_bucket, (ns, lanes, 3), g, c, split,
+                 threads)
+    ref = packed_select_reference(cand, ref_keys, ref_tiles)
+    assert torch.equal(out[owned], ref[owned]) and (out[~owned] == 1234.5).all()
+    assert (out[1] == 0).all()
+    assert torch.equal(out[0, :tile_lanes], cand[1, 5, 200].expand(tile_lanes, 3))
     gout = torch.as_tensor(rng.randn(ns, lanes, 3).astype(np.float32), device="cuda")
-    d = packed_select_bwd(gout, keys_flat, tile_bucket, c, g)
-    d_ref = packed_select_bwd_reference(gout, keys_flat, tile_bucket, c, g)
+    d = _k5_at("packed_select_bwd", gout, keys_flat, tile_bucket, (g, 27, c, 3), g, c, split,
+               threads)
+    d_ref = packed_select_bwd_reference(gout, ref_keys, ref_tiles, c, g)
     np.testing.assert_allclose(d.cpu().numpy(), d_ref.cpu().numpy(), atol=1e-4, rtol=1e-5)
-    assert (d[2:] == 0).all()
+    assert _within_sum_tol(d[5], d_ref[5]) and int((d_ref[5] != 0).any(-1).sum()) == 32
+    assert (d[2:4] == 0).all()
+    if split == 1 and threads == SPLIT_THREADS[0]:
+        # the wrappers at their own shape, on the same tables without the
+        # ownerless tile
+        assert torch.equal(packed_select_fwd(cand, ref_keys, ref_tiles), ref)
+        np.testing.assert_allclose(
+            packed_select_bwd(gout, ref_keys, ref_tiles, c, g).cpu().numpy(),
+            d_ref.cpu().numpy(), atol=1e-4, rtol=1e-5,
+        )
 
 
 @pytest.mark.cuda
@@ -954,6 +1066,13 @@ def test_packed_select_wrappers_check_on_card():
         packed_select_bwd(gout, keys, tiles, c, g + 1)
     with pytest.raises(ValueError):
         packed_select_fwd(cand, keys.cpu(), tiles)
+    narrow = keys[:, :, : tiles.shape[1] * 8 * 8].contiguous()  # KL = 8
+    with pytest.raises(ValueError, match="multiple of 16"):
+        packed_select_fwd(cand, narrow, tiles)
+    with pytest.raises(RuntimeError, match="launch"):
+        _k5_at("packed_select_bwd", gout, keys, tiles, (g, 27, c, 3), g, c, 3, 1024)
+    with pytest.raises(RuntimeError, match="launch"):
+        _k5_at("packed_select_fwd", cand, keys, tiles, gout.shape, g, c, 2, 256)
 
 
 @pytest.mark.cuda

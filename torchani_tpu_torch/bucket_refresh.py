@@ -69,6 +69,7 @@ __all__ = [
     "tables_from_cell_aux",
     "bwd_launch_shape",
     "fwd_launch_shape",
+    "packed_launch_shape",
 ]
 
 #: lane key encoding: (section << 8) | rank; section 27 = masked sentinel
@@ -83,10 +84,10 @@ MAX_SHARED_BYTES = 227 * 1024
 SM_SHARED_BYTES = 228 * 1024
 BLOCK_RESERVED_BYTES = 1024
 SM_THREADS = 2048
-#: block sizes of K1, K2 and K4b, in order of preference (their sources
-#: take these two); the cluster sizes over which K2 and K4b split a bucket's
-#: lanes (8 is the portable maximum), and the most independent blocks K1
-#: splits a bucket over
+#: block sizes of K1, K2, K4b, K5f and K5b, in order of preference (their
+#: sources take these two); the cluster sizes over which K2 and K4b split a
+#: bucket's lanes and K5f and K5b its tiles (8 is the portable maximum), and
+#: the most independent blocks K1 splits a bucket over
 SPLIT_THREADS = (1024, 512)
 CLUSTER_SPLITS = (1, 2, 4, 8)
 MAX_FWD_SPLIT = 64
@@ -391,6 +392,36 @@ def fwd_launch_shape(g: int, c: int, r: int, device: torch.device) -> tp.Dict[st
     smem = 27 * c * 3 * 4
     threads, s = _fwd_split(g, r, smem, _sm_count(torch.device(device)))
     return {"split": s, "blocks": g * s, "threads": threads, "smem_bytes": smem}
+
+
+def _packed_smem(c: int, threads: int, forward: bool) -> int:
+    """Shared memory of a K5f (``forward``) or K5b block of ``threads`` at C
+    slots: its candidate tile rounded up to 16 bytes, and for K5f one buffer
+    of 128 tile offsets a warp (16 bytes a thread)."""
+    return -(-27 * c * 3 // 4) * 16 + (16 * threads if forward else 0)
+
+
+def _packed_split(g: int, c: int, tiles: int, sms: int) -> tp.Tuple[int, int]:
+    """``(threads, S)`` for K5f and K5b at ``G`` buckets of ``C`` slots
+    that own ``tiles`` row tiles each (a span's tiles over its buckets):
+    each bucket's tiles go to S blocks, independent in K5f and a cluster in
+    K5b, the largest S in `CLUSTER_SPLITS` that `_one_wave` allows for K5f's
+    larger block, and no more than the bucket has tiles.  On an H100 this
+    gives S = 2 of 1,024 threads at the ANI-2dr water box's tables."""
+    threads, most = _one_wave(g, _packed_smem(c, SPLIT_THREADS[0], True), sms)
+    return threads, max(s for s in CLUSTER_SPLITS if s <= max(1, min(most, tiles)))
+
+
+def packed_launch_shape(g: int, c: int, tiles: int, device: torch.device) -> tp.Dict[str, int]:
+    """How K5f and K5b launch for ``G`` buckets of ``C`` slots that own
+    ``tiles`` row tiles each on a CUDA ``device``: the split S, the blocks,
+    the threads a block and each kernel's shared memory a block."""
+    threads, s = _packed_split(g, c, tiles, _sm_count(torch.device(device)))
+    return {
+        "split": s, "blocks": g * s, "threads": threads,
+        "fwd_smem_bytes": _packed_smem(c, threads, True),
+        "bwd_smem_bytes": _packed_smem(c, threads, False),
+    }
 
 
 def _launch(name: str, src: Tensor, keys: Tensor, nlanes, dst: Tensor, *dims: int) -> None:

@@ -17,10 +17,12 @@ Layout (that of the JAX package, so that a state carries across):
 - ``tile_bucket`` names each tile's bucket within its span.
 
 The kernels are K5f (`packed_select_fwd`) and K5b (`packed_select_bwd`) in
-``csrc/packed_select.cu``: one block per bucket handles the tiles that name
-it.  The 8-row tiles, the 128-lane padding and the span budget of
-`choose_span` are layout parameters kept for the shared state format; none
-is a constraint of this card.
+``csrc/packed_select.cu``: each bucket's tiles are split over S blocks
+(`packed_launch_shape`; a thread-block cluster in K5b, whose blocks add
+their sums through distributed shared memory), a warp taking 128 lanes at a
+time.  The 8-row tiles and the span budget of `choose_span` are layout
+parameters kept for the shared state format; the kernels take any KL that
+is a multiple of 16 (the layout pads to 128).
 """
 
 import ctypes
@@ -39,6 +41,7 @@ from torchani_tpu_torch.bucket_refresh import (
     _cand_table,
     _cand_table_transpose,
     _check_slots,
+    packed_launch_shape,
 )
 
 __all__ = [
@@ -262,9 +265,9 @@ def _library() -> ctypes.CDLL:
     if lib.packed_select_fwd_launch.argtypes is None:
         vp, ci = ctypes.c_void_p, ctypes.c_int
         for fn in (lib.packed_select_fwd_launch, lib.packed_select_bwd_launch):
-            # source, keys, tile_bucket, destination; n_spans, SB, C, n_tiles, KL;
-            # device, stream
-            fn.argtypes = [vp, vp, vp, vp, ci, ci, ci, ci, ci, ci, vp]
+            # source, keys, tile_bucket, destination; n_spans, SB, C, n_tiles, KL,
+            # the split S and the threads a block; device, stream
+            fn.argtypes = [vp, vp, vp, vp, ci, ci, ci, ci, ci, ci, ci, ci, vp]
             fn.restype = ci
         lib.packed_select_error_string.argtypes = [ci]
         lib.packed_select_error_string.restype = ctypes.c_char_p
@@ -297,6 +300,11 @@ def _check_kernel_args(
             f"{name}: {ns} spans must divide G={g} and {n_tiles} tiles of 8 rows must "
             f"divide the {lanes} lanes of a span"
         )
+    if lanes // (8 * n_tiles) % 16:
+        raise ValueError(
+            f"{name}: KL={lanes // (8 * n_tiles)} lanes a row must be a multiple of 16 (a "
+            f"tile's lanes are whole chunks of 128)"
+        )
     for what, t in (("values", values), ("keys_flat", keys_flat), ("tile_bucket", tile_bucket)):
         if t.device != values.device:
             raise ValueError(f"{name}: {what} is on {t.device}, not {values.device}")
@@ -305,18 +313,27 @@ def _check_kernel_args(
     return ns, g // ns, n_tiles, lanes // (8 * n_tiles)
 
 
-def _launch(name, src, keys_flat, tile_bucket, dst, ns, sb, c, n_tiles, kl) -> None:
+def _launch(name, src, keys_flat, tile_bucket, dst, *dims: int) -> None:
+    """Launch ``{name}_launch`` on ``src``'s device and current stream with
+    ``dims`` (n_spans, SB, C, n_tiles, KL, the split S and the threads a
+    block)."""
     lib = _library()
     fn = getattr(lib, f"{name}_launch")
     with torch.cuda.device(src.device):
         rc = fn(
             src.data_ptr(), keys_flat.data_ptr(), tile_bucket.data_ptr(), dst.data_ptr(),
-            ns, sb, c, n_tiles, kl, src.get_device(),
-            torch.cuda.current_stream(src.device).cuda_stream,
+            *dims, src.get_device(), torch.cuda.current_stream(src.device).cuda_stream,
         )
     if rc != 0:
         msg = lib.packed_select_error_string(rc).decode()
-        raise RuntimeError(f"{name}: kernel launch failed: CUDA error {rc} ({msg})")
+        raise RuntimeError(f"{name}: kernel launch at {dims} failed: CUDA error {rc} ({msg})")
+
+
+def _shape(g: int, c: int, ns: int, n_tiles: int, device: torch.device) -> tp.Tuple[int, int]:
+    """``(S, threads)`` of both kernels: `packed_launch_shape` at a span's
+    tiles over its buckets."""
+    shape = packed_launch_shape(g, c, max(1, n_tiles * ns // g), device)
+    return shape["split"], shape["threads"]
 
 
 def packed_select_fwd(cand: Tensor, keys_flat: Tensor, tile_bucket: Tensor) -> Tensor:
@@ -326,8 +343,10 @@ def packed_select_fwd(cand: Tensor, keys_flat: Tensor, tile_bucket: Tensor) -> T
     KL)`` int32, ``tile_bucket (n_spans, S_cap / 8)`` int32 with values in
     ``[0, SB)`` -> ``(n_spans, S_cap * KL, 3)`` f32, an exact selection.
 
-    CPU tensors take `packed_select_reference`; CUDA tensors launch the
-    kernel or raise.  ``packed_select_fwd.launches`` counts launches.
+    The kernel splits each bucket's tiles over S blocks
+    (`packed_launch_shape`).  CPU tensors take `packed_select_reference`;
+    CUDA tensors launch the kernel or raise.  ``packed_select_fwd.launches``
+    counts launches.
     """
     if cand.device.type == "cpu":
         return packed_select_reference(cand, keys_flat, tile_bucket)
@@ -340,7 +359,8 @@ def packed_select_fwd(cand: Tensor, keys_flat: Tensor, tile_bucket: Tensor) -> T
         "packed_select_fwd", cand, keys_flat, tile_bucket, g, c
     )
     out = torch.empty((ns, keys_flat.shape[2], 3), dtype=torch.float32, device=cand.device)
-    _launch("packed_select_fwd", cand, keys_flat, tile_bucket, out, ns, sb, c, n_tiles, kl)
+    _launch("packed_select_fwd", cand, keys_flat, tile_bucket, out, ns, sb, c, n_tiles, kl,
+            *_shape(g, c, ns, n_tiles, cand.device))
     packed_select_fwd.launches += 1
     return out
 
@@ -355,10 +375,13 @@ def packed_select_bwd(
     its ``g_out (n_spans, S_cap * KL, 3)`` row onto its candidate; ->
     ``(G, 27, C, 3)`` f32, zeros where no lane points.
 
-    One block owns a bucket and sums in shared memory, in an order that
-    changes from run to run.  CPU tensors take `packed_select_bwd_reference`;
-    CUDA tensors launch the kernel or raise.  ``packed_select_bwd.launches``
-    counts launches.
+    Each bucket's tiles are split over a cluster of S blocks
+    (`packed_launch_shape`), each summing with atomics in its shared memory,
+    and the S sums are added through distributed shared memory, so the order
+    of a candidate's sum changes from run to run.  The cotangents of four
+    consecutive sentinel lanes (a thread's share) are not read.  CPU tensors
+    take `packed_select_bwd_reference`; CUDA tensors launch the kernel or
+    raise.  ``packed_select_bwd.launches`` counts launches.
     """
     if g_out.device.type == "cpu":
         return packed_select_bwd_reference(g_out, keys_flat, tile_bucket, c, g)
@@ -375,7 +398,8 @@ def packed_select_bwd(
         "packed_select_bwd", g_out, keys_flat, tile_bucket, g, c
     )
     d_cand = torch.empty((g, 27, c, 3), dtype=torch.float32, device=g_out.device)
-    _launch("packed_select_bwd", g_out, keys_flat, tile_bucket, d_cand, ns, sb, c, n_tiles, kl)
+    _launch("packed_select_bwd", g_out, keys_flat, tile_bucket, d_cand, ns, sb, c, n_tiles, kl,
+            *_shape(g, c, ns, n_tiles, g_out.device))
     packed_select_bwd.launches += 1
     return d_cand
 
