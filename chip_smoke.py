@@ -46,13 +46,22 @@ outer step 4 launches of K3 and K3b and 4 of K1 and K2 on the fast lane, 1 of
 K1, K2, K4f and K4b (P = 1, the frozen D3 window) on the slow lane, every=1
 against velocity Verlet, the card against the CPU; and a model written in
 the published key scheme (`convert.save_state_dict`, `torch.save`) into a
-temporary data directory and loaded back with ``pretrained=True``.  Every
-number it prints was measured or computed in the run.  It prints a
-``kernels`` JSON line (all eight kernels) and, last, ``{"ok": true,
-"device": {...}}``.  Any failed check raises, and the script exits non-zero
-without that last line; so does a machine with no CUDA device, or a
-directory without the package.  A little over a minute of command time on
-an H100.
+temporary data directory and loaded back with ``pretrained=True``.  Then the
+second-derivative and ensemble paths of ANI-2x: K3bb (K3b's backward)
+against its plain version at the water box's tables and at those of one
+Hessian pass, with its time, plain time and bound; `hessians` and
+`single_point(vibrational=True)` of a 30-water cluster (per pass one K3 and
+one K3bb launch and two of K3b), card against CPU; `members_energies_and_forces`,
+`force_qbc`, `stress_scaling` and `stress_fdotr` on the water box (one K3
+launch, one K3b per member or one), card against CPU at 1,002 atoms; and 20
+steps each of `run_nvt_nose_hoover` and `run_npt_berendsen`
+(``npt_compression=0.05``) on the water box (K1, K2, K3 and K3b once per
+step), card against CPU at 1,002 atoms.  Every number it prints was
+measured or computed in the run.  It prints a ``kernels`` JSON line (all
+nine kernels) and, last, ``{"ok": true, "device": {...}}``.  Any failed
+check raises, and the script exits non-zero without that last line; so does
+a machine with no CUDA device, or a directory without the package.  A few
+minutes of command time on an H100.
 """
 
 import json
@@ -114,6 +123,14 @@ MTS_COORD_ATOL, MTS_COORD_RTOL, MTS_E_TOL = 2e-6, 2e-5, 1e-5
 #: a model saved in the published key scheme and loaded back: the same
 #: weights on the same card
 PRETRAINED_FORCE_ATOL = 1e-6
+#: Hessians of the 30-water cluster, card against CPU: the tolerance of
+#: tests/test_grad.py against the goldens
+HESSIAN_ATOL, HESSIAN_RTOL = 2e-4, 1e-3
+#: members' forces and stress (scaled by max|ref|), card against CPU
+STRESS_TOL = 1e-5
+#: the Nose-Hoover and Berendsen NPT runs: steps, thermostat and barostat
+#: settings (the JAX package's defaults, water's compressibility)
+THERMO_STEPS, NHC_TAU_FS, NPT_COMPRESSION = 20, 25.0, 0.05
 
 
 def check(ok: bool, what: str) -> None:
@@ -223,6 +240,37 @@ def k3b_bytes(lanes, species: torch.Tensor, num_species: int, nz: int) -> int:
     rows = int((held * (held - 1) // 2 + (counts > 1).sum(1)).sum())
     lane_bytes = sum(t.numel() * t.element_size() for t in (lanes[0], lanes[1], species))
     return 2 * lane_bytes - species.numel() * 4 + rows * nz * 4
+
+
+def k3bb_bound_ms(pairs: float, lanes: float, sh: int, se: int, nbytes: int) -> tuple:
+    """Least time for K3bb: the bytes moved once (``nbytes``) against the
+    operations per valid pair, each unit at its own peak.  Special-function
+    instructions: sh exp, se pow (log2 and exp2), se reciprocals (base^(zeta
+    - 2) from base^(zeta - 1)) and a reciprocal square root; per valid lane
+    the cutoff and its two derivatives, 5.  f32: per feature the three sums
+    over the cotangent (A, A', A'') and the directional derivative's two
+    terms, 10 operations; ~25 per shift (R, R', R'' and six sums), ~20 per
+    section, ~120 for the geometry and the chain rule."""
+    sfu, f32 = sh + 3 * se + 1, 10 * sh * se + 25 * sh + 20 * se + 120
+    by_f32 = pairs * f32 / PEAK_F32_FLOPS * 1e3
+    by_sfu = (pairs * sfu + 5 * lanes) / PEAK_SFU_OPS * 1e3
+    by_bytes = nbytes / PEAK_HBM_BYTES * 1e3
+    by_ops = max(by_f32, by_sfu)
+    return (max(by_ops, by_bytes), "operations" if by_ops > by_bytes else "bytes",
+            nbytes, by_f32, by_sfu)
+
+
+def bwd_bwd_errors(out, ref, mask: torch.Tensor, what: str) -> float:
+    """K3bb's (gg, hdist, hdiff) against its plain version's, at K3b's
+    tolerance; returns the largest absolute error."""
+    err = bwd_errors(out[1:], ref[1:], mask, what + " (hdist, hdiff)")
+    k, p = out[0], ref[0]
+    check(bool(torch.isfinite(k).all()), f"{what}: gg finite")
+    check(bool(((k - p).abs() <= ATOL * p.abs().max() + RTOL * p.abs()).all()),
+          f"{what}: gg within tolerance")
+    gg_err = float((k - p).abs().max())
+    print(f"{what}: gg max abs err {gg_err:.3e} (max |p| {float(p.abs().max()):.3e})")
+    return max(err, gg_err)
 
 
 def select_bound_ms(lanes: int, g: int, c: int, adds: bool) -> tuple:
@@ -369,6 +417,8 @@ def main() -> int:
     from torchani_tpu_torch.aev.kernels import (
         angular_aev,
         angular_aev_bwd,
+        angular_aev_bwd_bwd,
+        angular_aev_bwd_bwd_reference,
         angular_aev_bwd_reference,
         angular_aev_reference,
         angular_grid,
@@ -400,7 +450,16 @@ def main() -> int:
         packed_select_reference,
     )
     from torchani_tpu_torch.bucket_refresh_packed import _statics as _packed_statics
-    from torchani_tpu_torch.grad import energies_and_forces, single_point
+    from torchani_tpu_torch.grad import (
+        energies_and_forces,
+        force_qbc,
+        hessian_rows,
+        hessians,
+        members_energies_and_forces,
+        single_point,
+        stress_fdotr,
+        stress_scaling,
+    )
     from torchani_tpu_torch.md import (
         CachedSinglePoint,
         MolecularDynamics,
@@ -595,6 +654,7 @@ def main() -> int:
     kernels_fn = {
         "angular_aev": angular_aev,
         "angular_aev_bwd": angular_aev_bwd,
+        "angular_aev_bwd_bwd": angular_aev_bwd_bwd,
         "bucket_select_fwd": bucket_select_fwd,
         "bucket_select_bwd": bucket_select_bwd,
         "vals_select_fwd": vals_select_fwd,
@@ -1328,7 +1388,7 @@ def main() -> int:
         "angular_aev": MTS_EVERY, "angular_aev_bwd": MTS_EVERY,
         "bucket_select_fwd": MTS_EVERY + 1, "bucket_select_bwd": MTS_EVERY + 1,
         "vals_select_fwd": 1, "vals_select_bwd": 1,
-        "packed_select_fwd": 0, "packed_select_bwd": 0,
+        "packed_select_fwd": 0, "packed_select_bwd": 0, "angular_aev_bwd_bwd": 0,
     }
     print(f"MTS launches in {MTS_OUTER} outer steps: {mts_launches}")
     check(mts_launches == {k_: v * MTS_OUTER for k_, v in per_outer.items()}
@@ -1415,6 +1475,224 @@ def main() -> int:
           f"|dF| {df:.3e} Ha/A, |dE| {float((e_ld - e_src).abs().max()):.3e} Ha against the source")
     check(df <= PRETRAINED_FORCE_ATOL, "the loaded model's forces equal the source model's")
 
+    del src, loaded, sd, e_src, f_src, e_ld, f_ld, mts_model, mts_ends
+    torch.cuda.empty_cache()
+
+    # ---- 19. K3bb, K3b's backward, against its plain version ----
+    # at the water box's tables: the column-sliced cotangent of the main
+    # path and a seeded random direction on the lanes
+    dgen = torch.Generator(dev).manual_seed(13)
+    u3 = (torch.randn(k3_in[0].shape, device=dev, generator=dgen),
+          torch.randn(k3_in[1].shape, device=dev, generator=dgen))
+    k3bb_block = max(1, k3_block // 4)  # the plain version holds ~4x K3b's grid
+    k3bb = angular_aev_bwd_bwd(g3_slice, *k3_in, *u3, k3_species, **k3_kw)
+    torch.cuda.synchronize()
+    k3bb_err = bwd_bwd_errors(
+        k3bb, angular_aev_bwd_bwd_reference(g3_slice, *k3_in, *u3, atom_block=k3bb_block, **k3_kw),
+        k3_in[2], "K3bb ANI-2x water box vs plain")
+    small_u = (torch.randn(small_in[0].shape, device=dev, generator=dgen),
+               torch.randn(small_in[1].shape, device=dev, generator=dgen))
+    small_bb = angular_aev_bwd_bwd(g_small, *small_in, *small_u, **small_kw)
+    torch.cuda.synchronize()
+    bwd_bwd_errors(small_bb, angular_aev_bwd_bwd_reference(g_small, *small_in, *small_u, **small_kw),
+                   small_in[2], "K3bb ANI-1x smooth random lanes vs plain")
+    check(all(bool((t[::7] == 0).all()) for t in small_bb),
+          "K3bb: fully masked rows give exact zeros")
+    k3bb_ms, k3bb_ev = both_ms(
+        lambda: angular_aev_bwd_bwd(g3_slice, *k3_in, *u3, k3_species, **k3_kw))
+    k3bb_plain_ms = kernels_ms(lambda: angular_aev_bwd_bwd_reference(
+        g3_slice, *k3_in, *u3, atom_block=k3bb_block, **k3_kw), reps=1)
+    k3bb_bytes = (k3b_bytes(k3_in, k3_species, k3_kw["num_species"], sh * se)
+                  + sum(t.numel() * 4 for t in u3) + out.numel() * 4)
+    k3bb_bound = k3bb_bound_ms(pairs, valid_lanes, sh, se, k3bb_bytes)
+    print(f"{card}: K3bb alone: {k3bb_ms:.4f} ms ({k3bb_ev:.4f} between events); plain version "
+          f"{k3bb_plain_ms:.3f} ms (blocks of {k3bb_block} atoms); bound {k3bb_bound[0]:.4f} ms "
+          f"by {k3bb_bound[1]} ({k3bb_bound[2] / 1e6:.1f} MB; by operations {k3bb_bound[3]:.4f} "
+          f"ms f32, {k3bb_bound[4]:.4f} ms special functions)")
+
+    # ---- 20. Hessians and vibrational analysis of a 30-water cluster ----
+    cl_sp, cl_co, _ = make_water_box(90)  # 30 waters, taken as a cluster (no cell)
+    cl_atoms = cl_sp.shape[1]
+    h_model = ANI2x(pretrained=False, seed=0)
+    rows = hessian_rows(1, cl_atoms)
+    passes = -(-3 * cl_atoms // rows)
+    # K3bb at the tables of one pass: the cluster replicated `rows` times
+    rep_elem = h_model._convert(torch.as_tensor(cl_sp, device=dev).repeat(rows, 1))
+    rep_co = torch.as_tensor(cl_co, device=dev).repeat(rows, 1, 1)
+    h_aevc = h_model.aev_computer
+    _, h_ang, _ = h_aevc.flat_tables(
+        rep_elem, h_model.neighborlist(h_model.cutoff, rep_elem, rep_co, None, None))
+    h_in = h_aevc.angular_inputs(rep_elem.reshape(-1), h_ang)
+    h_g = torch.randn((h_in[0].shape[0], out.shape[1]), device=dev, generator=dgen)
+    h_u = (torch.randn(h_in[0].shape, device=dev, generator=dgen),
+           torch.randn(h_in[1].shape, device=dev, generator=dgen))
+    h_k3bb_err = bwd_bwd_errors(
+        angular_aev_bwd_bwd(h_g, *h_in, *h_u, **k3_kw),
+        angular_aev_bwd_bwd_reference(h_g, *h_in, *h_u, atom_block=k3bb_block, **k3_kw),
+        h_in[2], f"K3bb at the Hessian pass's tables (N={h_in[0].shape[0]}, Ka={h_in[0].shape[1]})")
+    del rep_elem, rep_co, h_ang, h_in, h_g, h_u
+    reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    h_card = hessians(h_model, cl_sp, cl_co)
+    torch.cuda.synchronize()
+    hess_first_ms = (time.perf_counter() - t0) * 1e3
+    hess_launches = read_counts()
+    want = {"angular_aev": passes, "angular_aev_bwd": 2 * passes, "angular_aev_bwd_bwd": passes}
+    print(f"Hessian of {cl_atoms} atoms: {rows} rows a pass, {passes} passes, launches "
+          f"{hess_launches}, angular_grid calls {angular_grid.calls}")
+    check(hess_launches == {k_: want.get(k_, 0) for k_ in kernels_fn} and angular_grid.calls == 0,
+          f"Hessian: per pass K3 and K3bb once, K3b twice, nothing else, no plain grid")
+    check(tuple(h_card.shape) == (1, 3 * cl_atoms, 3 * cl_atoms) and bool(torch.isfinite(h_card).all()),
+          "Hessian finite, of shape (1, 3A, 3A)")
+    asym = float((h_card[0] - h_card[0].T).abs().max())
+    reset_counts()
+    vib = single_point(h_model, cl_sp, cl_co, vibrational=True)
+    vib_launches = read_counts()
+    check(vib_launches == {**hess_launches, "angular_aev": passes + 1},
+          "single_point(vibrational=True): its energies' K3 and one Hessian's kernels")
+    freqs = vib["freqs"][0]
+    check(tuple(vib["modes"].shape) == (1, 3 * cl_atoms, cl_atoms, 3)
+          and bool(torch.isfinite(freqs).all()), "vibrational analysis finite, modes (1, 3A, A, 3)")
+    h_cpu = hessians(ANI2x(pretrained=False, seed=0, device="cpu"), cl_sp, cl_co)
+    dh = (h_card.cpu() - h_cpu).abs()
+    print(f"Hessian card vs CPU: max |dH| {float(dh.max()):.3e} Ha/A^2 (max |H| "
+          f"{float(h_cpu.abs().max()):.3e}); max |H - H^T| {asym:.3e}; frequencies "
+          f"{float(freqs.min()):.1f} to {float(freqs.max()):.1f} cm^-1 (random weights)")
+    check(bool((dh <= HESSIAN_ATOL + HESSIAN_RTOL * h_cpu.abs()).all()),
+          "the Hessian agrees with the CPU")
+    hess_ms = wall_times_ms(lambda: hessians(h_model, cl_sp, cl_co), reps=3)
+    held = held_gib()
+    hess_peak = peak_gib(lambda: hessians(h_model, cl_sp, cl_co))
+    vib_ms = wall_times_ms(lambda: single_point(h_model, cl_sp, cl_co, vibrational=True), reps=3)
+    print(f"{card}: Hessian {cl_atoms} atoms: median {np.median(hess_ms):.3f} ms (first call "
+          f"{hess_first_ms:.3f}); single_point(vibrational=True) median {np.median(vib_ms):.3f} ms; "
+          f"peak device memory {hess_peak:.3f} GiB ({held:.3f} held before the call; "
+          f"{(hess_peak - held) * 2**30 / (rows * cl_atoms) / 1024:.1f} KiB a replicated atom)")
+    del h_card, h_cpu, dh, vib, freqs
+
+    # ---- 21. ensemble forces and stress on the water box ----
+    ens_launches, ens_ms = {}, {}
+    ens_calls = {
+        "members": lambda: members_energies_and_forces(model, species, coords, cell, pbc),
+        "force_qbc": lambda: force_qbc(model, species, coords, cell, pbc),
+        "stress_scaling": lambda: stress_scaling(model, species, coords, cell, pbc),
+        "stress_fdotr": lambda: stress_fdotr(model, species, coords, cell, pbc),
+    }
+    ens_out = {}
+    for name, fn in ens_calls.items():
+        reset_counts()
+        ens_out[name] = fn()
+        torch.cuda.synchronize()
+        ens_launches[name] = read_counts()
+        ens_ms[name] = float(np.median(wall_times_ms(fn, reps=3)))
+    m_e, m_f = ens_out["members"]
+    num_members = m_e.shape[0]
+    print(f"ensemble and stress on {num_members} members: launches {ens_launches}")
+    for name, counts in ens_launches.items():
+        k3b_want = num_members if name in ("members", "force_qbc") else 1
+        want = {"angular_aev": 1, "angular_aev_bwd": k3b_want}
+        check(counts == {k_: want.get(k_, 0) for k_ in kernels_fn} and angular_grid.calls == 0,
+              f"{name}: one K3 launch and {k3b_want} of K3b, nothing else")
+    check(tuple(m_f.shape) == (num_members, 1, num_atoms, 3) and bool(torch.isfinite(m_f).all()),
+          "members' forces finite, (E, 1, A, 3)")
+    check(float((m_f.mean(0) - forces).abs().max()) <= FORCE_ATOL,
+          "the members' mean force is the model's force")
+    for name in ("stress_scaling", "stress_fdotr"):
+        check(tuple(ens_out[name].shape) == (3, 3) and bool(torch.isfinite(ens_out[name]).all()),
+              f"{name} finite, (3, 3)")
+    d_kinds = float((ens_out["stress_scaling"] - ens_out["stress_fdotr"]).abs().max())
+    print(f"{card}: members {ens_ms['members']:.3f} ms, force_qbc {ens_ms['force_qbc']:.3f} ms, "
+          f"stress_scaling {ens_ms['stress_scaling']:.3f} ms, stress_fdotr "
+          f"{ens_ms['stress_fdotr']:.3f} ms ({num_atoms} atoms, medians of 3); the two stresses "
+          f"differ by {d_kinds:.3e} Ha/A^3 (max |s| {float(ens_out['stress_scaling'].abs().max()):.3e})")
+    del ens_out, m_e, m_f
+    # card against CPU at 1,002 atoms
+    ens_sides = {}
+    for where in ("cuda", "cpu"):
+        m = ANI2x(pretrained=False, seed=0, device=where)
+        m.neighborlist = CellList()
+        ens_sides[where] = (
+            members_energies_and_forces(m, sp_s, co_s, cell_s, pbc_np)[1],
+            force_qbc(m, sp_s, co_s, cell_s, pbc_np),
+            stress_scaling(m, sp_s, co_s, cell_s, pbc_np),
+            stress_fdotr(m, sp_s, co_s, cell_s, pbc_np),
+        )
+    (mf_c, qbc_c, ss_c, sf_c), (mf_p, qbc_p, ss_p, sf_p) = (
+        [t.cpu() for t in ens_sides["cuda"]], ens_sides["cpu"])
+    d_mf = float((mf_c - mf_p).abs().max())
+    d_qbc = float((qbc_c - qbc_p).abs().max())
+    d_ss = float((ss_c - ss_p).abs().max() / ss_p.abs().max())
+    d_sf = float((sf_c - sf_p).abs().max() / sf_p.abs().max())
+    print(f"ensemble and stress card vs CPU, {sp_s.shape[1]} atoms: members' forces max |dF| "
+          f"{d_mf:.3e} Ha/A, force QBC {d_qbc:.3e}; stress (scaled by max|ref|) scaling {d_ss:.3e}, "
+          f"fdotr {d_sf:.3e}")
+    check(d_mf <= FORCE_ATOL and d_qbc <= FORCE_ATOL, "members' forces agree with the CPU")
+    check(d_ss <= STRESS_TOL and d_sf <= STRESS_TOL, "stress agrees with the CPU")
+    del ens_sides
+
+    # ---- 22. Nose-Hoover chain and Berendsen NPT on the water box ----
+    thermo = {}
+    for name in ("nhc", "npt"):
+        kw = dict(npt_compression=NPT_COMPRESSION) if name == "npt" else {}
+        runner = MolecularDynamics(model, species, cell=cell, pbc=True, **kw)
+        start = runner.init(coords, temperature=300.0, generator=gen0())
+        check(isinstance(start.bucket, BucketTables) and not bool(start.overflow),
+              f"{name}: slot-layout bucket tables, no overflow")
+
+        def run(st, n, runner=runner, name=name):
+            if name == "nhc":
+                return runner.run_nvt_nose_hoover(st, n, temperature=300.0, tau_fs=NHC_TAU_FS)
+            return runner.run_npt_berendsen(st, n, temperature=300.0, pressure_bar=1.0)
+
+        reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        end = run(start, THERMO_STEPS)
+        torch.cuda.synchronize()
+        run_ms = (time.perf_counter() - t0) * 1e3 / THERMO_STEPS
+        counts = read_counts()
+        want = {k_: THERMO_STEPS for k_ in
+                ("angular_aev", "angular_aev_bwd", "bucket_select_fwd", "bucket_select_bwd")}
+        check(counts == {k_: want.get(k_, 0) for k_ in kernels_fn} and angular_grid.calls == 0,
+              f"{name}: K1, K2, K3 and K3b once per step, nothing else, no plain grid")
+        check(end.step == THERMO_STEPS and not bool(end.overflow), f"{name}: no overflow")
+        for what, t in (("energy", end.energy), ("forces", end.forces), ("coords", end.coords),
+                        ("velocities", end.velocities)):
+            check(bool(torch.isfinite(t).all()), f"{name} {what} finite")
+        step_ms, st = [], end
+        for _ in range(5):
+            t0 = time.perf_counter()
+            st = run(st, 1)
+            torch.cuda.synchronize()
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+        extra = (f"chain {end.nhc[0].tolist()}" if name == "nhc" else
+                 f"scale {float(end.scale):.6f}, build radius {runner.build_radius:.3f} A, "
+                 f"angular prefix {runner._ang_prefix}")
+        print(f"{card}: {name} {num_atoms} atoms: {THERMO_STEPS} steps as one run {run_ms:.3f} "
+              f"ms/step, step median {np.median(step_ms):.3f} ms over 5; {end.rebuilds} rebuilds; "
+              f"kinetic temperature 300 -> "
+              f"{float(kinetic_temperature(end.velocities, runner.masses)):.1f} K; {extra}")
+        thermo[name] = dict(launches=counts, run_ms=run_ms, step_ms=float(np.median(step_ms)))
+        del runner, start, end, st
+    torch.cuda.empty_cache()
+    # card against CPU at 1,002 atoms
+    for name in ("nhc", "npt"):
+        ends = {}
+        for where in ("cuda", "cpu"):
+            m = ANI2x(pretrained=False, seed=0, device=where)
+            kw = dict(npt_compression=NPT_COMPRESSION) if name == "npt" else {}
+            runner = MolecularDynamics(m, sp_s, cell=cell_s, pbc=True, device=where, **kw)
+            start = runner.init(co_s, temperature=300.0, generator=gen0())
+            ends[where] = (runner.run_nvt_nose_hoover(start, THERMO_STEPS, 300.0, NHC_TAU_FS)
+                           if name == "nhc" else runner.run_npt_berendsen(start, THERMO_STEPS, 300.0))
+        dc_ = float((ends["cuda"].coords.cpu() - ends["cpu"].coords).abs().max())
+        extra = "" if name == "nhc" else (
+            f", scale {float(ends['cuda'].scale):.8f} vs {float(ends['cpu'].scale):.8f}")
+        print(f"{name} card vs CPU, {sp_s.shape[1]} atoms, {THERMO_STEPS} steps: max |dx| "
+              f"{dc_:.3e} A{extra}")
+        check(dc_ <= MD_COORD_ATOL, f"{name} coordinates agree with the CPU")
+
     def entry(name, source, replaces, err, ms, plain, bound, by, library):
         return {
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
@@ -1425,6 +1703,9 @@ def main() -> int:
                 **{f"ani2dr_md_{v}": dr_launches[v][name] for v in dr_launches},
                 "ani1x_ef": x1_ef_launches[name], "ani1x_langevin": x1_md_launches[name],
                 "ani2dr_mts_langevin": mts_launches[name],
+                "hessian": hess_launches[name], "vibrational": vib_launches[name],
+                **{k_: v[name] for k_, v in ens_launches.items()},
+                **{k_: v["launches"][name] for k_, v in thermo.items()},
             },
             "max_abs_err": err, "ms": ms, "plain_ms": plain, "bound_ms": bound,
             "bound_by": by, "library_ms": library,
@@ -1438,6 +1719,7 @@ def main() -> int:
         main_launches[name] = dr_launches["default"][name]
     for name in ("packed_select_fwd", "packed_select_bwd"):
         main_launches[name] = dr_launches["packed"][name]
+    main_launches["angular_aev_bwd_bwd"] = hess_launches["angular_aev_bwd_bwd"]
     angular_cu = "torchani_tpu_torch/csrc/angular_aev.cu"
     select_cu = "torchani_tpu_torch/csrc/bucket_select.cu"
     vals_cu = "torchani_tpu_torch/csrc/vals_select.cu"
@@ -1454,6 +1736,11 @@ def main() -> int:
          "replaced_recompute_ms": recompute_ms, "grid": k3b_shape,
          "at_ani1x": {"max_abs_err": x1_k3b_err, "ms": x1_k3b["ms"], "plain_ms": x1_k3b["plain"],
                       "bound_ms": x1_k3b["bound"][0], "grid": x1_k3b_shape}},
+        {**entry("angular_aev_bwd_bwd", angular_cu,
+                 "torchani_tpu/aev/computer.py:1045 (second derivative through "
+                 "_angular_pallas_bwd's XLA recompute; no pallas_call)", k3bb_err, k3bb_ms,
+                 k3bb_plain_ms, k3bb_bound[0], k3bb_bound[1], None),
+         "at_hessian_pass": {"max_abs_err": h_k3bb_err, "rows": rows, "passes": passes}},
         {**entry("bucket_select_fwd", select_cu, "torchani_tpu/bucket_refresh.py:504",
                  k1_err, k1_ms, k1_plain_ms, k1_bound, k1_by, k1_lib_ms),
          "split": k1_shape["split"], "threads": k1_shape["threads"],

@@ -1,5 +1,6 @@
 """PyTorch port: the kernels' wrappers and, on the card, the CUDA kernels:
-the fused angular AEV (K3) and its backward (K3b), the bucket refresh's
+the fused angular AEV (K3), its backward (K3b) and K3b's backward (K3bb),
+the bucket refresh's
 selection and its transpose (K1, K2), the same for P channels of runtime
 values (K4f, K4b) and over atom-packed rows (K5f, K5b).
 
@@ -12,7 +13,7 @@ K3 against its plain version: atol 1e-5, rtol 1e-4 (f32 sums over the
 neighbour pairs in another order, as in tests/test_pallas.py).  K3b
 against its plain version: |k - p| <= 1e-5 max|p| + 1e-4 |p| (its sums run
 over shared-memory atomics, in an order that changes from run to run), and
-exact zeros on masked lanes.  K1 is a
+exact zeros on masked lanes; K3bb the same on each of its three outputs.  K1 is a
 selection: exactly equal.  K2 sums with atomics in shared memory, in an
 order that changes from run to run: atol 1e-5 + 1e-5 |p|.  K4f and K5f are
 selections (exactly equal), K4b and K5b sum as K2 does (the same bound).
@@ -25,8 +26,11 @@ import pytest
 import torch
 
 from torchani_tpu_torch.aev import AEVComputer, angular_aev, angular_aev_reference
+from torchani_tpu_torch.aev import kernels as kernels_module
 from torchani_tpu_torch.aev.kernels import (
     angular_aev_bwd,
+    angular_aev_bwd_bwd,
+    angular_aev_bwd_bwd_reference,
     bwd_launch_shape as k3b_launch_shape,
     angular_aev_bwd_reference,
     angular_grid,
@@ -105,13 +109,31 @@ CASES = [("like_2x", "cosine", 7), ("like_1x", "smooth", 4), ("like_2x", "smooth
 
 
 @pytest.mark.parametrize("version,cutoff_fn,ns", CASES)
-def test_wrapper_takes_plain_version_on_cpu(version, cutoff_fn, ns):
+def test_wrapper_takes_plain_version_on_cpu(version, cutoff_fn, ns, monkeypatch):
+    """On CPU tensors the wrapper calls `angular_aev_reference` once, with
+    its own arguments, returns that output as it is and launches nothing.
+    A fresh call agrees within atol 1e-6 (its einsums may round otherwise
+    from one call to the next), and rows without a pair are exact zeros."""
     kw = _kwargs(version, cutoff_fn, ns)
     lanes = _lanes(50, 12, ns, seed=0)
+    calls = []
+
+    def spy(*args, **kwargs):
+        calls.append((args, kwargs, angular_aev_reference(*args, **kwargs)))
+        return calls[-1][2]
+
+    monkeypatch.setattr(kernels_module, "angular_aev_reference", spy)
     before = angular_aev.launches
     out = angular_aev(*lanes, **kw)
     assert angular_aev.launches == before
-    np.testing.assert_array_equal(out.numpy(), angular_aev_reference(*lanes, **kw).numpy())
+    assert len(calls) == 1
+    args, kwargs, spied = calls[0]
+    assert out is spied
+    assert all(a is b for a, b in zip(args, lanes)) and len(args) == len(lanes)
+    assert kwargs == kw
+    np.testing.assert_allclose(
+        out.numpy(), angular_aev_reference(*lanes, **kw).numpy(), atol=1e-6, rtol=0
+    )
     assert out.shape == (50, ns * (ns + 1) // 2 * 32)
     assert (out[::7] == 0).all()
 
@@ -359,6 +381,115 @@ def test_one_ef_launches_k3_and_k3b_once_on_card():
     torch.cuda.synchronize()
     after = angular_aev.launches, angular_aev_bwd.launches, angular_grid.calls
     assert tuple(a - b for a, b in zip(after, before)) == (1, 1, 0)
+
+
+# ---- K3bb ----
+
+
+def _direction(n: int, ka: int, seed: int, device: str = "cpu"):
+    rng = np.random.RandomState(seed)
+    return (torch.as_tensor(rng.randn(n, ka).astype(np.float32), device=device),
+            torch.as_tensor(rng.randn(n, ka, 3).astype(np.float32), device=device))
+
+
+def _assert_bwd_bwd_close(out, ref, mask):
+    """K3b's tolerance on each of gg, hdist and hdiff, exact zeros on masked
+    lanes and on the rows that meet no pair."""
+    _assert_bwd_close(out[1:], ref[1:], mask)
+    k, p = out[0].cpu(), ref[0].cpu()
+    assert torch.isfinite(k).all()
+    assert ((k - p).abs() <= ATOL * p.abs().max() + RTOL * p.abs()).all()
+    assert (k[::7] == 0).all()
+
+
+def test_bwd_bwd_wrapper_takes_plain_version_on_cpu():
+    kw = _kwargs("like_2x", "cosine", 7)
+    lanes = _lanes(30, 9, 7, seed=30)
+    g = _cotangent(30, 28 * 32, seed=31)
+    u = _direction(30, 9, seed=32)
+    before = angular_aev_bwd_bwd.launches
+    out = angular_aev_bwd_bwd(g, *lanes, *u, atom_block=7, **kw)
+    assert angular_aev_bwd_bwd.launches == before
+    for a, b in zip(out, angular_aev_bwd_bwd_reference(g, *lanes, *u, **kw)):
+        np.testing.assert_allclose(a.numpy(), b.numpy(), atol=1e-6, rtol=1e-6)
+    with pytest.raises(ValueError):
+        angular_aev_bwd_bwd(g.to("meta"), *(t.to("meta") for t in lanes + list(u)), **kw)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("version,cutoff_fn,ns", CASES)
+@pytest.mark.parametrize("n,ka", [(257, 19), (64, 40)])
+def test_bwd_bwd_kernel_matches_plain_on_card(version, cutoff_fn, ns, n, ka):
+    _cuda()
+    kw = _kwargs(version, cutoff_fn, ns)
+    lanes = _lanes(n, ka, ns, seed=40, device="cuda")
+    width = ns * (ns + 1) // 2 * 32
+    g = _cotangent(n, width + 112, seed=41, device="cuda")[:, 112:]
+    u = _direction(n, ka, seed=42, device="cuda")
+    before = angular_aev_bwd_bwd.launches
+    out = angular_aev_bwd_bwd(g, *lanes, *u, **kw)
+    torch.cuda.synchronize()
+    assert angular_aev_bwd_bwd.launches == before + 1
+    _assert_bwd_bwd_close(out, angular_aev_bwd_bwd_reference(g, *lanes, *u, **kw), lanes[2])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("num_shifts,num_sections", [(5, 3), (16, 4)])
+def test_bwd_bwd_kernel_takes_other_term_widths_on_card(num_shifts, num_sections):
+    _cuda()
+    kw = dict(eta=8.0, zeta=14.1, shifts=tuple(np.linspace(0.9, 3.0, num_shifts).tolist()),
+              sections=tuple(np.linspace(0.2, 2.9, num_sections).tolist()), cutoff=3.5,
+              cutoff_kind="cosine", num_species=3)
+    lanes = _lanes(97, 23, 3, seed=43, device="cuda")
+    g = _cotangent(97, 6 * num_shifts * num_sections, seed=44, device="cuda")
+    u = _direction(97, 23, seed=45, device="cuda")
+    out = angular_aev_bwd_bwd(g, *lanes, *u, **kw)
+    torch.cuda.synchronize()
+    _assert_bwd_bwd_close(out, angular_aev_bwd_bwd_reference(g, *lanes, *u, **kw), lanes[2])
+
+
+@pytest.mark.cuda
+def test_bwd_bwd_kernel_wrapper_checks_on_card():
+    _cuda()
+    kw = _kwargs("like_1x", "cosine", 4)
+    dist, diff, mask, oh = _lanes(8, 5, 4, seed=46, device="cuda")
+    g = _cotangent(8, 10 * 32, seed=47, device="cuda")
+    u_dist, u_diff = _direction(8, 5, seed=48, device="cuda")
+    with pytest.raises(ValueError):
+        angular_aev_bwd_bwd(g, dist, diff, mask, oh, u_dist[:, :4].contiguous(), u_diff, **kw)
+    with pytest.raises(ValueError):
+        angular_aev_bwd_bwd(g, dist, diff, mask, oh, u_dist, u_diff.transpose(0, 1), **kw)
+    with pytest.raises(TypeError):
+        angular_aev_bwd_bwd(g, dist, diff, mask, oh, u_dist.double(), u_diff, **kw)
+    with pytest.raises(ValueError):
+        angular_aev_bwd_bwd(g.t(), dist, diff, mask, oh, u_dist, u_diff, **kw)
+
+
+@pytest.mark.cuda
+def test_hessian_launches_k3bb_on_card():
+    """A Hessian through the kernel strategy: per chunk of replicated rows
+    one K3 and one K3bb launch, K3b twice (the forces' backward and the
+    second backward's pass through the AEV), never the plain grid; equal
+    to the plain strategy's Hessian on the card."""
+    _cuda()
+    from torchani_tpu_torch.grad import hessian_rows, hessians
+
+    species = np.array([[8, 1, 1, 8, 1, 1]])
+    coords = np.array([[[0.0, 0.0, 0.12], [0.0, 0.76, -0.48], [0.0, -0.76, -0.48],
+                        [2.8, 0.1, 0.0], [3.3, 0.8, 0.3], [3.2, -0.7, 0.2]]], dtype=np.float32)
+    model = ANI2x(seed=0, device="cuda")
+    rows = hessian_rows(1, 6)
+    chunks = -(-18 // rows)
+    before = (angular_aev.launches, angular_aev_bwd.launches, angular_aev_bwd_bwd.launches,
+              angular_grid.calls)
+    h_k = hessians(model, species, coords)
+    torch.cuda.synchronize()
+    after = (angular_aev.launches, angular_aev_bwd.launches, angular_aev_bwd_bwd.launches,
+             angular_grid.calls)
+    assert tuple(a - b for a, b in zip(after, before)) == (chunks, 2 * chunks, chunks, 0)
+    model.aev_computer.strategy = "plain"
+    h_p = hessians(model, species, coords)
+    np.testing.assert_allclose(h_k.cpu().numpy(), h_p.cpu().numpy(), atol=2e-4, rtol=1e-3)
 
 
 # ---- K1 and K2 ----

@@ -149,8 +149,12 @@ def test_nve_from_bridged_state_matches_jax(jax_run, port_md):
 def test_state_bridge_refuses_what_is_not_ported(jax_run):
     _, jstart, _ = jax_run
     leaves = _leaves(jstart)
-    with pytest.raises(KeyError, match="scale"):
-        load_jax_md_state({**leaves, ".scale": np.ones(())}, CPU)
+    with pytest.raises(KeyError, match="barostat_mass"):
+        load_jax_md_state({**leaves, ".barostat_mass": np.ones(())}, CPU)
+    # the NPT scale and the Nose-Hoover chain carry over since they are ported
+    carried = load_jax_md_state({**leaves, ".scale": np.ones(()), ".nhc": np.zeros((2, 3))}, CPU)
+    assert float(carried.scale) == 1.0 and tuple(carried.nhc.shape) == (2, 3)
+    assert load_jax_md_state(leaves, CPU).scale is None
     partial = dict(leaves)
     partial.pop(".nbr_mask")
     with pytest.raises(KeyError, match="nbr_mask"):

@@ -3,10 +3,12 @@
 
 Models are ``torch.nn.Module``s, everything else plain functions on tensors.
 Published-scheme weights load through `convert` (``models.*(pretrained=True)``
-reads them from `paths.state_dicts_dir`); MD runs NVE, Langevin and RESPA
-multiple-timestep dynamics.
+reads them from `paths.state_dicts_dir`); `grad` gives forces, Hessians,
+vibrational analysis, ensemble forces and stress; MD runs NVE, Langevin,
+Nose-Hoover, Berendsen NPT and RESPA multiple-timestep dynamics.
 Entry points run on CUDA unless the caller passes ``device="cpu"``; without a
-CUDA device such a call raises.  The angular AEV (forward and backward), the
+CUDA device such a call raises.  The angular AEV (forward, backward and the
+backward's own backward, for second derivatives), the
 MD loop's per-step neighbor refresh (slot-row or atom-packed) and the per-lane
 selection of runtime per-atom values inside D3 dispersion run on hand-written
 CUDA kernels
@@ -40,12 +42,22 @@ from torchani_tpu_torch import (  # noqa: E402
     potentials,
     sae,
     testing,
+    tuples,
     units,
     utils,
 )
 from torchani_tpu_torch.aev import AEVComputer  # noqa: E402
 from torchani_tpu_torch.arch import ANI, Assembler, simple_ani  # noqa: E402
-from torchani_tpu_torch.grad import energies_and_forces, single_point  # noqa: E402
+from torchani_tpu_torch.grad import (  # noqa: E402
+    energies_and_forces,
+    force_qbc,
+    hessians,
+    members_energies_and_forces,
+    single_point,
+    stress_fdotr,
+    stress_scaling,
+    vibrational_analysis,
+)
 from torchani_tpu_torch.md import (  # noqa: E402
     CachedSinglePoint,
     MDState,
@@ -72,10 +84,16 @@ __all__ = [
     "SelfEnergy",
     "SpeciesConverter",
     "energies_and_forces",
+    "force_qbc",
+    "hessians",
     "kinetic_temperature",
     "maxwell_boltzmann_velocities",
+    "members_energies_and_forces",
     "simple_ani",
     "single_point",
+    "stress_fdotr",
+    "stress_scaling",
+    "vibrational_analysis",
     "aev",
     "bucket_refresh",
     "bucket_refresh_packed",
@@ -92,6 +110,7 @@ __all__ = [
     "potentials",
     "sae",
     "testing",
+    "tuples",
     "units",
     "utils",
 ]

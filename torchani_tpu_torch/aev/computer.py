@@ -10,7 +10,8 @@ Angular strategies:
   any cutoff;
 - ``"cuda"``: the fused kernel (`angular_aev`, K3) and its backward kernel
   (`angular_aev_bwd`, K3b), one launch each (`_AngularAEVFunction`; on CPU
-  tensors their plain versions, the backward in atom blocks).  The JAX
+  tensors their plain versions, the backward in atom blocks); a second
+  derivative launches K3bb (`angular_aev_bwd_bwd`) once, a third raises.  The JAX
   package's ``_angular_pallas_op`` differentiates an XLA recompute instead.
   The cosine cutoff and the default smooth one only (other cutoffs raise);
 - ``"auto"``: ``"cuda"`` for CUDA tensors with a cutoff the kernel
@@ -22,11 +23,11 @@ import typing as tp
 
 import torch
 import torch.utils.checkpoint
-from torch.autograd.function import once_differentiable
 
 from torchani_tpu_torch.aev.kernels import (
     angular_aev,
     angular_aev_bwd,
+    angular_aev_bwd_bwd,
     angular_grid,
     lane_species,
 )
@@ -113,8 +114,9 @@ class _AngularAEVFunction(torch.autograd.Function):
     port's counterpart of ``_angular_pallas_op``, whose backward recomputes
     through XLA); on CPU tensors their plain versions, the backward
     ``atom_block`` atoms at a time.  The lane species are computed once and
-    serve both.  First order only: force training (double backward) needs
-    a kernel of its own."""
+    serve every order.  The backward is `_AngularAEVBwdFunction`, so that
+    a second derivative (Hessians, force training) runs K3bb; a third one
+    raises."""
 
     @staticmethod
     def forward(ctx, dist, diff, mask, oh, kwargs, atom_block):
@@ -125,15 +127,58 @@ class _AngularAEVFunction(torch.autograd.Function):
         return angular_aev(dist, diff, mask, oh, species=species, **kwargs)
 
     @staticmethod
-    @once_differentiable
     def backward(ctx, grad):
         dist, diff, mask, oh, species = ctx.saved_tensors
         if grad.stride(-1) != 1:
             grad = grad.contiguous()  # an expanded cotangent (the gradient of a sum)
-        gdist, gdiff = angular_aev_bwd(
-            grad, dist, diff, mask, oh, species, atom_block=ctx.atom_block, **ctx.kwargs
+        gdist, gdiff = _AngularAEVBwdFunction.apply(
+            grad, dist, diff, mask, oh, species, ctx.kwargs, ctx.atom_block
         )
         return gdist, gdiff, None, None, None, None
+
+
+class _AngularAEVBwdFunction(torch.autograd.Function):
+    """K3b as a differentiable function of the cotangent ``g`` and the lanes:
+    its backward is K3bb (`_AngularAEVBwdBwdFunction`), one launch, which
+    gives the cotangent of ``g`` (the AEV's derivative along the direction)
+    and the second-order term on ``dist`` and ``diff``."""
+
+    @staticmethod
+    def forward(ctx, g, dist, diff, mask, oh, species, kwargs, atom_block):
+        ctx.save_for_backward(g, dist, diff, mask, oh, species)
+        ctx.kwargs = kwargs
+        ctx.atom_block = atom_block
+        return angular_aev_bwd(g, dist, diff, mask, oh, species, atom_block=atom_block, **kwargs)
+
+    @staticmethod
+    def backward(ctx, u_dist, u_diff):
+        g, dist, diff, mask, oh, species = ctx.saved_tensors
+        gg, hdist, hdiff = _AngularAEVBwdBwdFunction.apply(
+            g, dist, diff, mask, oh, u_dist.contiguous(), u_diff.contiguous(), species,
+            ctx.kwargs, ctx.atom_block,
+        )
+        return gg, hdist, hdiff, None, None, None, None, None
+
+
+class _AngularAEVBwdBwdFunction(torch.autograd.Function):
+    """K3bb (`angular_aev_bwd_bwd`).  Its own backward, a third derivative
+    of the angular AEV, raises: the JAX package differentiates its XLA
+    recompute to any order, the port's kernels to the second.  (A function
+    marked ``once_differentiable`` would not raise where the derivative is
+    asked of the lanes alone: autograd would leave its share out.)"""
+
+    @staticmethod
+    def forward(ctx, g, dist, diff, mask, oh, u_dist, u_diff, species, kwargs, atom_block):
+        return angular_aev_bwd_bwd(
+            g, dist, diff, mask, oh, u_dist, u_diff, species, atom_block=atom_block, **kwargs
+        )
+
+    @staticmethod
+    def backward(ctx, *grads):
+        raise RuntimeError(
+            "the angular AEV's kernels are differentiable twice, not three times; "
+            "use strategy='plain' for higher derivatives"
+        )
 
 
 class AEVComputer(torch.nn.Module):

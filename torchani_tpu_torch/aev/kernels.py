@@ -14,6 +14,12 @@ those of ``dist`` and ``diff``: K3b of the same source on a CUDA tensor,
 `angular_aev_bwd_reference` (the closed-form derivative over the same grid,
 in atom blocks) on a CPU tensor.  The JAX package has no kernel here: its
 ``_angular_pallas_bwd`` differentiates an XLA recompute of the forward.
+
+`angular_aev_bwd_bwd` is K3b's own backward (K3bb), for second derivatives
+(Hessians, force training): from the cotangents of K3b's outputs, the
+cotangent of its ``g`` (the AEV's derivative along them) and the
+second-order term on ``dist`` and ``diff``; K3bb on a CUDA tensor,
+`angular_aev_bwd_bwd_reference` (closed form, atom blocks) on a CPU tensor.
 """
 
 import ctypes
@@ -30,6 +36,8 @@ from torchani_tpu_torch.annotations import Tensor
 __all__ = [
     "angular_aev",
     "angular_aev_bwd",
+    "angular_aev_bwd_bwd",
+    "angular_aev_bwd_bwd_reference",
     "angular_aev_bwd_reference",
     "angular_aev_reference",
     "angular_grid",
@@ -105,26 +113,32 @@ def angular_grid(
     cos = dots / torch.clamp(dist[:, :, None] * dist[:, None, :], min=1e-10)
     grid = (n, ka, ka)
     terms = angular(dist[:, :, None].expand(grid), dist[:, None, :].expand(grid), cos)
+    return _pairs_to_slots(terms, mask, oh, num_species)
 
+
+angular_grid.calls = 0
+
+
+def _pairs_to_slots(terms: Tensor, mask: Tensor, oh: Tensor, num_species: int) -> Tensor:
+    """Sums the ``(N, Ka, Ka, Z)`` terms of the valid pairs ``j < k`` into
+    the packed species-pair slots; ``(N, P * Z)``."""
+    n, ka, _, nz = terms.shape
     # the pair mask (valid k > j) rides on the narrow one-hot side, not on
     # the (N, Ka, Ka, Z) terms; a masked j is dropped by the second sum
-    ohm = oh.to(dist.dtype) * mask[..., None]
-    upper = torch.ones((ka, ka), dtype=dist.dtype, device=dist.device).triu(1)
+    ohm = oh.to(terms.dtype) * mask[..., None]
+    upper = torch.ones((ka, ka), dtype=terms.dtype, device=terms.device).triu(1)
     ohk = upper[None, :, :, None] * ohm[:, None, :, :]  # (N, Ka_j, Ka_k, S)
     # v[n, s, t, z] = sum_{j<k} T[n, j, k, z] oh[n, j, s] oh[n, k, t]
     w = torch.einsum("njkz,njkt->njtz", terms, ohk)
     v = torch.einsum("njs,njtz->nstz", ohm, w)
     # packed pair p = {s1 <= s2}: v[s1, s2] + v[s2, s1], the diagonal once
-    upper_pairs, lower_pairs, off_diag = _pair_maps(num_species, dist.device)
-    v = v.reshape(n, num_species * num_species, angular.num_feats)
+    upper_pairs, lower_pairs, off_diag = _pair_maps(num_species, terms.device)
+    v = v.reshape(n, num_species * num_species, nz)
     packed = (
         v.index_select(1, upper_pairs)
         + v.index_select(1, lower_pairs) * off_diag[:, None]
     )
-    return packed.reshape(n, upper_pairs.numel() * angular.num_feats)
-
-
-angular_grid.calls = 0
+    return packed.reshape(n, upper_pairs.numel() * nz)
 
 
 @functools.lru_cache(maxsize=16)
@@ -275,6 +289,166 @@ def angular_aev_bwd_reference(
     return gdist, gdiff
 
 
+def _cutoff_second_derivative(r: Tensor, fc: Tensor, dfc: Tensor, cutoff: float,
+                              kind: str) -> Tensor:
+    """fc''(r): the derivative of `_cutoff_and_derivative`'s fc' as it
+    stands (0 past the smooth cutoff's clamp)."""
+    if kind == "cosine":
+        return -0.5 * (math.pi / cutoff) ** 2 * torch.cos(r * (math.pi / cutoff))
+    x = r / cutoff
+    u = 1 - x * x
+    uc = u.clamp(min=1e-10)
+    t = -2 * x / cutoff  # du/dr
+    d2 = dfc * t / (uc * uc) - 2 * fc / (cutoff * cutoff * uc * uc) - 2 * fc * t * t / (uc * uc * uc)
+    return torch.where(u >= 1e-10, d2, 0.0)
+
+
+def _angular_bwd_bwd_block(
+    g: Tensor, dist: Tensor, diff: Tensor, mask: Tensor, oh: Tensor,
+    u_dist: Tensor, u_diff: Tensor, *,
+    eta: float, zeta: float, shifts: Tensor, cos_sec: Tensor, sin_sec: Tensor,
+    cutoff: float, cutoff_kind: str, num_species: int,
+) -> tp.Tuple[Tensor, Tensor, Tensor]:
+    """`angular_aev_bwd_bwd_reference` on one block of atoms.
+
+    Per valid pair, with S = F P0(m, c) the pair's share of <g, AEV> and
+    (F, m, c) its factors: K3b's lane cotangents are S_F dF + S_m dm + S_c
+    dc; along the direction u they give phi = S_F du(F) + S_m du(m) + S_c
+    du(c), whose gradient is the second-order term, and du(T) is the
+    directional derivative of the terms (the J u half)."""
+    n, ka = dist.shape
+    sh, se = shifts.numel(), cos_sec.numel()
+    fc, dfc = _cutoff_and_derivative(dist, cutoff, cutoff_kind)
+    d2fc = _cutoff_second_derivative(dist, fc, dfc, cutoff, cutoff_kind)
+    rj, rk = dist[:, :, None], dist[:, None, :]
+    rr = rj * rk
+    thr = rr >= 1e-10
+    inv_den = 1 / rr.clamp(min=1e-10)
+    c = 0.95 * torch.sum(diff[:, :, None, :] * diff[:, None, :, :], dim=-1) * inv_den
+    s2 = 1 - c * c
+    sin_t = torch.sqrt(s2.clamp(min=1e-20))
+    inside = s2 > 1e-20
+    dsin = torch.where(inside, -c / sin_t, 0.0)
+    ddsin = torch.where(inside, -1 / (sin_t * sin_t * sin_t), 0.0)
+    f = fc[:, :, None] * fc[:, None, :]
+    f_rj = dfc[:, :, None] * fc[:, None, :]
+    f_rk = fc[:, :, None] * dfc[:, None, :]
+    dr = 0.5 * (rj + rk)[..., None] - shifts  # (n, Ka, Ka, Sh)
+    rad = torch.exp(-eta * dr * dr)
+    rad1 = -2 * eta * dr * rad
+    rad2 = (4 * eta * eta * dr * dr - 2 * eta) * rad
+    slope = cos_sec + sin_sec * dsin[..., None]  # d(2 base)/dc, (n, Ka, Ka, Se)
+    base = 0.5 * (1 + c[..., None] * cos_sec + sin_t[..., None] * sin_sec)
+    pw = base ** (zeta - 1)
+    ang = 2 * base * pw
+    ang1 = zeta * pw * slope
+    ang2 = (0.5 * zeta * (zeta - 1) * base ** (zeta - 2) * slope * slope
+            + zeta * pw * sin_sec * ddsin[..., None])
+    # each term's cotangent: g at the pair's slot, on valid pairs j < k only
+    ohm = oh.to(dist.dtype) * mask[..., None]
+    slots = _slot_of_pair(num_species, dist.device)
+    gfull = g.reshape(n, -1, sh * se).index_select(1, slots)
+    gfull = gfull.reshape(n, num_species, num_species, sh * se)
+    upper = torch.ones((ka, ka), dtype=dist.dtype, device=dist.device).triu(1)
+    w = torch.einsum("njs,nstz,nkt->njkz", ohm, gfull, ohm) * upper[None, :, :, None]
+    w = w.reshape(n, ka, ka, sh, se)
+    t1 = torch.sum(w * ang[..., None, :], dim=-1)  # (n, Ka, Ka, Sh)
+    t2 = torch.sum(w * ang1[..., None, :], dim=-1)
+    t3 = torch.sum(w * ang2[..., None, :], dim=-1)
+    p0, pm, pmm = (torch.sum(t1 * r, dim=-1) for r in (rad, rad1, rad2))
+    pc, pmc = (torch.sum(t2 * r, dim=-1) for r in (rad, rad1))
+    pcc = torch.sum(t3 * rad, dim=-1)
+
+    # the direction: du(F), du(m), du(c) of each pair
+    urj, urk = u_dist[:, :, None], u_dist[:, None, :]
+    q = (torch.einsum("nkx,njx->njk", diff, u_diff)
+         + torch.einsum("njx,nkx->njk", diff, u_diff))  # d_k . u_j + d_j . u_k
+    c_rj = torch.where(thr, -c / rj, 0.0)
+    c_rk = torch.where(thr, -c / rk, 0.0)
+    d_f = f_rj * urj + f_rk * urk
+    d_m = 0.5 * (urj + urk)
+    d_c = c_rj * urj + c_rk * urk + 0.95 * inv_den * q
+
+    # J u: the terms' directional derivative, summed into the slots
+    xa = d_f[..., None] * rad + (f * d_m)[..., None] * rad1  # (n, Ka, Ka, Sh)
+    ya = (f * d_c)[..., None] * rad
+    jvp = xa[..., None] * ang[..., None, :] + ya[..., None] * ang1[..., None, :]
+    gg = _pairs_to_slots(jvp.reshape(n, ka, ka, sh * se), mask, oh, num_species)
+
+    # the gradient of phi
+    w_f = pm * d_m + pc * d_c
+    w_m = pm * d_f + f * (pmm * d_m + pmc * d_c)
+    w_c = pc * d_f + f * (pmc * d_m + pcc * d_c)
+    wr = torch.where(thr, urj / rj + urk / rk, 0.0)
+    fpc = f * pc
+    ddc_rj = torch.where(thr, (c / rj) * wr + c * urj / (rj * rj) - 0.95 * q * inv_den / rj, 0.0)
+    ddc_rk = torch.where(thr, (c / rk) * wr + c * urk / (rk * rk) - 0.95 * q * inv_den / rk, 0.0)
+    dfc_jk = dfc[:, :, None] * dfc[:, None, :]
+    h_rj = (w_f * f_rj + 0.5 * w_m + w_c * c_rj + fpc * ddc_rj
+            + p0 * (d2fc[:, :, None] * fc[:, None, :] * urj + dfc_jk * urk))
+    h_rk = (w_f * f_rk + 0.5 * w_m + w_c * c_rk + fpc * ddc_rk
+            + p0 * (dfc_jk * urj + fc[:, :, None] * d2fc[:, None, :] * urk))
+    alpha = 0.95 * inv_den * (w_c - fpc * wr)
+    beta = 0.95 * inv_den * fpc
+    hdist = h_rj.sum(2) + h_rk.sum(1)
+    hdiff = (torch.einsum("njk,nkx->njx", alpha, diff) + torch.einsum("njk,nkx->njx", beta, u_diff)
+             + torch.einsum("njk,njx->nkx", alpha, diff)
+             + torch.einsum("njk,njx->nkx", beta, u_diff))
+    return gg, hdist, hdiff
+
+
+def angular_aev_bwd_bwd_reference(
+    g: Tensor,  # (N, P * Z)
+    dist: Tensor,  # (N, Ka), masked lanes hold 1.0
+    diff: Tensor,  # (N, Ka, 3), masked lanes 0
+    mask: Tensor,  # (N, Ka) bool
+    oh: Tensor,  # (N, Ka, S) one-hot, masked lanes all-zero
+    u_dist: Tensor,  # (N, Ka)
+    u_diff: Tensor,  # (N, Ka, 3)
+    *,
+    eta: float,
+    zeta: float,
+    shifts: tp.Sequence[float],
+    sections: tp.Sequence[float],
+    cutoff: float,
+    cutoff_kind: str,
+    num_species: int,
+    atom_block: tp.Optional[int] = None,
+) -> tp.Tuple[Tensor, Tensor, Tensor]:
+    """Plain version of K3bb, the vector-Jacobian product of K3b: from the
+    cotangents ``(u_dist, u_diff)`` of K3b's outputs, ``gg (N, P * Z)``, the
+    AEV's directional derivative along u (the cotangent of K3b's ``g``),
+    and ``(hdist, hdiff)``, the second-order term ``sum_o g_o Hess(AEV_o)
+    u`` (the cotangents of ``dist`` and ``diff``, as independent inputs).
+
+    The closed form of the derivative of K3b's formulas as they stand (their
+    clamps included), over the ``(blk, Ka, Ka, Z)`` grid, ``atom_block``
+    atoms at a time (all at once by default).  Masked lanes get exact
+    zeros, and so do rows that meet no pair."""
+    if cutoff_kind not in CUTOFF_KINDS:
+        raise ValueError(f"Unsupported cutoff kind {cutoff_kind!r}")
+    cos_np, sin_np = _section_trig(sections)
+    consts = dict(
+        eta=float(eta), zeta=float(zeta),
+        shifts=torch.as_tensor(np.asarray(shifts, dtype=np.float32), device=dist.device),
+        cos_sec=torch.as_tensor(cos_np, device=dist.device),
+        sin_sec=torch.as_tensor(sin_np, device=dist.device),
+        cutoff=float(cutoff), cutoff_kind=cutoff_kind, num_species=num_species,
+    )
+    n = dist.shape[0]
+    block = max(1, n if atom_block is None else atom_block)
+    width = num_species * (num_species + 1) // 2 * len(shifts) * len(sections)
+    gg = dist.new_zeros((n, width))
+    hdist = torch.zeros_like(dist)
+    hdiff = torch.zeros_like(diff)
+    for start in range(0, n, block):
+        sl = slice(start, start + block)
+        gg[sl], hdist[sl], hdiff[sl] = _angular_bwd_bwd_block(
+            g[sl], dist[sl], diff[sl], mask[sl], oh[sl], u_dist[sl], u_diff[sl], **consts
+        )
+    return gg, hdist, hdiff
+
+
 @functools.lru_cache(maxsize=None)
 def _library() -> ctypes.CDLL:
     from torchani_tpu_torch.csrc import load_library
@@ -293,7 +467,13 @@ def _library() -> ctypes.CDLL:
         vp, ctypes.c_longlong,  # g, its row stride
         vp, vp, vp, vp, vp,  # dist, diff, species, gdist, gdiff
     ] + terms
+    lib.angular_aev_bwd_bwd_launch.argtypes = [
+        vp, ctypes.c_longlong,  # g, its row stride
+        vp, vp, vp, vp, vp,  # dist, diff, species, u_dist, u_diff
+        vp, vp, vp,  # gg, hdist, hdiff
+    ] + terms
     lib.angular_aev_launch.restype = lib.angular_aev_bwd_launch.restype = ci
+    lib.angular_aev_bwd_bwd_launch.restype = ci
     ip = ctypes.POINTER(ci)
     lib.angular_aev_bwd_shape.argtypes = [ci, ci, ci, ci, ci, ci, ip, ip,
                                           ctypes.POINTER(ctypes.c_longlong)]
@@ -479,6 +659,80 @@ def angular_aev_bwd(
 
 
 angular_aev_bwd.launches = 0
+
+
+def angular_aev_bwd_bwd(
+    g: Tensor,  # (N, P * Z), columns contiguous, any row stride
+    dist: Tensor,  # (N, Ka), masked lanes hold 1.0
+    diff: Tensor,  # (N, Ka, 3), masked lanes 0
+    mask: Tensor,  # (N, Ka) bool
+    oh: Tensor,  # (N, Ka, S) one-hot with masked lanes all-zero
+    u_dist: Tensor,  # (N, Ka)
+    u_diff: Tensor,  # (N, Ka, 3)
+    species: tp.Optional[Tensor] = None,
+    *,
+    eta: float,
+    zeta: float,
+    shifts: tp.Sequence[float],
+    sections: tp.Sequence[float],
+    cutoff: float,
+    cutoff_kind: str,
+    num_species: int,
+    atom_block: tp.Optional[int] = None,
+) -> tp.Tuple[Tensor, Tensor, Tensor]:
+    """Backward of `angular_aev_bwd` (K3bb): ``(gg (N, P * Z), hdist (N,
+    Ka), hdiff (N, Ka, 3))`` from the cotangents ``u_dist`` and ``u_diff``
+    of its outputs (see `angular_aev_bwd_bwd_reference`).
+
+    CPU tensors take `angular_aev_bwd_bwd_reference`, ``atom_block`` atoms
+    at a time; CUDA tensors launch K3bb once and raise if it cannot run.
+    ``g`` may be a column slice of a wider tensor, as for K3b.
+    ``angular_aev_bwd_bwd.launches`` counts launches.
+    """
+    kwargs = dict(
+        eta=eta, zeta=zeta, shifts=shifts, sections=sections, cutoff=cutoff,
+        cutoff_kind=cutoff_kind, num_species=num_species,
+    )
+    if dist.device.type == "cpu":
+        return angular_aev_bwd_bwd_reference(
+            g, dist, diff, mask, oh, u_dist, u_diff, atom_block=atom_block, **kwargs
+        )
+    what = "angular_aev_bwd_bwd"
+    species = _check_lanes(
+        what, dist, diff, mask, oh, species, num_species, shifts, sections, cutoff_kind
+    )
+    n, ka = dist.shape
+    width = num_species * (num_species + 1) // 2 * len(shifts) * len(sections)
+    if g.shape != (n, width):
+        raise ValueError(f"{what}: g has shape {tuple(g.shape)}, not {(n, width)}")
+    if g.stride(1) != 1:
+        raise ValueError(f"{what}: g's columns must be contiguous (strides {g.stride()})")
+    for name, t, shape in (("g", g, None), ("u_dist", u_dist, (n, ka)),
+                           ("u_diff", u_diff, (n, ka, 3))):
+        if t.device != dist.device:
+            raise ValueError(f"{what}: {name} is on {t.device}, not {dist.device}")
+        if t.dtype != torch.float32:
+            raise TypeError(f"{what}: {name} must be float32")
+        if shape is not None and (tuple(t.shape) != shape or not t.is_contiguous()):
+            raise ValueError(f"{what}: {name} must be a contiguous {shape} tensor")
+    gg = torch.empty((n, width), dtype=torch.float32, device=dist.device)
+    hdist = torch.empty_like(dist)
+    hdiff = torch.empty_like(diff)
+    if n == 0:
+        return gg, hdist, hdiff
+    lib = _library()
+    _launch(
+        what, lib.angular_aev_bwd_bwd_launch, dist.device,
+        (g.data_ptr(), g.stride(0), dist.data_ptr(), diff.data_ptr(), species.data_ptr(),
+         u_dist.data_ptr(), u_diff.data_ptr(), gg.data_ptr(), hdist.data_ptr(),
+         hdiff.data_ptr()),
+        n, ka, kwargs,
+    )
+    angular_aev_bwd_bwd.launches += 1
+    return gg, hdist, hdiff
+
+
+angular_aev_bwd_bwd.launches = 0
 
 
 def bwd_launch_shape(

@@ -1,4 +1,5 @@
-// Fused angular AEV (K3) and its backward (K3b) for Hopper (sm_90a).
+// Fused angular AEV (K3), its backward (K3b) and K3b's backward (K3bb) for
+// Hopper (sm_90a).
 //
 // K3 replaces the Pallas TPU kernel `_angular_kernel` reached through
 // `angular_aev_pallas` (torchani_tpu/aev/pallas_kernels.py:28-208, the
@@ -105,6 +106,38 @@
 // ablated the same way, ~0.028 ms of it is the pair loop's
 // arithmetic and ~0.008 the atomics, against a bound of 0.0065 ms set by
 // the special-function units once only the rows that meet a pair are read.
+// K3bb is K3b's vector-Jacobian product, the angular AEV's second
+// derivative (Hessians, force training).  It replaces no pallas_call: the
+// JAX package differentiates `_angular_pallas_bwd`'s XLA recompute
+// (torchani_tpu/aev/computer.py:1045) a second time.  From the cotangents
+// u = (u_dist, u_diff) of K3b's outputs and K3b's own inputs it gives, in
+// one launch, gg (N, P * Z) = J u, the AEV's derivative along u (the
+// cotangent of g), and (hdist, hdiff) = sum_o g_o Hess(AEV_o) u, the
+// derivative of K3b's formulas as they stand, clamps included.  Per valid
+// pair, with S = F P0(m, c) the pair's share of <g, AEV>:
+//
+//   J u:  du(T_ab) = (dF R_a + F dm R'_a) A_b + (F dc R_a) A'_b
+//   phi = P0 dF + F Pm dm + F Pc dc   (K3b's pair cotangents along u)
+//   h   = grad phi, through F(r_j, r_k), m, c and du(F), du(c)
+//
+// where P0, Pm, Pc, Pmm, Pmc, Pcc are the sums over (a, b) of g_ab times
+// R_a A_b, R'_a A_b, R_a A'_b, R''_a A_b, R'_a A'_b and R_a A''_b
+// (angular_aev_bwd_bwd_reference spells out every term).  The design is
+// the simple one: one warp an atom, four atoms a block, 2,501 blocks at the
+// water box; K3b's staging (lanes, direction, fc'', the cotangent rows that
+// meet a pair) and its rounds of pairs; each pair writes its X_a, Y_a, A_b,
+// A'_b to a per-warp tile (odd row stride) and adds its 8 second-order
+// values to per-warp lane planes with shared-memory atomics; each lane then
+// sums its own features' share of J u over the batch's pairs, slot by slot,
+// into a (P, Z) accumulator, as K3 does, so gg needs no atomics.  Shared
+// memory: ~13 KB a warp at the water box (51 KB a block).  What bounds it
+// on this card at the water box, counted as chip_smoke.py counts it: bytes,
+// 54 MB (gg is a full (N, P * Z) output, 36 MB; the lanes and the direction
+// read, the cotangent rows that meet a pair, hdist and hdiff), 0.016 ms at
+// 3.35 TB/s, against 0.013 ms of f32 arithmetic (~720 operations a pair)
+// and 0.006 ms of special functions (sh + 3 se + 1 a pair).  On an H100 it
+// takes 0.131 ms there, 8x that bound; making it fast is later work.
+//
 // Compiled without --use_fast_math: expf, log2f, exp2f, sqrtf, cosf and sinf
 // keep their full-precision forms (the parity target against the plain
 // version is 1e-5); K3b's rsqrtf and reciprocals are within a few units of
@@ -632,6 +665,349 @@ angular_aev_bwd_kernel(const float* __restrict__ g,        // (N, P * Z), row st
   }
 }
 
+// row stride of K3bb's per-pair tile: X_a, Y_a (num_shifts each), A_b, A'_b
+// (num_sections each); odd, so 32 rows hit 32 banks
+__host__ __device__ __forceinline__ int bwdbwd_tile_stride(int sh, int se) {
+  return (2 * sh + 2 * se) | 1;
+}
+
+// floats of K3bb's shared memory a warp: g (P, slot stride) | per compacted
+// lane (r, x, y, z), (fc, fc', 1 / r, species), (u_r, u_x, u_y, u_z) as
+// float4s | gg accumulator (P, Z) | pair tile (32, ts) | tile slots (32) |
+// fc'' (Ka) | lane map (Ka) | second-order planes r, x, y, z (Ka each)
+__host__ __device__ __forceinline__ size_t bwdbwd_warp_floats(int num_pairs, int sh, int se,
+                                                              int ka) {
+  const int nz = sh * se;
+  return round4(static_cast<size_t>(num_pairs) * bwd_slot_stride(nz)) +
+         12 * static_cast<size_t>(ka) + round4(static_cast<size_t>(num_pairs) * nz) +
+         round4(32 * static_cast<size_t>(bwdbwd_tile_stride(sh, se))) + 32 +
+         2 * round4(ka) + 4 * static_cast<size_t>(ka);
+}
+
+// fc''(r), the derivative of `cutoff_fn`'s fc' as it stands (0 past the
+// smooth cutoff's clamp)
+__device__ __forceinline__ float cutoff_second(float r, float fc, float dfc,
+                                               const AngularParams& p) {
+  if (p.cutoff_kind == 0) {
+    return -0.5f * p.pi_over_cutoff * p.pi_over_cutoff * cosf(r * p.pi_over_cutoff);
+  }
+  const float x = r / p.cutoff;
+  const float u = 1.0f - x * x;
+  const float uc = fmaxf(u, 1e-10f);
+  const float t = -2.0f * x / p.cutoff;
+  const float inv_uc2 = 1.0f / (uc * uc);
+  return u >= 1e-10f ? dfc * t * inv_uc2 - 2.0f * fc * inv_uc2 / (p.cutoff * p.cutoff) -
+                           2.0f * fc * t * t * inv_uc2 / uc
+                     : 0.0f;
+}
+
+// K3bb's staging: `stage_bwd_lanes`, and each valid lane's direction
+// lu[c] = (u_r, u_x, u_y, u_z) and fc''
+__device__ int stage_bwdbwd_lanes(const float* __restrict__ dist, const float* __restrict__ diff,
+                                  const int* __restrict__ species,
+                                  const float* __restrict__ u_dist,
+                                  const float* __restrict__ u_diff, size_t row, int lane,
+                                  const AngularParams& p, float4* la, float4* lb, float4* lu,
+                                  float* lf, int* map) {
+  int nv = 0;
+  const unsigned below = (1u << lane) - 1u;
+  for (int base = 0; base < p.ka; base += 32) {
+    const int l = base + lane;
+    const bool in = l < p.ka;
+    const int t = in ? species[row + l] : -1;
+    const bool mine = t >= 0;
+    const unsigned found = __ballot_sync(kFullMask, mine);
+    const int c = nv + __popc(found & below);
+    if (in) {
+      map[l] = mine ? c : -1;
+    }
+    if (mine) {
+      const float r = dist[row + l];
+      float fc, dfc;
+      cutoff_fn<true>(r, p, fc, dfc);
+      la[c] = make_float4(r, diff[(row + l) * 3 + 0], diff[(row + l) * 3 + 1],
+                          diff[(row + l) * 3 + 2]);
+      lb[c] = make_float4(fc, dfc, 1.0f / r, __int_as_float(t));
+      lu[c] = make_float4(u_dist[row + l], u_diff[(row + l) * 3 + 0], u_diff[(row + l) * 3 + 1],
+                          u_diff[(row + l) * 3 + 2]);
+      lf[c] = cutoff_second(r, fc, dfc, p);
+    }
+    nv += __popc(found);
+  }
+  return nv;
+}
+
+// What pair {j, k} gives K3bb: its row of the tile (X_a = dF R_a + F dm
+// R'_a, Y_a = F dc R_a, A_b, A'_b, so that its share of J u at feature
+// (a, b) is X_a A_b + Y_a A'_b) and its slot, and in v the gradient of
+// phi = <u, K3b's pair cotangents> on r, x, y, z of j (v[0..3]) and of k
+// (v[4..7]); see angular_aev_bwd_bwd_reference for the formulas
+template <int SH, int SE>
+__device__ __forceinline__ int pair_bwd_bwd(int j, int k, const float4* la, const float4* lb,
+                                            const float4* lu, const float* lf, const float* gs,
+                                            int gz, const AngularParams& p, float* trow,
+                                            float* v) {
+  constexpr int kSh = SH > 0 ? SH : kMaxShifts;
+  constexpr int kSe = SE > 0 ? SE : kMaxSections;
+  const int sh = SH > 0 ? SH : p.num_shifts;
+  const int se = SE > 0 ? SE : p.num_sections;
+  const float4 aj = la[j], ak = la[k];
+  const float4 bj = lb[j], bk = lb[k];
+  const float4 uj = lu[j], uk = lu[k];
+  const float rr = aj.x * ak.x;
+  const bool thr = rr >= 1e-10f;
+  const float inv_den = thr ? bj.z * bk.z : 1e10f;
+  const float c = 0.95f * (aj.y * ak.y + aj.z * ak.z + aj.w * ak.w) * inv_den;
+  const float s2 = 1.0f - c * c;
+  const float s2c = fmaxf(s2, 1e-20f);
+  const float inv_sin = rsqrtf(s2c);
+  const float sin_t = s2c * inv_sin;
+  const bool inside = s2 > 1e-20f;
+  const float dsin = inside ? -c * inv_sin : 0.0f;
+  const float ddsin = inside ? -inv_sin * inv_sin * inv_sin : 0.0f;
+  const float mean = 0.5f * (aj.x + ak.x);
+  const float f = bj.x * bk.x;
+  const float f_rj = bj.y * bk.x;
+  const float f_rk = bj.x * bk.y;
+  const float zeta_m1 = p.zeta - 1.0f;
+
+  // the direction: du(F), du(m), du(c)
+  const float urj = uj.x, urk = uk.x;
+  const float qd = ak.y * uj.y + ak.z * uj.z + ak.w * uj.w + aj.y * uk.y + aj.z * uk.z +
+                   aj.w * uk.w;
+  const float c_rj = thr ? -c * bj.z : 0.0f;
+  const float c_rk = thr ? -c * bk.z : 0.0f;
+  const float d_f = f_rj * urj + f_rk * urk;
+  const float d_m = 0.5f * (urj + urk);
+  const float d_c = c_rj * urj + c_rk * urk + 0.95f * inv_den * qd;
+
+  float ang[kSe], ang1[kSe], ang2[kSe];
+#pragma unroll
+  for (int b = 0; b < kSe; ++b) {
+    ang[b] = ang1[b] = ang2[b] = 0.0f;
+    if (b < se) {
+      const float cs = p.cossec[b];
+      const float sn = p.sinsec[b];
+      const float slope = cs + sn * dsin;
+      const float base = 0.5f * (1.0f + c * cs + sin_t * sn);
+      const float pw = zeta_m1 > 0.0f ? pow_pos(base, zeta_m1) : 1.0f;
+      ang[b] = 2.0f * base * pw;
+      ang1[b] = p.zeta * pw * slope;
+      ang2[b] = 0.5f * p.zeta * zeta_m1 * (pw / base) * slope * slope +
+                p.zeta * pw * sn * ddsin;
+      trow[2 * sh + b] = ang[b];
+      trow[2 * sh + se + b] = ang1[b];
+    }
+  }
+  const int slot = triu_slot(__float_as_int(bj.w), __float_as_int(bk.w), p.num_species);
+  const float* gp = gs + slot * gz;
+  const float eta_log2e = -p.eta * 1.4426950408889634f;
+  float p0 = 0.0f, pm = 0.0f, pmm = 0.0f, pc = 0.0f, pmc = 0.0f, pcc = 0.0f;
+#pragma unroll
+  for (int a = 0; a < kSh; ++a) {
+    if (a < sh) {
+      const float dr = mean - p.shift[a];
+      const float ra = exp2f(eta_log2e * dr * dr);
+      const float ra1 = -2.0f * p.eta * dr * ra;
+      const float ra2 = (4.0f * p.eta * p.eta * dr * dr - 2.0f * p.eta) * ra;
+      float gv[kSe];
+      if (SE > 0 && SE % 4 == 0) {
+#pragma unroll
+        for (int b = 0; b < kSe; b += 4) {
+          const float4 g4 = *reinterpret_cast<const float4*>(gp + a * kSe + b);
+          gv[b] = g4.x;
+          gv[b + 1] = g4.y;
+          gv[b + 2] = g4.z;
+          gv[b + 3] = g4.w;
+        }
+      } else {
+#pragma unroll
+        for (int b = 0; b < kSe; ++b) {
+          gv[b] = b < se ? gp[a * se + b] : 0.0f;
+        }
+      }
+      float t1 = 0.0f, t2 = 0.0f, t3 = 0.0f;
+#pragma unroll
+      for (int b = 0; b < kSe; ++b) {
+        t1 += gv[b] * ang[b];
+        t2 += gv[b] * ang1[b];
+        t3 += gv[b] * ang2[b];
+      }
+      p0 += ra * t1;
+      pm += ra1 * t1;
+      pmm += ra2 * t1;
+      pc += ra * t2;
+      pmc += ra1 * t2;
+      pcc += ra * t3;
+      trow[a] = d_f * ra + f * d_m * ra1;
+      trow[sh + a] = f * d_c * ra;
+    }
+  }
+  const float w_f = pm * d_m + pc * d_c;
+  const float w_m = pm * d_f + f * (pmm * d_m + pmc * d_c);
+  const float w_c = pc * d_f + f * (pmc * d_m + pcc * d_c);
+  const float wr = thr ? urj * bj.z + urk * bk.z : 0.0f;
+  const float fpc = f * pc;
+  const float ddc_rj =
+      thr ? c * bj.z * wr + c * urj * bj.z * bj.z - 0.95f * qd * inv_den * bj.z : 0.0f;
+  const float ddc_rk =
+      thr ? c * bk.z * wr + c * urk * bk.z * bk.z - 0.95f * qd * inv_den * bk.z : 0.0f;
+  const float dfc_jk = bj.y * bk.y;
+  v[0] = w_f * f_rj + 0.5f * w_m + w_c * c_rj + fpc * ddc_rj +
+         p0 * (lf[j] * bk.x * urj + dfc_jk * urk);
+  v[4] = w_f * f_rk + 0.5f * w_m + w_c * c_rk + fpc * ddc_rk +
+         p0 * (dfc_jk * urj + bj.x * lf[k] * urk);
+  const float alpha = 0.95f * inv_den * (w_c - fpc * wr);
+  const float beta = 0.95f * inv_den * fpc;
+  v[1] = alpha * ak.y + beta * uk.y;
+  v[2] = alpha * ak.z + beta * uk.z;
+  v[3] = alpha * ak.w + beta * uk.w;
+  v[5] = alpha * aj.y + beta * uj.y;
+  v[6] = alpha * aj.z + beta * uj.z;
+  v[7] = alpha * aj.w + beta * uj.w;
+  return slot;
+}
+
+// K3bb.  SH, SE as for K3.  One warp an atom, four atoms a block.  The
+// atom's valid lanes, its direction and the cotangent rows its pairs read
+// are staged as in K3b; its pairs, 32 at a time in K3b's rounds, write
+// their tile rows and add their second-order values to the lane planes
+// with shared-memory atomics; then each lane sums its own features' share
+// of J u over the batch's pairs into the (P, Z) accumulator, slot by slot,
+// as K3 does.
+template <int SH, int SE>
+__global__ void __launch_bounds__(kThreads)
+angular_aev_bwd_bwd_kernel(const float* __restrict__ g,        // (N, P * Z), row stride g_stride
+                           long long g_stride,
+                           const float* __restrict__ dist,     // (N, Ka)
+                           const float* __restrict__ diff,     // (N, Ka, 3)
+                           const int* __restrict__ species,    // (N, Ka), -1 masked
+                           const float* __restrict__ u_dist,   // (N, Ka)
+                           const float* __restrict__ u_diff,   // (N, Ka, 3)
+                           float* __restrict__ gg,             // (N, P * Z)
+                           float* __restrict__ hdist,          // (N, Ka)
+                           float* __restrict__ hdiff,          // (N, Ka, 3)
+                           const AngularParams p) {
+  constexpr int kSh = SH > 0 ? SH : kMaxShifts;
+  constexpr int kSe = SE > 0 ? SE : kMaxSections;
+  extern __shared__ __align__(16) float bb_smem[];
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  const int atom = blockIdx.x * kWarpsPerBlock + warp;
+  const int sh = SH > 0 ? SH : p.num_shifts;
+  const int se = SE > 0 ? SE : p.num_sections;
+  const int nz = sh * se;
+  const int pz = p.num_pairs * nz;
+  const int gz = bwd_slot_stride(nz);
+  const int ka = p.ka;
+  const int ts = bwdbwd_tile_stride(sh, se);
+
+  float* gs = bb_smem + warp * bwdbwd_warp_floats(p.num_pairs, sh, se, ka);
+  float4* la = reinterpret_cast<float4*>(gs + round4(static_cast<size_t>(p.num_pairs) * gz));
+  float4* lb = la + ka;
+  float4* lu = lb + ka;
+  float* acc = reinterpret_cast<float*>(lu + ka);
+  float* tile = acc + round4(static_cast<size_t>(pz));
+  int* tslot = reinterpret_cast<int*>(tile + round4(32 * static_cast<size_t>(ts)));
+  float* lf = reinterpret_cast<float*>(tslot + 32);
+  int* map = reinterpret_cast<int*>(lf + round4(ka));
+  float* hacc = reinterpret_cast<float*>(map + round4(ka));  // planes r, x, y, z
+
+  if (atom >= p.n) {
+    return;  // the whole warp leaves together; only __syncwarp is used below
+  }
+  const size_t row = static_cast<size_t>(atom) * ka;
+  const int nv = stage_bwdbwd_lanes(dist, diff, species, u_dist, u_diff, row, lane, p, la, lb,
+                                    lu, lf, map);
+  __syncwarp();
+  copy_slot_rows(g + static_cast<long long>(atom) * g_stride, lane, nv, lb, p.num_species, nz, gs);
+  for (int i = lane; i < pz; i += 32) {
+    acc[i] = 0.0f;
+  }
+  for (int i = lane; i < 4 * ka; i += 32) {
+    hacc[i] = 0.0f;
+  }
+  cp_async_wait_all();
+  __syncwarp();
+
+  // this lane's features: z = lane + 32 i, at tile columns X, Y, A, A'
+  constexpr int kZPerLane = (kSh * kSe + 31) / 32;
+  int col_a[kZPerLane], col_b[kZPerLane];
+  float run[kZPerLane];
+#pragma unroll
+  for (int i = 0; i < kZPerLane; ++i) {
+    const int z = lane + 32 * i;
+    col_a[i] = z < nz ? z / se : 0;
+    col_b[i] = z < nz ? 2 * sh + z % se : 2 * sh;
+    run[i] = 0.0f;
+  }
+  int cur = -1;  // the slot `run` sums into (the same in every lane)
+
+  const int num = nv * (nv - 1) / 2;
+  for (int q0 = 0; q0 < num; q0 += 32) {
+    const int q = q0 + lane;
+    if (q < num) {
+      // pair q = (d - 1) nv + j of K3b's rounds: k = (j + d) mod nv
+      const int d = q / nv + 1;
+      const int j = q % nv;
+      int k = j + d;
+      k -= k >= nv ? nv : 0;
+      float v[8];
+      tslot[lane] = pair_bwd_bwd<SH, SE>(j, k, la, lb, lu, lf, gs, gz, p, tile + lane * ts, v);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        atomicAdd(hacc + e * ka + j, v[e]);
+        atomicAdd(hacc + e * ka + k, v[4 + e]);
+      }
+    }
+    __syncwarp();
+    const int cnt = min(32, num - q0);
+    for (int m = 0; m < cnt; ++m) {
+      const int slot = tslot[m];
+      if (slot != cur) {
+        if (cur >= 0) {
+#pragma unroll
+          for (int i = 0; i < kZPerLane; ++i) {
+            if (lane + 32 * i < nz) {
+              acc[cur * nz + lane + 32 * i] += run[i];
+            }
+            run[i] = 0.0f;
+          }
+        }
+        cur = slot;
+      }
+      const float* t = tile + m * ts;
+#pragma unroll
+      for (int i = 0; i < kZPerLane; ++i) {
+        run[i] += t[col_a[i]] * t[col_b[i]] + t[sh + col_a[i]] * t[se + col_b[i]];
+      }
+    }
+    __syncwarp();
+  }
+  if (cur >= 0) {
+#pragma unroll
+    for (int i = 0; i < kZPerLane; ++i) {
+      if (lane + 32 * i < nz) {
+        acc[cur * nz + lane + 32 * i] += run[i];
+      }
+    }
+  }
+  __syncwarp();
+
+  float* o = gg + static_cast<size_t>(atom) * pz;
+  for (int i = lane; i < pz; i += 32) {
+    o[i] = acc[i];
+  }
+  for (int l = lane; l < ka; l += 32) {
+    const int c = map[l];
+    hdist[row + l] = c >= 0 ? hacc[c] : 0.0f;
+  }
+  for (int i = lane; i < 3 * ka; i += 32) {
+    const int c = map[i / 3];
+    hdiff[row * 3 + i] = c >= 0 ? hacc[(1 + i % 3) * ka + c] : 0.0f;
+  }
+}
+
 using FwdKernel = void (*)(const float*, const float*, const int*, float*, AngularParams);
 using BwdKernel = void (*)(const float*, long long, const float*, const float*, const int*,
                            float*, float*, AngularParams);
@@ -644,6 +1020,19 @@ FwdKernel pick_fwd(int sh, int se) {
     return angular_aev_kernel<4, 8>;
   }
   return angular_aev_kernel<0, 0>;
+}
+
+using BwdBwdKernel = void (*)(const float*, long long, const float*, const float*, const int*,
+                              const float*, const float*, float*, float*, float*, AngularParams);
+
+BwdBwdKernel pick_bwd_bwd(int sh, int se) {
+  if (sh == 8 && se == 4) {
+    return angular_aev_bwd_bwd_kernel<8, 4>;
+  }
+  if (sh == 4 && se == 8) {
+    return angular_aev_bwd_bwd_kernel<4, 8>;
+  }
+  return angular_aev_bwd_bwd_kernel<0, 0>;
 }
 
 BwdKernel pick_bwd(int sh, int se) {
@@ -731,7 +1120,7 @@ cudaError_t bwd_shape(BwdKernel kernel, const AngularParams& p, int device, int&
 
 extern "C" {
 
-// Both launch on `stream` (a cudaStream_t) of `device` and return the
+// All three launch on `stream` (a cudaStream_t) of `device` and return the
 // cudaError_t of the launch (0 on success).  `dist`, `diff`, `species` and
 // the outputs are contiguous device arrays; `g` is a device array whose rows
 // are `g_row_stride` floats apart, its columns contiguous.  `shifts`,
@@ -792,6 +1181,40 @@ int angular_aev_bwd_launch(const float* g, long long g_row_stride, const float* 
   }
   kernel<<<blocks, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
       g, g_row_stride, dist, diff, species, gdist, gdiff, p);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// K3bb: `g` read as K3b reads it; `u_dist` (N, Ka) and `u_diff` (N, Ka, 3)
+// the cotangents of K3b's outputs; writes gg (N, P * Z), hdist, hdiff
+int angular_aev_bwd_bwd_launch(const float* g, long long g_row_stride, const float* dist,
+                               const float* diff, const int* species, const float* u_dist,
+                               const float* u_diff, float* gg, float* hdist, float* hdiff, int n,
+                               int ka, int num_species, const float* shifts, int num_shifts,
+                               const float* cos_sections, const float* sin_sections,
+                               int num_sections, float eta, float zeta, float cutoff,
+                               float pi_over_cutoff, int cutoff_kind, int device, void* stream) {
+  AngularParams p;
+  cudaError_t err = make_params(p, n, ka, num_species, shifts, num_shifts, cos_sections,
+                                sin_sections, num_sections, eta, zeta, cutoff, pi_over_cutoff,
+                                cutoff_kind);
+  if (err != cudaSuccess) {
+    return static_cast<int>(err);
+  }
+  if (g_row_stride < 0) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if ((err = cudaSetDevice(device)) != cudaSuccess) {
+    return static_cast<int>(err);
+  }
+  const size_t smem =
+      kWarpsPerBlock * sizeof(float) * bwdbwd_warp_floats(p.num_pairs, num_shifts, num_sections, ka);
+  const BwdBwdKernel kernel = pick_bwd_bwd(num_shifts, num_sections);
+  if ((err = allow_shared(reinterpret_cast<const void*>(kernel), smem)) != cudaSuccess) {
+    return static_cast<int>(err);
+  }
+  const int blocks = (n + kWarpsPerBlock - 1) / kWarpsPerBlock;
+  kernel<<<blocks, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+      g, g_row_stride, dist, diff, species, u_dist, u_diff, gg, hdist, hdiff, p);
   return static_cast<int>(cudaGetLastError());
 }
 

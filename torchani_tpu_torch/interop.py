@@ -105,7 +105,11 @@ _STATE_DTYPES = {
     ".ref_coords": torch.float32,
     ".overflow": torch.bool,
     ".nbr_perm": torch.int64,
+    ".scale": torch.float32,
+    ".nhc": torch.float32,
 }
+#: leaves that a JAX state carries only in some ensembles (NPT, Nose-Hoover)
+_OPTIONAL_STATE_LEAVES = (".nbr_perm", ".scale", ".nhc")
 _BUCKET_DTYPES = {
     "keys": torch.int32,
     "atom_of_slot": torch.int64,
@@ -137,8 +141,9 @@ def load_jax_md_state(
     ``nbr_rev`` and ``key`` are ignored.  A JAX PRNG key does not carry
     over: the state has no Langevin generator (``generator`` is None), so
     `MolecularDynamics.step_langevin` needs one set with
-    ``state.replace(generator=...)`` or its noise passed in.  A state that
-    carries what the port does not have (``scale``, ``nhc``) is refused.
+    ``state.replace(generator=...)`` or its noise passed in.  The NPT cell
+    scale ``scale`` and the Nose-Hoover chain ``nhc`` carry over where the
+    JAX state has them.  A leaf that the port has no field for is refused.
     """
     dev = resolve_device(device)
     packed = ".bucket.keys_flat" in arrays
@@ -157,7 +162,7 @@ def load_jax_md_state(
         for path, dtype in _STATE_DTYPES.items()
         if path in arrays
     }
-    missing = [p for p in _STATE_DTYPES if p not in arrays and p != ".nbr_perm"]
+    missing = [p for p in _STATE_DTYPES if p not in arrays and p not in _OPTIONAL_STATE_LEAVES]
     if missing:
         raise KeyError(f"no value given for {missing}")
     bucket = None

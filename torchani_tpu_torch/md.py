@@ -1,7 +1,7 @@
 """Molecular dynamics with Verlet-cached neighbors (counterpart of
-``torchani_tpu/md.py``, as far as NVE, Langevin (BAOAB), multiple-timestep
-RESPA (`MultipleTimestepMD`) and `CachedSinglePoint`, for models of one or
-several potentials).
+``torchani_tpu/md.py``, as far as NVE, Langevin (BAOAB), the Nose-Hoover
+chain (NVT), Berendsen NPT, multiple-timestep RESPA (`MultipleTimestepMD`)
+and `CachedSinglePoint`, for models of one or several potentials).
 
 The neighbor topology is a cell list built at ``cutoff + skin`` and reused
 until a pair can have closed the skin gap.  Each step recomputes only the
@@ -24,6 +24,13 @@ a Python loop over `MolecularDynamics.step_nve` (or `step_langevin`); the
 rebuild decision is one boolean read on the host per step.  Langevin noise
 is drawn from a `torch.Generator` on the model's device that the state
 carries, where the JAX package carries a PRNG key.
+
+Under NPT (``npt_compression``) the topology is built from reduced
+coordinates (physical / scale) against the initial cell, at a radius that
+still covers the cutoff once the box has shrunk by ``npt_compression``; the
+refreshed pair vectors are scaled by the state's ``scale`` after the
+selection, so the refresh kernels are the same, and one backward gives the
+energy, the forces and dU/dscale (the pair virial).
 
 Units: Angstrom, Hartree, AMU, femtoseconds.
 """
@@ -65,6 +72,7 @@ from torchani_tpu_torch.utils import get_atomic_masses, resolve_device
 __all__ = [
     "ACCEL_UNIT",
     "KB_HARTREE",
+    "PRESSURE_UNIT_BAR",
     "CachedSinglePoint",
     "MDState",
     "MTSState",
@@ -79,6 +87,8 @@ __all__ = [
 ACCEL_UNIT = 0.2625499785
 #: Boltzmann constant in Hartree/K
 KB_HARTREE = 3.166811563e-06
+#: Hartree/Angstrom^3 -> bar
+PRESSURE_UNIT_BAR = 4.35974465e7
 
 
 @dataclasses.dataclass(frozen=True)
@@ -116,6 +126,13 @@ class MDState:
     # the Langevin noise's generator, on the model's device; advanced in
     # place by every draw, so states of one run share it
     generator: tp.Optional[torch.Generator] = None
+    # NPT: the isotropic cell scale s (physical cell = s * initial cell), a
+    # () tensor; the topology lives in reduced coordinates (coords / s).
+    # None outside NPT
+    scale: tp.Optional[Tensor] = None
+    # Nose-Hoover chain state (2, M): chain velocities (1/fs), chain
+    # positions (diagnostics only); None until `run_nvt_nose_hoover` sets it
+    nhc: tp.Optional[Tensor] = None
 
     def replace(self, **changes) -> "MDState":
         return dataclasses.replace(self, **changes)
@@ -164,6 +181,45 @@ def langevin_o_step(
         (1 - c1**2) * KB_HARTREE * temperature / masses
     )[:, None] * math.sqrt(ACCEL_UNIT)
     return c1 * velocities + sigma * noise
+
+
+def _nhc_update(
+    v: Tensor, nhc: Tensor, masses: Tensor, dof: int, kt: float,
+    q: tp.Sequence[float], dt2: float,
+) -> tp.Tuple[Tensor, Tensor]:
+    """Half-step Nose-Hoover chain update (Martyna-Tuckerman-Klein).
+
+    ``nhc`` (2, M): chain velocities and positions; ``q`` (M,) chain masses
+    (Hartree fs^2); ``kt`` Hartree; ``dt2`` fs (half the MD step).  Returns
+    the scaled particle velocities and the new chain state."""
+    m = len(q)
+    vx = [nhc[0, j] for j in range(m)]
+    xx = [nhc[1, j] for j in range(m)]
+    dt4, dt8 = dt2 / 2.0, dt2 / 4.0
+    ke2 = torch.sum(masses[:, None] * v**2) / ACCEL_UNIT  # 2 KE, Hartree
+
+    def force(j, ke2):
+        if j == 0:
+            return (ke2 - dof * kt) / q[0]
+        return (q[j - 1] * vx[j - 1] ** 2 - kt) / q[j]
+
+    # reverse sweep: chain velocities from the tail to the head
+    vx[m - 1] = vx[m - 1] + force(m - 1, ke2) * dt4
+    for j in range(m - 2, -1, -1):
+        e = torch.exp(-dt8 * vx[j + 1])
+        vx[j] = (vx[j] * e + force(j, ke2) * dt4) * e
+    # scale the particle velocities; the chain positions advance
+    s = torch.exp(-dt2 * vx[0])
+    v = v * s
+    ke2 = ke2 * s**2
+    for j in range(m):
+        xx[j] = xx[j] + dt2 * vx[j]
+    # forward sweep, head to tail, with the updated kinetic energy
+    for j in range(m - 1):
+        e = torch.exp(-dt8 * vx[j + 1])
+        vx[j] = (vx[j] * e + force(j, ke2) * dt4) * e
+    vx[m - 1] = vx[m - 1] + force(m - 1, ke2) * dt4
+    return v, torch.stack([torch.stack(vx), torch.stack(xx)])
 
 
 def _shallow_copy(module: torch.nn.Module) -> torch.nn.Module:
@@ -234,12 +290,20 @@ def _batch1(nb: Neighbors) -> Neighbors:
     )
 
 
-def _refresh_neighbors(state: MDState, coords: Tensor) -> Neighbors:
+def _refresh_neighbors(
+    state: MDState, coords: Tensor, scale: tp.Optional[Tensor] = None
+) -> Neighbors:
     """Recompute differentiable diff/dist from the cached topology.
 
     ``coords`` is in user order; the cached topology is in species-sorted
     internal order (see `MDState`), so the produced tables are internal-order
     rows matching `MolecularDynamics`' (sorted) ``elem_idxs``.
+
+    ``scale`` (NPT): ``coords`` are then reduced (physical / scale), the
+    frame of the cached topology, and the physical pair vectors are scale
+    times the reduced ones (isotropic scaling commutes with the image
+    shifts); differentiating with respect to ``scale`` at fixed reduced
+    coordinates gives the pair virial.
     """
     if state.nbr_perm is not None:
         coords = coords.index_select(0, state.nbr_perm)
@@ -264,6 +328,8 @@ def _refresh_neighbors(state: MDState, coords: Tensor) -> Neighbors:
         idx_safe = torch.where(mask, state.nbr_idx, 0)
         nbr_pos = coords.index_select(0, idx_safe.reshape(-1)).reshape(a, k, 3)
         diff = nbr_pos - coords[:, None, :] + state.nbr_shift
+    if scale is not None:
+        diff = diff * scale
     diff = torch.where(mask[..., None], diff, 0.0)
     d2 = torch.sum(diff * diff, dim=-1)
     dist = torch.sqrt(torch.where(mask, d2, 1.0))
@@ -295,6 +361,12 @@ class MolecularDynamics:
     then computed once per REBUILD and carried in ``MDState.pair_aux``
     instead of being gathered at every evaluation.  Exact: the channels are
     constants keyed by the elements.
+
+    ``npt_compression`` (in [0, 0.5), periodic cells only) is the linear
+    compression the neighbor table must cover under `run_npt_berendsen`:
+    the build radius becomes ``(cutoff + skin) / (1 - npt_compression)``,
+    and the angular preslice and the per-potential lane prefixes are off
+    (their bounds compare reduced build distances with physical reaches).
     """
 
     def __init__(
@@ -312,7 +384,21 @@ class MolecularDynamics:
         bucket_refresh: tp.Union[bool, str] = "auto",
         freeze_pair_window: tp.Sequence[str] = (),
         device: DeviceArg = None,
+        npt_compression: float = 0.0,
     ) -> None:
+        # the constructor's arguments, the caller's model among them, for
+        # `rebaseline`
+        self._ctor = dict(
+            model=model, species=species, pbc=pbc, skin=skin, capacity=capacity,
+            bucket_capacity=bucket_capacity, timestep_fs=timestep_fs,
+            nn_precision=nn_precision, auto_capacity=auto_capacity,
+            bucket_refresh=bucket_refresh, freeze_pair_window=freeze_pair_window,
+            device=device, npt_compression=npt_compression,
+        )
+        if npt_compression and cell is None:
+            raise ValueError("npt_compression requires a periodic cell")
+        if not 0.0 <= npt_compression < 0.5:
+            raise ValueError("npt_compression must be in [0, 0.5)")
         dev = resolve_device(device)
         if model.device.type != dev.type:
             raise ValueError(
@@ -349,6 +435,8 @@ class MolecularDynamics:
             (int(v), int(s), int(e)) for v, s, e in zip(vals, starts, stops) if v >= 0
         )
         self._valid_atom = host_elem >= 0
+        # the thermostats' and the barostat's degrees of freedom: real atoms
+        self._n_real = int(self._valid_atom.sum())
         self._cell_np = None if cell is None else np.asarray(
             cell.detach().cpu().numpy() if isinstance(cell, torch.Tensor) else cell,
             dtype=np.float64,
@@ -358,7 +446,9 @@ class MolecularDynamics:
         self.skin = skin
         self.cutoff = model.cutoff
         self.dt = timestep_fs
-        self.build_radius = self.cutoff + skin
+        self._s_min = 1.0 - npt_compression
+        self.build_radius = (self.cutoff + skin) / self._s_min
+        self._volume0 = 0.0 if self._cell_np is None else float(abs(np.linalg.det(self._cell_np)))
         masses = get_atomic_masses(self.species[0].clamp(min=0))
         # dummy (-1) padding atoms feel zero force; unit mass keeps the
         # integrator's 1/m finite so they simply never move
@@ -378,7 +468,7 @@ class MolecularDynamics:
         # skin criterion) lives in a static prefix.  The bound is verified
         # per build (overflow flag) in _build_cache.
         self._ang_prefix: tp.Optional[int] = None
-        if model.potentials["nnp"].enabled:
+        if not npt_compression and model.potentials["nnp"].enabled:
             r_ang = float(model.aev_computer.angular.cutoff)
             prefix = estimate_capacity(r_ang + skin, a, periodic=pbc)
             if prefix < self.capacity:
@@ -395,7 +485,7 @@ class MolecularDynamics:
         self._prefix_checks: tp.List[tp.Tuple[float, int]] = []
         for pname, pot in self.model.potentials.items():
             r_pot = float(pot.cutoff)
-            if not pot.enabled or not math.isfinite(r_pot):
+            if npt_compression or not pot.enabled or not math.isfinite(r_pot):
                 continue
             if r_pot + skin >= self.cutoff + skin - 1e-9:
                 continue  # already the build cutoff
@@ -643,6 +733,22 @@ class MolecularDynamics:
             (g,) = torch.autograd.grad(e, c)
         return e.detach(), -g
 
+    def _energy_forces_virial(
+        self, state: MDState, coords: Tensor, scale: Tensor
+    ) -> tp.Tuple[Tensor, Tensor, Tensor]:
+        """Energy, forces and dU/dscale in one backward (NPT), evaluated in
+        the reduced frame: the pair vectors are scale times the reduced ones,
+        so the derivative with respect to scale at fixed reduced coordinates
+        is the pair virial G = sum_pairs r_ij . dU/dr_ij = scale dU/dscale.
+        The physical forces are the reduced gradient over scale."""
+        red = (coords / scale).detach().requires_grad_(True)
+        s = scale.detach().clone().requires_grad_(True)
+        with torch.enable_grad():
+            nb = _refresh_neighbors(state, red, s)
+            e = self._potential_energy(nb, self._to_internal(red * s), state.pair_aux)
+            gr, gs = torch.autograd.grad(e, (red, s))
+        return e.detach(), -gr / scale, gs
+
     def init(
         self,
         coords,  # (A, 3) or (1, A, 3)
@@ -704,13 +810,27 @@ class MolecularDynamics:
         gap: when the SUM of the two largest per-atom displacements since the
         last build exceeds the skin.  The decision is read on the host: the
         step's one wait for the device.  A rebuild changes no static size; an
-        overflow sets the flag (and poisons the AEV with NaN)."""
+        overflow sets the flag (and poisons the AEV with NaN).
+
+        NPT (``state.scale`` set): the table covers physical pair distances
+        up to ``scale * build_radius``, so the gap is that less the cutoff;
+        displacements are physical, which charges the barostat's affine
+        motion twice (conservative).  The build takes the reduced
+        coordinates, and flags an overflow once the box has shrunk past the
+        ``npt_compression`` margin."""
         moved2 = torch.sum((coords - state.ref_coords) ** 2, dim=-1)
         top2 = torch.topk(moved2, min(2, moved2.shape[0])).values
-        need = torch.sum(torch.sqrt(top2)) > self.build_radius - self.cutoff
+        if state.scale is None:
+            gap = self.build_radius - self.cutoff
+        else:
+            gap = state.scale * self.build_radius - self.cutoff
+        need = torch.sum(torch.sqrt(top2)) > gap
         if not bool(need):
             return state
-        idx, mask, shift, nbr_elem, overflow, tables, pair_aux = self._build_cache(coords)
+        red = coords if state.scale is None else coords / state.scale
+        idx, mask, shift, nbr_elem, overflow, tables, pair_aux = self._build_cache(red)
+        if state.scale is not None:
+            overflow = overflow | (state.scale * self.build_radius < self.cutoff)
         return state.replace(
             nbr_idx=idx,
             nbr_mask=mask,
@@ -794,6 +914,132 @@ class MolecularDynamics:
         for _ in range(num_steps):
             state = self.step_langevin(state, temperature, friction_per_fs)
         return state
+
+    def step_nvt_nose_hoover(
+        self, state: MDState, temperature: float, tau_fs: float = 25.0
+    ) -> MDState:
+        """One deterministic NVT step: a Nose-Hoover chain half step around
+        velocity Verlet on each side (`run_nvt_nose_hoover` installs the
+        chain state)."""
+        if state.nhc is None:
+            raise ValueError("the state has no Nose-Hoover chain; use run_nvt_nose_hoover")
+        dt = self.dt
+        kt = KB_HARTREE * temperature
+        dof = 3 * self._n_real
+        m = state.nhc.shape[1]
+        q = [dof * kt * tau_fs**2] + [kt * tau_fs**2] * (m - 1)
+        with torch.no_grad():
+            v, nhc = _nhc_update(state.velocities, state.nhc, self.masses, dof, kt, q, 0.5 * dt)
+            v_half = v + 0.5 * dt * state.forces * self._inv_m
+            coords = state.coords + dt * v_half
+        state = self._maybe_rebuild(state, coords)
+        e, f = self._energy_and_forces(state, coords)
+        with torch.no_grad():
+            v = v_half + 0.5 * dt * f * self._inv_m
+            v, nhc = _nhc_update(v, nhc, self.masses, dof, kt, q, 0.5 * dt)
+        return state.replace(
+            coords=coords, velocities=v, forces=f, energy=e, nhc=nhc, step=state.step + 1
+        )
+
+    def run_nvt_nose_hoover(
+        self,
+        state: MDState,
+        num_steps: int,
+        temperature: float,
+        tau_fs: float = 25.0,
+        chain: int = 3,
+    ) -> MDState:
+        """Deterministic NVT through a Nose-Hoover chain of ``chain``
+        thermostats (installed at rest where the state has none)."""
+        if state.nhc is None:
+            state = state.replace(nhc=state.coords.new_zeros((2, chain)))
+        for _ in range(num_steps):
+            state = self.step_nvt_nose_hoover(state, temperature, tau_fs)
+        return state
+
+    def step_npt_berendsen(
+        self,
+        state: MDState,
+        temperature: float,
+        pressure_bar: float = 1.0,
+        tau_t_fs: float = 100.0,
+        tau_p_fs: float = 1000.0,
+        kappa_per_bar: float = 4.6e-5,
+    ) -> MDState:
+        """One isothermal-isobaric step: Berendsen weak coupling of the
+        temperature and the (isotropic) pressure around velocity Verlet
+        (`run_npt_berendsen` installs ``state.scale``).  The pressure is
+        ``(2 K - G) / (3 V)`` with the pair virial ``G = scale dU/dscale``
+        of the force backward; ``kappa_per_bar`` is the isothermal
+        compressibility (liquid water by default)."""
+        if state.scale is None:
+            raise ValueError("the state has no cell scale; use run_npt_berendsen")
+        dt = self.dt
+        with torch.no_grad():
+            v_half = state.velocities + 0.5 * dt * state.forces * self._inv_m
+            coords = state.coords + dt * v_half
+        state = self._maybe_rebuild(state, coords)
+        e, f, du_ds = self._energy_forces_virial(state, coords, state.scale)
+        with torch.no_grad():
+            v = v_half + 0.5 * dt * f * self._inv_m
+            # Berendsen thermostat: a weak-coupling velocity rescale
+            ke = 0.5 * torch.sum(self.masses[:, None] * v**2) / ACCEL_UNIT  # Hartree
+            t_inst = 2.0 * ke / (3 * self._n_real * KB_HARTREE)
+            lam2 = 1.0 + (dt / tau_t_fs) * (temperature / torch.clamp(t_inst, min=1.0) - 1.0)
+            v = v * torch.sqrt(torch.clamp(lam2, 0.81, 1.21))
+            # Berendsen barostat: an isotropic rescale toward the pressure
+            volume = self._volume0 * state.scale**3
+            p_bar = (2.0 * ke - state.scale * du_ds) / (3.0 * volume) * PRESSURE_UNIT_BAR
+            mu3 = 1.0 - (dt / tau_p_fs) * kappa_per_bar * (pressure_bar - p_bar)
+            mu = torch.clamp(mu3, 0.97, 1.03) ** (1.0 / 3.0)
+        return state.replace(
+            coords=coords * mu, velocities=v, forces=f, energy=e, scale=state.scale * mu,
+            step=state.step + 1,
+        )
+
+    def run_npt_berendsen(
+        self,
+        state: MDState,
+        num_steps: int,
+        temperature: float,
+        pressure_bar: float = 1.0,
+        tau_t_fs: float = 100.0,
+        tau_p_fs: float = 1000.0,
+        kappa_per_bar: float = 4.6e-5,
+    ) -> MDState:
+        """Isotropic Berendsen NPT (periodic systems only).  Construct this
+        object with ``npt_compression`` (e.g. 0.1) for the box's headroom;
+        past that margin the ``overflow`` flag trips (`rebaseline` then
+        re-centres it).  The physical cell is ``state.scale * cell``."""
+        if self.cell is None:
+            raise ValueError("NPT requires a periodic cell")
+        if state.scale is None:
+            state = state.replace(scale=state.coords.new_ones(()))
+        for _ in range(num_steps):
+            state = self.step_npt_berendsen(
+                state, temperature, pressure_bar, tau_t_fs, tau_p_fs, kappa_per_bar
+            )
+        return state
+
+    def rebaseline(self, state: MDState) -> tp.Tuple["MolecularDynamics", MDState]:
+        """Fold an NPT state's scale into a new `MolecularDynamics` whose initial cell is
+        ``scale * cell`` (grids, capacities and the compression margin
+        re-centred, scale back to 1), and a state that continues the same
+        trajectory: coordinates, velocities, generator, step and chain kept,
+        the cache rebuilt and the forces evaluated anew (the same physical
+        system, so the same energy)."""
+        if state.scale is None:
+            raise ValueError("rebaseline applies to NPT states (scale set)")
+        if self.cell is None:
+            raise ValueError("rebaseline requires a periodic cell")
+        kw = dict(self._ctor)
+        kw["cell"] = self._cell_np * float(state.scale)
+        md = MolecularDynamics(**kw)
+        st = md.init(state.coords)
+        return md, st.replace(
+            velocities=state.velocities, generator=state.generator, step=state.step,
+            nhc=state.nhc, scale=state.coords.new_ones(()),
+        )
 
     def _ensemble_step(
         self, ensemble: str, params: tp.Dict[str, tp.Any]

@@ -13,3 +13,21 @@ class SpeciesEnergies(tp.NamedTuple):
 class EnergiesScalars(tp.NamedTuple):
     energies: Tensor
     scalars: tp.Optional[Tensor] = None
+
+
+class VibAnalysis(tp.NamedTuple):
+    freqs: Tensor
+    modes: Tensor
+    fconstants: Tensor
+    rmasses: Tensor
+
+
+class EnergiesForcesHessians(tp.NamedTuple):
+    energies: Tensor
+    forces: Tensor
+    hessians: Tensor
+
+
+class ForcesHessians(tp.NamedTuple):
+    forces: Tensor
+    hessians: Tensor
