@@ -49,9 +49,12 @@ the published key scheme (`convert.save_state_dict`, `torch.save`) into a
 temporary data directory and loaded back with ``pretrained=True``.  Then the
 second-derivative and ensemble paths of ANI-2x: K3bb (K3b's backward)
 against its plain version at the water box's tables and at those of one
-Hessian pass, with its time, plain time and bound; `hessians` and
-`single_point(vibrational=True)` of a 30-water cluster (per pass one K3 and
-one K3bb launch and two of K3b), card against CPU; `members_energies_and_forces`,
+Hessian pass, with its persistent grid, time, plain time and bound at both;
+`hessians` and `single_point(vibrational=True)` of a 30-water cluster (per
+pass one K3 and one K3bb launch and two of K3b), card against CPU; the
+Hessian of ANI-2dr under `cell_list` (a neighbor list that takes a single
+system) on 9 atoms in a periodic cell, with the same launches per pass,
+card against CPU; `members_energies_and_forces`,
 `force_qbc`, `stress_scaling` and `stress_fdotr` on the water box (one K3
 launch, one K3b per member or one), card against CPU at 1,002 atoms; and 20
 steps each of `run_nvt_nose_hoover` and `run_npt_berendsen`
@@ -331,16 +334,17 @@ def k1_launch_shape(what: str, g: int, c: int, r: int) -> dict:
     return shape
 
 
-def k3b_launch_shape(what: str, lanes, kw: dict) -> dict:
-    """Print and return K3b's persistent grid at these lanes and widths:
-    blocks, threads a block, shared memory a block (each warp's one buffer
-    of the cotangent rows that meet a pair, lanes and gradient planes),
+def k3b_launch_shape(what: str, lanes, kw: dict, second_order: bool = False) -> dict:
+    """Print and return K3b's persistent grid (K3bb's with ``second_order``)
+    at these lanes and widths: blocks, threads a block, shared memory a
+    block (each warp's one buffer of the cotangent rows that meet a pair,
+    lanes and gradient planes; K3bb's also its pair tile and J u rows),
     atoms a warp."""
     from torchani_tpu_torch.aev.kernels import bwd_launch_shape as k3b_shape
 
     n, ka = lanes[0].shape
     shape = k3b_shape(n, ka, kw["num_species"], len(kw["shifts"]), len(kw["sections"]),
-                      lanes[0].device)
+                      lanes[0].device, second_order=second_order)
     print(f"{what} launch: N={n}, Ka={ka}: {shape['blocks']} blocks of {shape['threads']} "
           f"threads, {shape['smem_bytes']} bytes of shared memory a block, at most "
           f"{shape['atoms_per_warp']} atoms a warp")
@@ -1505,6 +1509,7 @@ def main() -> int:
     k3bb_bytes = (k3b_bytes(k3_in, k3_species, k3_kw["num_species"], sh * se)
                   + sum(t.numel() * 4 for t in u3) + out.numel() * 4)
     k3bb_bound = k3bb_bound_ms(pairs, valid_lanes, sh, se, k3bb_bytes)
+    k3bb_shape = k3b_launch_shape("K3bb at the ANI-2x water box", k3_in, k3_kw, second_order=True)
     print(f"{card}: K3bb alone: {k3bb_ms:.4f} ms ({k3bb_ev:.4f} between events); plain version "
           f"{k3bb_plain_ms:.3f} ms (blocks of {k3bb_block} atoms); bound {k3bb_bound[0]:.4f} ms "
           f"by {k3bb_bound[1]} ({k3bb_bound[2] / 1e6:.1f} MB; by operations {k3bb_bound[3]:.4f} "
@@ -1526,11 +1531,28 @@ def main() -> int:
     h_g = torch.randn((h_in[0].shape[0], out.shape[1]), device=dev, generator=dgen)
     h_u = (torch.randn(h_in[0].shape, device=dev, generator=dgen),
            torch.randn(h_in[1].shape, device=dev, generator=dgen))
+    h_species = lane_species(h_in[2], h_in[3])
     h_k3bb_err = bwd_bwd_errors(
-        angular_aev_bwd_bwd(h_g, *h_in, *h_u, **k3_kw),
+        angular_aev_bwd_bwd(h_g, *h_in, *h_u, h_species, **k3_kw),
         angular_aev_bwd_bwd_reference(h_g, *h_in, *h_u, atom_block=k3bb_block, **k3_kw),
         h_in[2], f"K3bb at the Hessian pass's tables (N={h_in[0].shape[0]}, Ka={h_in[0].shape[1]})")
-    del rep_elem, rep_co, h_ang, h_in, h_g, h_u
+    h_k3bb_ms, h_k3bb_ev = both_ms(
+        lambda: angular_aev_bwd_bwd(h_g, *h_in, *h_u, h_species, **k3_kw))
+    h_k3bb_plain_ms = kernels_ms(lambda: angular_aev_bwd_bwd_reference(
+        h_g, *h_in, *h_u, atom_block=k3bb_block, **k3_kw), reps=1)
+    h_lanes = h_in[2].sum(1).to(torch.float64)
+    h_pairs = float((h_lanes * (h_lanes - 1) / 2).sum())
+    h_k3bb_bound = k3bb_bound_ms(
+        h_pairs, float(h_lanes.sum()), sh, se,
+        k3b_bytes(h_in, h_species, k3_kw["num_species"], sh * se)
+        + sum(t.numel() * 4 for t in h_u) + h_g.numel() * 4)
+    h_k3bb_shape = k3b_launch_shape("K3bb at the Hessian pass's tables", h_in, k3_kw,
+                                    second_order=True)
+    print(f"{card}: K3bb at the Hessian pass's tables: {h_k3bb_ms:.4f} ms ({h_k3bb_ev:.4f} between "
+          f"events); plain version {h_k3bb_plain_ms:.3f} ms; {h_pairs:.0f} valid pairs; bound "
+          f"{h_k3bb_bound[0]:.4f} ms by {h_k3bb_bound[1]} ({h_k3bb_bound[2] / 1e6:.1f} MB; by "
+          f"operations {h_k3bb_bound[3]:.4f} ms f32, {h_k3bb_bound[4]:.4f} ms special functions)")
+    del rep_elem, rep_co, h_ang, h_in, h_g, h_u, h_species
     reset_counts()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -1570,6 +1592,39 @@ def main() -> int:
           f"peak device memory {hess_peak:.3f} GiB ({held:.3f} held before the call; "
           f"{(hess_peak - held) * 2**30 / (rows * cl_atoms) / 1024:.1f} KiB a replicated atom)")
     del h_card, h_cpu, dh, vib, freqs
+
+    # the Hessian of ANI-2dr (networks, xTB, D3) under `cell_list`, a neighbor
+    # list that takes a single system: the first 9 atoms of a 96-atom water
+    # box in its periodic cell, card against CPU
+    dr_sp, dr_co, dr_cell = make_water_box(96)
+    dr_sp, dr_co = dr_sp[:, :9], dr_co[:, :9]
+    dr_rows = hessian_rows(1, dr_sp.shape[1])
+    dr_passes = -(-3 * dr_sp.shape[1] // dr_rows)
+    dr_h = {}
+    for where in ("cuda", "cpu"):
+        m = ANI2dr(pretrained=False, seed=0, device=where)
+        m.neighborlist = CellList()
+        reset_counts()
+        dr_h[where] = hessians(m, dr_sp, dr_co, dr_cell, pbc_np)
+        if where == "cuda":
+            torch.cuda.synchronize()
+            dr_hess_launches, dr_grid_calls = read_counts(), angular_grid.calls
+            dr_hess_ms = wall_times_ms(lambda m=m: hessians(m, dr_sp, dr_co, dr_cell, pbc_np),
+                                       reps=3)
+    want = {"angular_aev": dr_passes, "angular_aev_bwd": 2 * dr_passes,
+            "angular_aev_bwd_bwd": dr_passes}
+    dh = (dr_h["cuda"].cpu() - dr_h["cpu"]).abs()
+    print(f"{card}: Hessian of ANI-2dr under cell_list, {dr_sp.shape[1]} atoms (periodic): "
+          f"{dr_passes} pass of {dr_rows} rows, launches {dr_hess_launches}; median "
+          f"{np.median(dr_hess_ms):.3f} ms; card vs CPU max |dH| {float(dh.max()):.3e} Ha/A^2 "
+          f"(max |H| {float(dr_h['cpu'].abs().max()):.3e})")
+    check(dr_hess_launches == {k_: want.get(k_, 0) for k_ in kernels_fn} and dr_grid_calls == 0,
+          "ANI-2dr cell_list Hessian: per pass K3 and K3bb once, K3b twice, no plain grid")
+    check(tuple(dr_h["cuda"].shape) == (1, 27, 27) and bool(torch.isfinite(dr_h["cuda"]).all()),
+          "ANI-2dr cell_list Hessian finite, (1, 27, 27)")
+    check(bool((dh <= HESSIAN_ATOL + HESSIAN_RTOL * dr_h["cpu"].abs()).all()),
+          "the ANI-2dr cell_list Hessian agrees with the CPU")
+    del dr_h, dh
 
     # ---- 21. ensemble forces and stress on the water box ----
     ens_launches, ens_ms = {}, {}
@@ -1704,6 +1759,7 @@ def main() -> int:
                 "ani1x_ef": x1_ef_launches[name], "ani1x_langevin": x1_md_launches[name],
                 "ani2dr_mts_langevin": mts_launches[name],
                 "hessian": hess_launches[name], "vibrational": vib_launches[name],
+                "hessian_ani2dr_cell_list": dr_hess_launches[name],
                 **{k_: v[name] for k_, v in ens_launches.items()},
                 **{k_: v["launches"][name] for k_, v in thermo.items()},
             },
@@ -1740,7 +1796,11 @@ def main() -> int:
                  "torchani_tpu/aev/computer.py:1045 (second derivative through "
                  "_angular_pallas_bwd's XLA recompute; no pallas_call)", k3bb_err, k3bb_ms,
                  k3bb_plain_ms, k3bb_bound[0], k3bb_bound[1], None),
-         "at_hessian_pass": {"max_abs_err": h_k3bb_err, "rows": rows, "passes": passes}},
+         "grid": k3bb_shape,
+         "at_hessian_pass": {"max_abs_err": h_k3bb_err, "ms": h_k3bb_ms,
+                             "plain_ms": h_k3bb_plain_ms, "bound_ms": h_k3bb_bound[0],
+                             "bound_by": h_k3bb_bound[1], "rows": rows, "passes": passes,
+                             "grid": h_k3bb_shape}},
         {**entry("bucket_select_fwd", select_cu, "torchani_tpu/bucket_refresh.py:504",
                  k1_err, k1_ms, k1_plain_ms, k1_bound, k1_by, k1_lib_ms),
          "split": k1_shape["split"], "threads": k1_shape["threads"],

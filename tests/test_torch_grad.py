@@ -16,7 +16,20 @@ the packages and between the two kinds (``tests/test_ase.py``), 5e-4
 against a central finite difference (``tests/test_gradcheck.py``).  Weight
 gradients of the force loss of ``tests/test_grad.py`` against ``jax.grad``,
 scaled by max|ref|, atol 1e-5, rtol 1e-4.
+
+The ANI-2dr-style model of ``tests/test_torch_hetero_md.py`` (networks,
+xTB repulsion and D3 dispersion on a ``cell_list``, which takes a single
+system): the Hessian of the first 9 atoms of the 96-atom water box, with and
+without its periodic cell, against JAX's at the Hessian tolerance above;
+`single_point(vibrational=True)` on the same atoms against JAX's analysis of
+JAX's Hessian, frequencies above 100 cm^-1 rtol 1e-3 (below it the
+eigenvalues sit within the Hessians' rounding of zero); both stresses of the
+whole box against JAX's, atol 5e-6 of max|s| (f32 sums over the box's lanes
+in another order: ~1.6e-6 of max|s| seen).  A model without an ensemble
+makes `members_energies_and_forces` and `force_qbc` raise, as in JAX.
 """
+
+import functools
 
 import jax
 import jax.numpy as jnp
@@ -26,6 +39,7 @@ import torch
 
 import torchani_tpu as tt
 import torchani_tpu.grad as jgrad
+import torchani_tpu.neighbors as jneighbors
 from torchani_tpu.convert import load_state_dict as jload_state_dict
 from torchani_tpu_torch import convert, grad
 from torchani_tpu_torch.aev.kernels import angular_aev_bwd_bwd
@@ -34,6 +48,7 @@ from torchani_tpu_torch.interop import _resolve, load_jax_arrays
 from torchani_tpu_torch.testing import make_molecs, make_water_box
 
 from conftest import load_golden
+from test_torch_hetero_md import ani2dr_style_models
 
 torch.set_num_threads(2)
 CPU = "cpu"
@@ -287,3 +302,90 @@ def test_force_loss_weight_gradients_match_jax(vib):
         compared += 1
     assert compared == len(params) > 0
     assert any(float(t.abs().max()) > 0 for t in kernel.values())
+
+
+@pytest.fixture(scope="module")
+def dr():
+    """The ANI-2dr-style model in both packages and the 96-atom water box."""
+    jmodel, pmodel = ani2dr_style_models()
+    return (jmodel, pmodel) + make_water_box(96) + (np.ones(3, dtype=bool),)
+
+
+def _jax_cell_list_model(jmodel, coords):
+    """``jmodel`` whose cell list has the bucket grid that it would take from
+    the bounding cell of ``coords`` (1, A, 3) outside jit: under jit that
+    cell is traced, and the grid shape must be static."""
+    _, cell = jneighbors.compute_bounding_cell(jnp.asarray(coords[0]), eps=1e-3)
+    shape = jneighbors._static_grid_shape(np.asarray(cell), jmodel.cutoff)
+    return jmodel.replace(neighborlist=functools.partial(jneighbors.cell_list, grid_shape=shape))
+
+
+@pytest.fixture(scope="module")
+def dr_hessians(dr):
+    """JAX's Hessians of the box's first 9 atoms, isolated and periodic."""
+    jmodel, _, species, coords, cell, pbc = dr
+    sp, co = jnp.asarray(species[:, :9]), jnp.asarray(coords[:, :9])
+    isolated = _jax_cell_list_model(jmodel, coords[:, :9])
+    both = jax.jit(lambda s, c: (jgrad.hessians(isolated, s, c),
+                                 jgrad.hessians(jmodel, s, c, cell, pbc)))(sp, co)
+    return dict(zip(("isolated", "periodic"), map(np.asarray, both)))
+
+
+@pytest.mark.parametrize("periodic", [False, True], ids=["isolated", "periodic"])
+def test_cell_list_hessian_matches_jax(dr, dr_hessians, periodic):
+    """`hessians` of a model whose neighbor list takes a single system: the
+    topology is built once and replicated, as for any other model."""
+    _, pmodel, species, coords, cell, pbc = dr
+    args = (species[:, :9], coords[:, :9]) + ((cell, pbc) if periodic else ())
+    ref = dr_hessians["periodic" if periodic else "isolated"]
+    e, f, h = grad.energies_forces_and_hessians(pmodel, *args)
+    assert ref.shape == h.shape == (1, 27, 27)
+    np.testing.assert_allclose(h.numpy(), ref, atol=2e-4, rtol=1e-3)
+    np.testing.assert_allclose(h[0].numpy(), h[0].T.numpy(), atol=1e-4)
+    e_ref, f_ref = grad.energies_and_forces(pmodel, *args)
+    assert torch.equal(e, e_ref) and torch.equal(f, f_ref)
+
+
+def test_cell_list_single_point_vibrational(dr, dr_hessians):
+    _, pmodel, species, coords, cell, pbc = dr
+    out = grad.single_point(pmodel, species[:, :9], coords[:, :9], cell, pbc, vibrational=True)
+    ref_h = dr_hessians["periodic"]
+    np.testing.assert_allclose(out["hessians"].numpy(), ref_h, atol=2e-4, rtol=1e-3)
+    jmasses = tt.utils.get_atomic_masses(jnp.asarray(species[:, :9]))
+    vib = jgrad.vibrational_analysis(jmasses, jnp.asarray(ref_h))
+    freqs, ref_freqs = out["freqs"].numpy()[0], np.asarray(vib.freqs)[0]
+    assert freqs.shape == (27,) and np.isfinite(freqs).all()
+    clear = np.abs(ref_freqs) > 100.0
+    assert clear.sum() >= 9
+    np.testing.assert_allclose(freqs[clear], ref_freqs[clear], rtol=1e-3)
+    assert out["modes"].shape == (1, 27, 9, 3)
+    for key, ref in (("force_constants", vib.fconstants), ("reduced_masses", vib.rmasses)):
+        ref = np.asarray(ref)[0]
+        np.testing.assert_allclose(out[key].numpy()[0][clear], ref[clear], rtol=2e-3,
+                                   atol=1e-3 * np.abs(ref[clear]).max())
+
+
+def test_cell_list_stress_matches_jax(dr):
+    jmodel, pmodel, species, coords, cell, pbc = dr
+    refs = jax.jit(lambda sp, co: (jgrad.stress_scaling(jmodel, sp, co, cell, pbc),
+                                   jgrad.stress_fdotr(jmodel, sp, co, cell, pbc)))(
+        jnp.asarray(species), jnp.asarray(coords))
+    for kind, ref in zip(("scaling", "fdotr"), map(np.asarray, refs)):
+        s = getattr(grad, f"stress_{kind}")(pmodel, species, coords, cell, pbc).numpy()
+        assert s.shape == (3, 3) and np.abs(ref).max() > 0
+        np.testing.assert_allclose(s, ref, rtol=0, atol=5e-6 * np.abs(ref).max())
+
+
+def test_members_and_force_qbc_raise_without_an_ensemble(vib):
+    """A one-member model's ``ensemble_values=True`` output is ``(C,)``: no
+    member axis, so neither package gives members' forces."""
+    _, pmodel, jmodel = vib
+    species, coords = make_molecs(3, 8, seed=6)
+    assert tuple(pmodel(species, coords, ensemble_values=True).shape) == (3,)
+    with pytest.raises(ValueError, match="no ensemble"):
+        grad.members_energies_and_forces(pmodel, species, coords)
+    with pytest.raises(ValueError, match="no ensemble"):
+        grad.force_qbc(pmodel, species, coords)
+    with pytest.raises(ValueError):
+        jax.jit(lambda sp, co: jgrad.members_energies_and_forces(jmodel, sp, co))(
+            jnp.asarray(species), jnp.asarray(coords))

@@ -75,8 +75,9 @@ def _assemble(asm, radial, angular, xtb, d3):
     return asm
 
 
-@pytest.fixture(scope="module")
-def both_models():
+def ani2dr_style_models():
+    """The JAX model and the port's, which takes the JAX model's weights:
+    the networks, xTB repulsion and D3 dispersion on a ``cell_list``."""
     jmodel = _assemble(
         JAssembler(), JRadial.cover_linearly(**RADIAL), JAngular.cover_linearly(**ANGULAR),
         JXTB.make(SYM, cutoff=RADIAL["cutoff"], cutoff_fn="smooth"),
@@ -90,6 +91,11 @@ def both_models():
         lambda dev: TwoBodyDispersionD3(SYM, functional="wb97x", cutoff=D3_CUTOFF, device=dev),
     ).assemble(1, device=CPU)
     return jmodel, load_jax_arrays(pmodel, _leaves(jmodel))
+
+
+@pytest.fixture(scope="module")
+def both_models():
+    return ani2dr_style_models()
 
 
 @pytest.fixture(scope="module")

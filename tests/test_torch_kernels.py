@@ -465,6 +465,77 @@ def test_bwd_bwd_kernel_wrapper_checks_on_card():
         angular_aev_bwd_bwd(g.t(), dist, diff, mask, oh, u_dist, u_diff, **kw)
 
 
+def _lanes_of_species(rows, ka: int, s: int, seed: int, device: str = "cpu"):
+    """Lanes whose row i holds exactly the species ``rows[i]`` on valid lanes
+    scattered over the row (the rest masked as `_lanes` masks them)."""
+    rng = np.random.RandomState(seed)
+    n = len(rows)
+    mask = np.zeros((n, ka), bool)
+    elem = np.zeros((n, ka), np.int64)
+    for i, species in enumerate(rows):
+        lanes = rng.permutation(ka)[:len(species)]
+        mask[i, lanes] = True
+        elem[i, lanes] = species
+    oh = np.eye(s, dtype=np.float32)[elem] * mask[..., None]
+    d = np.where(mask, rng.uniform(0.8, 3.4, (n, ka)), 1.0).astype(np.float32)
+    v = rng.randn(n, ka, 3).astype(np.float32)
+    v *= (d / np.linalg.norm(v, axis=-1))[..., None] * mask[..., None]
+    return [torch.as_tensor(a, device=device) for a in (d, v, mask, oh)]
+
+
+def _slots_with_pairs(species, s: int):
+    """Packed slots that some pair of these lanes' species meets."""
+    counts = np.bincount(np.asarray(species, np.int64), minlength=s)
+    slots, slot = set(), 0
+    for a in range(s):
+        for b in range(a, s):
+            if (a != b and counts[a] and counts[b]) or (a == b and counts[a] > 1):
+                slots.add(slot)
+            slot += 1
+    return slots
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("version,cutoff_fn,ns", CASES)
+def test_bwd_bwd_kernel_rows_of_every_size_and_all_slots_on_card(version, cutoff_fn, ns):
+    """K3bb against its plain version on a column-sliced cotangent, on rows
+    of 0, 1 and 2 valid lanes, odd and even counts from 3 to 17 (a batch of
+    32 pairs then spans up to 4 rounds), one species alone, every species at
+    least twice (all ns (ns + 1) / 2 slots met), and all 40 lanes (Ka > 32:
+    two chunks of staged lanes, rounds longer than a batch); 8 x 4
+    (like_2x), 4 x 8 (like_1x).  gg is exactly 0 in every slot that no pair
+    of the row meets, and so are masked lanes and empty rows."""
+    _cuda()
+    kw = _kwargs(version, cutoff_fn, ns)
+    ka, z = 40, 32
+    rng = np.random.RandomState(51)
+    sizes = [0, 1, 2, 3, 4, 5, 8, 9, 10, 11, 16, 17, 40, 0]
+    rows = [list(rng.randint(0, ns, size)) for size in sizes]
+    rows += [[0] * 6, list(range(ns)) * 2 + list(rng.randint(0, ns, 5))]
+    lanes = _lanes_of_species(rows, ka, ns, seed=52, device="cuda")
+    width = ns * (ns + 1) // 2 * z
+    g = _cotangent(len(rows), width + 112, seed=53, device="cuda")[:, 112:]
+    u = _direction(len(rows), ka, seed=54, device="cuda")
+    out = angular_aev_bwd_bwd(g, *lanes, *u, **kw)
+    torch.cuda.synchronize()
+    ref = angular_aev_bwd_bwd_reference(g, *lanes, *u, **kw)
+    _assert_bwd_close(out[1:], ref[1:], lanes[2])
+    k, p = out[0].cpu(), ref[0].cpu()
+    assert torch.isfinite(k).all()
+    assert ((k - p).abs() <= ATOL * p.abs().max() + RTOL * p.abs()).all()
+    assert len(_slots_with_pairs(rows[-1], ns)) == ns * (ns + 1) // 2
+    for i, species in enumerate(rows):
+        met = _slots_with_pairs(species, ns)
+        for slot in range(ns * (ns + 1) // 2):
+            block = k[i, slot * z:(slot + 1) * z]
+            if slot in met:
+                assert (block != 0).any(), (i, slot)
+            else:
+                assert (block == 0).all(), (i, slot)
+        if len(species) < 2:
+            assert (out[1][i] == 0).all() and (out[2][i] == 0).all()
+
+
 @pytest.mark.cuda
 def test_hessian_launches_k3bb_on_card():
     """A Hessian through the kernel strategy: per chunk of replicated rows

@@ -11,6 +11,15 @@ order).  The virial dU/dscale against a central finite difference of the
 port's `single_point` under joint coordinate and cell scaling, at the JAX
 test's tolerance (3e-2 of |fd| + 2e-2: f32 cancellation in E(1 +- h)), and
 against the JAX package's virial at 1e-4 of its size.
+
+The ANI-2dr-style model of ``tests/test_torch_hetero_md.py`` (networks, xTB
+repulsion and D3 dispersion on a ``cell_list``) on 150 atoms at low density
+(a 20 A box, so that the bucket refresh runs at NPT's build radius): two
+Berendsen NPT steps (``npt_compression`` 0.1, 5e4 bar) with the default
+refresh, the frozen D3 window and the atom-packed refresh, and two Nose-Hoover
+steps, each from the JAX state: coordinates and forces atol 1e-6 (A, Ha/A),
+velocities rtol 1e-5 plus the half kick of that force tolerance, the scale
+rtol 1e-6, the chain rtol 1e-5.
 """
 
 import jax
@@ -21,11 +30,15 @@ import torch
 
 import torchani_tpu as tt
 from torchani_tpu.md import MolecularDynamics as JMolecularDynamics
+from torchani_tpu_torch.bucket_refresh import BucketTables
+from torchani_tpu_torch.bucket_refresh_packed import PackedTables
 from torchani_tpu_torch.arch import simple_ani
 from torchani_tpu_torch.grad import single_point
 from torchani_tpu_torch.interop import load_jax_arrays, load_jax_md_state
 from torchani_tpu_torch.md import ACCEL_UNIT, MolecularDynamics, kinetic_temperature
 from torchani_tpu_torch.testing import make_water_box
+
+from test_torch_hetero_md import ani2dr_style_models
 
 torch.set_num_threads(2)
 CPU = "cpu"
@@ -52,10 +65,10 @@ def _system(refresh: str):
     return make_water_box(30)
 
 
-def _assert_step(end, jend, md):
-    np.testing.assert_allclose(end.coords.numpy(), np.asarray(jend.coords), atol=1e-5, rtol=0)
-    np.testing.assert_allclose(end.forces.numpy(), np.asarray(jend.forces), atol=1e-5, rtol=0)
-    kick = 0.5 * md.dt * 1e-5 * float((ACCEL_UNIT / md.masses).max())
+def _assert_step(end, jend, md, atol=1e-5):
+    np.testing.assert_allclose(end.coords.numpy(), np.asarray(jend.coords), atol=atol, rtol=0)
+    np.testing.assert_allclose(end.forces.numpy(), np.asarray(jend.forces), atol=atol, rtol=0)
+    kick = 0.5 * md.dt * atol * float((ACCEL_UNIT / md.masses).max())
     np.testing.assert_allclose(
         end.velocities.numpy(), np.asarray(jend.velocities), rtol=1e-5, atol=kick
     )
@@ -216,3 +229,51 @@ def test_npt_arguments_are_checked(both_models):
         md.run_npt_berendsen(st, 1, temperature=300.0)
     with pytest.raises(ValueError, match="scale"):
         md.step_npt_berendsen(st, 300.0)
+
+
+DR_MD_KW = dict(pbc=True, timestep_fs=0.25, skin=0.4)
+DR_VARIANTS = {
+    "default": ({}, BucketTables),
+    "frozen": (dict(freeze_pair_window=("dispersion_d3",)), BucketTables),
+    "packed": (dict(bucket_refresh="packed"), PackedTables),
+}
+
+
+@pytest.fixture(scope="module")
+def dr_models():
+    return ani2dr_style_models()
+
+
+def _dr_runs(dr_models, npt_kw):
+    """The JAX and port `MolecularDynamics` on the 150-atom box, the JAX
+    `init` state and the port's copy of it."""
+    jmodel, pmodel = dr_models
+    species, coords, cell = make_water_box(150, density_molec_per_a3=0.008)
+    jmd = JMolecularDynamics(jmodel, species, cell=cell, nn_precision="highest", **npt_kw)
+    jstart = jmd.init(coords, temperature=300.0, key=jax.random.PRNGKey(3))
+    md = MolecularDynamics(pmodel, species, cell=cell, device=CPU, **npt_kw)
+    return jmd, jstart, md, load_jax_md_state(_leaves(jstart), CPU)
+
+
+@pytest.mark.parametrize("variant", sorted(DR_VARIANTS))
+def test_two_npt_steps_of_the_ani2dr_style_model_match_jax(dr_models, variant):
+    kw, tables = DR_VARIANTS[variant]
+    jmd, jstart, md, start = _dr_runs(dr_models, dict(DR_MD_KW, npt_compression=0.1, **kw))
+    assert isinstance(start.bucket, tables) and md._bucket_on
+    assert md._freeze_pair == jmd._freeze_pair == tuple(kw.get("freeze_pair_window", ()))
+    npt = dict(temperature=300.0, pressure_bar=5.0e4, tau_p_fs=200.0)
+    jend = jmd.run_npt_berendsen(jstart, 2, **npt)
+    end = md.run_npt_berendsen(start, 2, **npt)
+    _assert_step(end, jend, md, atol=1e-6)
+    np.testing.assert_allclose(float(end.scale), float(jend.scale), rtol=1e-6)
+    assert float(end.scale) != 1.0 and not bool(end.overflow)
+
+
+def test_two_nose_hoover_steps_of_the_ani2dr_style_model_match_jax(dr_models):
+    jmd, jstart, md, start = _dr_runs(dr_models, DR_MD_KW)
+    assert isinstance(start.bucket, BucketTables)
+    jend = jmd.run_nvt_nose_hoover(jstart, 2, temperature=300.0, tau_fs=20.0)
+    end = md.run_nvt_nose_hoover(start, 2, temperature=300.0, tau_fs=20.0)
+    _assert_step(end, jend, md, atol=1e-6)
+    np.testing.assert_allclose(end.nhc.numpy(), np.asarray(jend.nhc), rtol=1e-5, atol=1e-12)
+    assert float(end.nhc.abs().max()) > 0 and not bool(end.overflow)

@@ -475,7 +475,7 @@ def _library() -> ctypes.CDLL:
     lib.angular_aev_launch.restype = lib.angular_aev_bwd_launch.restype = ci
     lib.angular_aev_bwd_bwd_launch.restype = ci
     ip = ctypes.POINTER(ci)
-    lib.angular_aev_bwd_shape.argtypes = [ci, ci, ci, ci, ci, ci, ip, ip,
+    lib.angular_aev_bwd_shape.argtypes = [ci, ci, ci, ci, ci, ci, ci, ip, ip,
                                           ctypes.POINTER(ctypes.c_longlong)]
     lib.angular_aev_bwd_shape.restype = ci
     lib.angular_aev_error_string.argtypes = [ci]
@@ -685,7 +685,8 @@ def angular_aev_bwd_bwd(
     of its outputs (see `angular_aev_bwd_bwd_reference`).
 
     CPU tensors take `angular_aev_bwd_bwd_reference`, ``atom_block`` atoms
-    at a time; CUDA tensors launch K3bb once and raise if it cannot run.
+    at a time; CUDA tensors launch K3bb once (a persistent grid,
+    `bwd_launch_shape` with ``second_order``) and raise if it cannot run.
     ``g`` may be a column slice of a wider tensor, as for K3b.
     ``angular_aev_bwd_bwd.launches`` counts launches.
     """
@@ -737,23 +738,25 @@ angular_aev_bwd_bwd.launches = 0
 
 def bwd_launch_shape(
     n: int, ka: int, num_species: int, num_shifts: int, num_sections: int,
-    device: torch.device,
+    device: torch.device, second_order: bool = False,
 ) -> tp.Dict[str, int]:
-    """K3b's persistent grid for ``N`` atoms of ``Ka`` lanes at these widths
-    on a CUDA ``device``: the blocks (as many as the card holds at once, no
-    more than the atoms need), the threads and the shared memory a block
-    (each warp's cotangent rows, lane records and gradient planes), and the
-    most atoms a warp takes."""
+    """K3b's persistent grid (K3bb's with ``second_order``) for ``N`` atoms
+    of ``Ka`` lanes at these widths on a CUDA ``device``: the blocks (as many
+    as the card holds at once, no more than the atoms need), the threads and
+    the shared memory a block (each warp's cotangent rows, lane records and
+    planes; K3bb's also its pair tile and J u rows), and the most atoms a
+    warp takes."""
     device = torch.device(device)
     index = torch.cuda.current_device() if device.index is None else device.index
     blocks, threads, smem = ctypes.c_int(), ctypes.c_int(), ctypes.c_longlong()
     with torch.cuda.device(index):
         rc = _library().angular_aev_bwd_shape(
-            n, ka, num_species, num_shifts, num_sections, index,
+            n, ka, num_species, num_shifts, num_sections, int(second_order), index,
             ctypes.byref(blocks), ctypes.byref(threads), ctypes.byref(smem),
         )
     if rc != 0:
         msg = _library().angular_aev_error_string(rc).decode()
-        raise RuntimeError(f"angular_aev_bwd: no launch shape: CUDA error {rc} ({msg})")
+        what = "angular_aev_bwd_bwd" if second_order else "angular_aev_bwd"
+        raise RuntimeError(f"{what}: no launch shape: CUDA error {rc} ({msg})")
     return {"blocks": blocks.value, "threads": threads.value, "smem_bytes": smem.value,
             "atoms_per_warp": -(-n // (blocks.value * threads.value // 32))}

@@ -122,28 +122,48 @@
 //
 // where P0, Pm, Pc, Pmm, Pmc, Pcc are the sums over (a, b) of g_ab times
 // R_a A_b, R'_a A_b, R_a A'_b, R''_a A_b, R'_a A'_b and R_a A''_b
-// (angular_aev_bwd_bwd_reference spells out every term).  The design is
-// the simple one: one warp an atom, four atoms a block, 2,501 blocks at the
-// water box; K3b's staging (lanes, direction, fc'', the cotangent rows that
-// meet a pair) and its rounds of pairs; each pair writes its X_a, Y_a, A_b,
-// A'_b to a per-warp tile (odd row stride) and adds its 8 second-order
-// values to per-warp lane planes with shared-memory atomics; each lane then
-// sums its own features' share of J u over the batch's pairs, slot by slot,
-// into a (P, Z) accumulator, as K3 does, so gg needs no atomics.  Shared
-// memory: ~13 KB a warp at the water box (51 KB a block).  What bounds it
+// (angular_aev_bwd_bwd_reference spells out every term).  What bounds it
 // on this card at the water box, counted as chip_smoke.py counts it: bytes,
 // 54 MB (gg is a full (N, P * Z) output, 36 MB; the lanes and the direction
 // read, the cotangent rows that meet a pair, hdist and hdiff), 0.016 ms at
 // 3.35 TB/s, against 0.013 ms of f32 arithmetic (~720 operations a pair)
-// and 0.006 ms of special functions (sh + 3 se + 1 a pair).  On an H100 it
-// takes 0.131 ms there, 8x that bound; making it fast is later work.
-//
+// and 0.006 ms of special functions (sh + 3 se + 1 a pair).
+// Its first design (one warp an atom, 2,501 blocks of 4 warps, K3's tile
+// sums for J u into a (P, Z) accumulator, K3b's CAS atomics) took 0.145 ms
+// there; timed apart (ablated copies, torch.profiler, on an "NVIDIA H100
+// 80GB HBM3, 700.00 W"):
+// staging and write-out 0.029, the pair arithmetic 0.041, the atomics
+// 0.020, the tile sums 0.055 (each lane walked every pair of a batch, 4
+// shared loads and a slot check a pair).  The design:
+// - K3b's persistent grid of one wave, 4 blocks of 4 warps an SM (at most
+//   128 registers, ~54 KB of shared memory a block at ANI-2x's widths; 3
+//   blocks an SM were 22% slower, and met-slot-only buffers at 5 or 6
+//   blocks spilled and were slower too); the species of a warp's next atom
+//   are loaded one atom ahead, so the cotangent rows of its met slots start
+//   copying (cp.async) before its lanes are staged;
+// - pairs in K3b's rounds, 32 at a time, no division (the round and lane
+//   advance by 32 pairs a step); the pair terms' exp2 and log2 on the
+//   special-function unit alone (`exp2_approx`): no IEEE division for
+//   base^(zeta - 2);
+// - the second-order values go to 4 copies of the lane planes, round d to
+//   copy d mod 4: a batch spans at most 4 rounds and within a round no two
+//   pairs share a j or a k, so no two lanes add to one address, and plain
+//   shared loads and stores replace the CAS atomics (their cost went from
+//   0.020 ms to nothing measurable); the sums' order is fixed;
+// - J u: the batch's pairs are ordered by slot (a ballot per slot in the
+//   batch), each writes its tile row (X_a, Y_a | A_b, A'_b as float2s) at
+//   its place, and each lane sums its features over each slot's run of rows
+//   (2 shared loads, 2 FMAs a row, no check), adding once per run to that
+//   slot's accumulator row, of which only the met slots are zeroed and read;
+// - gg is written 16 bytes a lane: the met slots from the accumulator, the
+//   others as zeros from registers.
 // Compiled without --use_fast_math: expf, log2f, exp2f, sqrtf, cosf and sinf
 // keep their full-precision forms (the parity target against the plain
 // version is 1e-5); K3b's rsqrtf and reciprocals are within a few units of
-// the last place.  Templates: the widths 8 x 4 (ANI-2x) and 4 x 8 (ANI-1x)
-// are compiled with constant loop bounds; other widths up to 16 x 16 take
-// the generic instantiation (<0, 0>), whose loops run to 16 with guards.
+// the last place, and so are K3bb's `exp2_approx` and `log2_approx`.
+// Templates: the widths 8 x 4 (ANI-2x) and 4 x 8 (ANI-1x) are compiled with
+// constant loop bounds; other widths up to 16 x 16 take the generic
+// instantiation (<0, 0>), whose loops run to 16 with guards.
 
 #include <cuda_runtime.h>
 
@@ -307,6 +327,24 @@ __device__ __forceinline__ void advance_pair(int step, int nv, int& j, int& k) {
 // of the last place of powf where the result matters, in fewer instructions.
 __device__ __forceinline__ float pow_pos(float base, float e) {
   return exp2f(e * log2f(base));
+}
+
+// 2^x and log2(x) by the special-function unit alone (ex2.approx,
+// lg2.approx, denormals flushed): within 2 units of the last place (lg2:
+// 2^-22 absolute), and 2^-inf = 0, log2(0) = -inf as in exp2f and log2f.
+// K3bb's pair terms take these: its outputs stay within 1e-6 of max|p| of
+// the full-precision forms, and K3bb takes 12% less time at the water box
+// (on an "NVIDIA H100 80GB HBM3, 700.00 W").
+__device__ __forceinline__ float exp2_approx(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+__device__ __forceinline__ float log2_approx(float x) {
+  float y;
+  asm("lg2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
 }
 
 // K3.  SH, SE > 0: the term's widths, as constants; 0: read from p.
@@ -665,23 +703,40 @@ angular_aev_bwd_kernel(const float* __restrict__ g,        // (N, P * Z), row st
   }
 }
 
-// row stride of K3bb's per-pair tile: X_a, Y_a (num_shifts each), A_b, A'_b
-// (num_sections each); odd, so 32 rows hit 32 banks
+// K3bb: blocks an SM (bounds its registers at 128 a thread), and the copies
+// of each warp's second-order planes: pair rounds d take copy d mod 4, so
+// that the (at most 4) rounds a batch of 32 pairs spans write to different
+// copies and no two lanes of a batch add to one address
+constexpr int kBwdBwdBlocksPerSM = 4;
+constexpr int kPlaneCopies = 4;
+
+// slot stride of K3bb's staged cotangent: Z where Z is a multiple of 4 (rows
+// on 16 bytes, read 4 floats at a time), else Z + 1.  Unlike K3b's it is not
+// padded: the lanes of a batch mostly read one or two slots, and the 4
+// floats a row saves keep 4 blocks an SM at ANI-2x's widths
+__host__ __device__ __forceinline__ int bwdbwd_slot_stride(int nz) {
+  return nz % 4 == 0 ? nz : nz + 1;
+}
+
+// row stride of K3bb's per-pair tile: (X_a, Y_a) for each shift, then
+// (A_b, A'_b) for each section, as float2s; 2 mod 4, so that the 32 rows
+// written at once spread over the banks
 __host__ __device__ __forceinline__ int bwdbwd_tile_stride(int sh, int se) {
-  return (2 * sh + 2 * se) | 1;
+  return (2 * (sh + se)) | 2;
 }
 
 // floats of K3bb's shared memory a warp: g (P, slot stride) | per compacted
 // lane (r, x, y, z), (fc, fc', 1 / r, species), (u_r, u_x, u_y, u_z) as
-// float4s | gg accumulator (P, Z) | pair tile (32, ts) | tile slots (32) |
-// fc'' (Ka) | lane map (Ka) | second-order planes r, x, y, z (Ka each)
+// float4s | kPlaneCopies second-order planes of (r, x, y, z) float4s (Ka
+// each) | J u accumulator (P, Z), whose met slots alone are used | pair tile
+// (32, ts) | fc'' (Ka) | lane map (Ka) | met-slot flags (P bytes)
 __host__ __device__ __forceinline__ size_t bwdbwd_warp_floats(int num_pairs, int sh, int se,
                                                               int ka) {
-  const int nz = sh * se;
-  return round4(static_cast<size_t>(num_pairs) * bwd_slot_stride(nz)) +
-         12 * static_cast<size_t>(ka) + round4(static_cast<size_t>(num_pairs) * nz) +
-         round4(32 * static_cast<size_t>(bwdbwd_tile_stride(sh, se))) + 32 +
-         2 * round4(ka) + 4 * static_cast<size_t>(ka);
+  const size_t nz = static_cast<size_t>(sh) * se;
+  return round4(num_pairs * static_cast<size_t>(bwdbwd_slot_stride(static_cast<int>(nz)))) +
+         (12 + 4 * kPlaneCopies) * static_cast<size_t>(ka) + round4(num_pairs * nz) +
+         round4(32 * static_cast<size_t>(bwdbwd_tile_stride(sh, se))) + 2 * round4(ka) +
+         round4((static_cast<size_t>(num_pairs) + 3) / 4);
 }
 
 // fc''(r), the derivative of `cutoff_fn`'s fc' as it stands (0 past the
@@ -702,11 +757,12 @@ __device__ __forceinline__ float cutoff_second(float r, float fc, float dfc,
 }
 
 // K3bb's staging: `stage_bwd_lanes`, and each valid lane's direction
-// lu[c] = (u_r, u_x, u_y, u_z) and fc''
+// lu[c] = (u_r, u_x, u_y, u_z) and fc''.  The species of lanes 0-31 come in
+// `t0` (loaded while the warp's previous atom ran).
 __device__ int stage_bwdbwd_lanes(const float* __restrict__ dist, const float* __restrict__ diff,
                                   const int* __restrict__ species,
                                   const float* __restrict__ u_dist,
-                                  const float* __restrict__ u_diff, size_t row, int lane,
+                                  const float* __restrict__ u_diff, size_t row, int lane, int t0,
                                   const AngularParams& p, float4* la, float4* lb, float4* lu,
                                   float* lf, int* map) {
   int nv = 0;
@@ -714,7 +770,7 @@ __device__ int stage_bwdbwd_lanes(const float* __restrict__ dist, const float* _
   for (int base = 0; base < p.ka; base += 32) {
     const int l = base + lane;
     const bool in = l < p.ka;
-    const int t = in ? species[row + l] : -1;
+    const int t = base == 0 ? t0 : in ? species[row + l] : -1;
     const bool mine = t >= 0;
     const unsigned found = __ballot_sync(kFullMask, mine);
     const int c = nv + __popc(found & below);
@@ -737,16 +793,50 @@ __device__ int stage_bwdbwd_lanes(const float* __restrict__ dist, const float* _
   return nv;
 }
 
-// What pair {j, k} gives K3bb: its row of the tile (X_a = dF R_a + F dm
-// R'_a, Y_a = F dc R_a, A_b, A'_b, so that its share of J u at feature
-// (a, b) is X_a A_b + Y_a A'_b) and its slot, and in v the gradient of
-// phi = <u, K3b's pair cotangents> on r, x, y, z of j (v[0..3]) and of k
-// (v[4..7]); see angular_aev_bwd_bwd_reference for the formulas
+// K3bb's `copy_slot_rows`, from the atom's species alone (lanes 0-31 in
+// `t0`), so that the copies start before its lanes are staged: starts
+// copying the cotangent rows of the species pairs among its valid lanes
+// (`gz` floats apart), flags those slots met and zeroes their rows of the
+// J u accumulator
+__device__ __forceinline__ void copy_met_rows(const float* __restrict__ grow,
+                                              const int* __restrict__ species, size_t row,
+                                              int lane, int t0, const AngularParams& p, int nz,
+                                              int gz, float* gs, float* acc,
+                                              unsigned char* met) {
+  unsigned present = t0 >= 0 ? 1u << t0 : 0u;
+  for (int l = 32 + lane; l < p.ka; l += 32) {
+    const int t = species[row + l];
+    present |= t >= 0 ? 1u << t : 0u;
+  }
+  present = __reduce_or_sync(kFullMask, present);
+  for (unsigned ms = present; ms != 0; ms &= ms - 1) {
+    const int s = __ffs(ms) - 1;
+    for (unsigned mt = present >> s; mt != 0; mt &= mt - 1) {
+      const int slot = triu_slot(s, s + __ffs(mt) - 1, p.num_species);
+      if (lane == 0) {
+        met[slot] = 1;
+      }
+      for (int i = lane; i < nz; i += 32) {
+        cp_async4(gs + slot * gz + i, grow + slot * nz + i);
+        acc[slot * nz + i] = 0.0f;
+      }
+    }
+  }
+}
+
+// What pair {j, k} of slot `slot` gives K3bb: its row of the tile, trow[2a]
+// = X_a = dF R_a + F dm R'_a, trow[2a + 1] = Y_a = F dc R_a, trow[2 sh + 2b]
+// = A_b, trow[2 sh + 2b + 1] = A'_b (so that its share of J u at feature
+// (a, b) is X_a A_b + Y_a A'_b), and in v the gradient of phi = <u, K3b's
+// pair cotangents> on r, x, y, z of j (v[0..3]) and of k (v[4..7]); see
+// angular_aev_bwd_bwd_reference for the formulas.  No division: base^(zeta
+// - 2) is exp2 of the log2 that base^(zeta - 1) takes, both on the
+// special-function unit alone (`exp2_approx`, `log2_approx`).
 template <int SH, int SE>
-__device__ __forceinline__ int pair_bwd_bwd(int j, int k, const float4* la, const float4* lb,
-                                            const float4* lu, const float* lf, const float* gs,
-                                            int gz, const AngularParams& p, float* trow,
-                                            float* v) {
+__device__ __forceinline__ void pair_bwd_bwd(int j, int k, int slot, const float4* la,
+                                             const float4* lb, const float4* lu, const float* lf,
+                                             const float* gs, int gz, const AngularParams& p,
+                                             float* trow, float* v) {
   constexpr int kSh = SH > 0 ? SH : kMaxShifts;
   constexpr int kSe = SE > 0 ? SE : kMaxSections;
   const int sh = SH > 0 ? SH : p.num_shifts;
@@ -770,6 +860,7 @@ __device__ __forceinline__ int pair_bwd_bwd(int j, int k, const float4* la, cons
   const float f_rj = bj.y * bk.x;
   const float f_rk = bj.x * bk.y;
   const float zeta_m1 = p.zeta - 1.0f;
+  const float zeta_m2 = p.zeta - 2.0f;
 
   // the direction: du(F), du(m), du(c)
   const float urj = uj.x, urk = uk.x;
@@ -790,16 +881,15 @@ __device__ __forceinline__ int pair_bwd_bwd(int j, int k, const float4* la, cons
       const float sn = p.sinsec[b];
       const float slope = cs + sn * dsin;
       const float base = 0.5f * (1.0f + c * cs + sin_t * sn);
-      const float pw = zeta_m1 > 0.0f ? pow_pos(base, zeta_m1) : 1.0f;
+      const float lg = log2_approx(base);
+      const float pw = zeta_m1 > 0.0f ? exp2_approx(zeta_m1 * lg) : 1.0f;
+      const float pw2 = zeta_m2 != 0.0f ? exp2_approx(zeta_m2 * lg) : 1.0f;  // base^(zeta - 2)
       ang[b] = 2.0f * base * pw;
       ang1[b] = p.zeta * pw * slope;
-      ang2[b] = 0.5f * p.zeta * zeta_m1 * (pw / base) * slope * slope +
-                p.zeta * pw * sn * ddsin;
-      trow[2 * sh + b] = ang[b];
-      trow[2 * sh + se + b] = ang1[b];
+      ang2[b] = 0.5f * p.zeta * zeta_m1 * pw2 * slope * slope + p.zeta * pw * sn * ddsin;
+      *reinterpret_cast<float2*>(trow + 2 * sh + 2 * b) = make_float2(ang[b], ang1[b]);
     }
   }
-  const int slot = triu_slot(__float_as_int(bj.w), __float_as_int(bk.w), p.num_species);
   const float* gp = gs + slot * gz;
   const float eta_log2e = -p.eta * 1.4426950408889634f;
   float p0 = 0.0f, pm = 0.0f, pmm = 0.0f, pc = 0.0f, pmc = 0.0f, pcc = 0.0f;
@@ -807,7 +897,7 @@ __device__ __forceinline__ int pair_bwd_bwd(int j, int k, const float4* la, cons
   for (int a = 0; a < kSh; ++a) {
     if (a < sh) {
       const float dr = mean - p.shift[a];
-      const float ra = exp2f(eta_log2e * dr * dr);
+      const float ra = exp2_approx(eta_log2e * dr * dr);
       const float ra1 = -2.0f * p.eta * dr * ra;
       const float ra2 = (4.0f * p.eta * p.eta * dr * dr - 2.0f * p.eta) * ra;
       float gv[kSe];
@@ -839,8 +929,8 @@ __device__ __forceinline__ int pair_bwd_bwd(int j, int k, const float4* la, cons
       pc += ra * t2;
       pmc += ra1 * t2;
       pcc += ra * t3;
-      trow[a] = d_f * ra + f * d_m * ra1;
-      trow[sh + a] = f * d_c * ra;
+      *reinterpret_cast<float2*>(trow + 2 * a) = make_float2(d_f * ra + f * d_m * ra1,
+                                                             f * d_c * ra);
     }
   }
   const float w_f = pm * d_m + pc * d_c;
@@ -865,18 +955,33 @@ __device__ __forceinline__ int pair_bwd_bwd(int j, int k, const float4* la, cons
   v[5] = alpha * aj.y + beta * uj.y;
   v[6] = alpha * aj.z + beta * uj.z;
   v[7] = alpha * aj.w + beta * uj.w;
-  return slot;
 }
 
-// K3bb.  SH, SE as for K3.  One warp an atom, four atoms a block.  The
-// atom's valid lanes, its direction and the cotangent rows its pairs read
-// are staged as in K3b; its pairs, 32 at a time in K3b's rounds, write
-// their tile rows and add their second-order values to the lane planes
-// with shared-memory atomics; then each lane sums its own features' share
-// of J u over the batch's pairs into the (P, Z) accumulator, slot by slot,
-// as K3 does.
+// adds (v0, v1, v2, v3) to the float4 at h (shared memory, no other lane of
+// the warp at the same address)
+__device__ __forceinline__ void add4(float4* h, float v0, float v1, float v2, float v3) {
+  float4 o = *h;
+  o.x += v0;
+  o.y += v1;
+  o.z += v2;
+  o.w += v3;
+  *h = o;
+}
+
+// K3bb.  SH, SE as for K3.  A persistent grid of one wave, as K3b's (at most
+// 128 registers, 4 blocks of 4 warps an SM); warp w of W takes atoms w, w +
+// W, ...  Per atom: the valid lanes, the direction and the cotangent rows
+// its pairs read are staged as in K3b; its pairs, 32 at a time in K3b's
+// rounds (no division: a lane's round and lane advance by 32 pairs a step),
+// are first ordered by slot (a ballot per slot in the batch: segment e
+// holds one slot's pairs), then each computes its tile row at its place and
+// adds its second-order values to the planes of its round's copy with plain
+// shared loads and stores; then each lane sums its own features' share of
+// J u over each segment's rows into that slot's accumulator row.  gg is
+// written 16 bytes a lane: the met slots from the accumulator, the others
+// as zeros from registers.
 template <int SH, int SE>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, kBwdBwdBlocksPerSM)
 angular_aev_bwd_bwd_kernel(const float* __restrict__ g,        // (N, P * Z), row stride g_stride
                            long long g_stride,
                            const float* __restrict__ dist,     // (N, Ka)
@@ -890,15 +995,16 @@ angular_aev_bwd_bwd_kernel(const float* __restrict__ g,        // (N, P * Z), ro
                            const AngularParams p) {
   constexpr int kSh = SH > 0 ? SH : kMaxShifts;
   constexpr int kSe = SE > 0 ? SE : kMaxSections;
+  constexpr bool kVec = SE > 0 && (SH * SE) % 4 == 0;  // gg rows written as float4s
   extern __shared__ __align__(16) float bb_smem[];
   const int warp = threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
-  const int atom = blockIdx.x * kWarpsPerBlock + warp;
+  const unsigned below = (1u << lane) - 1u;
   const int sh = SH > 0 ? SH : p.num_shifts;
   const int se = SE > 0 ? SE : p.num_sections;
   const int nz = sh * se;
   const int pz = p.num_pairs * nz;
-  const int gz = bwd_slot_stride(nz);
+  const int gz = bwdbwd_slot_stride(nz);
   const int ka = p.ka;
   const int ts = bwdbwd_tile_stride(sh, se);
 
@@ -906,105 +1012,156 @@ angular_aev_bwd_bwd_kernel(const float* __restrict__ g,        // (N, P * Z), ro
   float4* la = reinterpret_cast<float4*>(gs + round4(static_cast<size_t>(p.num_pairs) * gz));
   float4* lb = la + ka;
   float4* lu = lb + ka;
-  float* acc = reinterpret_cast<float*>(lu + ka);
+  float4* hacc = lu + ka;  // kPlaneCopies planes of Ka (r, x, y, z)
+  float* acc = reinterpret_cast<float*>(hacc + kPlaneCopies * ka);
   float* tile = acc + round4(static_cast<size_t>(pz));
-  int* tslot = reinterpret_cast<int*>(tile + round4(32 * static_cast<size_t>(ts)));
-  float* lf = reinterpret_cast<float*>(tslot + 32);
+  float* lf = tile + round4(32 * static_cast<size_t>(ts));
   int* map = reinterpret_cast<int*>(lf + round4(ka));
-  float* hacc = reinterpret_cast<float*>(map + round4(ka));  // planes r, x, y, z
+  unsigned char* met = reinterpret_cast<unsigned char*>(map + round4(ka));
 
-  if (atom >= p.n) {
-    return;  // the whole warp leaves together; only __syncwarp is used below
-  }
-  const size_t row = static_cast<size_t>(atom) * ka;
-  const int nv = stage_bwdbwd_lanes(dist, diff, species, u_dist, u_diff, row, lane, p, la, lb,
-                                    lu, lf, map);
-  __syncwarp();
-  copy_slot_rows(g + static_cast<long long>(atom) * g_stride, lane, nv, lb, p.num_species, nz, gs);
-  for (int i = lane; i < pz; i += 32) {
-    acc[i] = 0.0f;
-  }
-  for (int i = lane; i < 4 * ka; i += 32) {
-    hacc[i] = 0.0f;
-  }
-  cp_async_wait_all();
-  __syncwarp();
-
-  // this lane's features: z = lane + 32 i, at tile columns X, Y, A, A'
+  // this lane's features z = lane + 32 i: (X_a, Y_a) and (A_b, A'_b) at
+  // these tile columns
   constexpr int kZPerLane = (kSh * kSe + 31) / 32;
-  int col_a[kZPerLane], col_b[kZPerLane];
-  float run[kZPerLane];
+  int col_x[kZPerLane], col_a[kZPerLane];
 #pragma unroll
   for (int i = 0; i < kZPerLane; ++i) {
     const int z = lane + 32 * i;
-    col_a[i] = z < nz ? z / se : 0;
-    col_b[i] = z < nz ? 2 * sh + z % se : 2 * sh;
-    run[i] = 0.0f;
+    col_x[i] = z < nz ? 2 * (z / se) : 0;
+    col_a[i] = z < nz ? 2 * sh + 2 * (z % se) : 0;
   }
-  int cur = -1;  // the slot `run` sums into (the same in every lane)
 
-  const int num = nv * (nv - 1) / 2;
-  for (int q0 = 0; q0 < num; q0 += 32) {
-    const int q = q0 + lane;
-    if (q < num) {
-      // pair q = (d - 1) nv + j of K3b's rounds: k = (j + d) mod nv
-      const int d = q / nv + 1;
-      const int j = q % nv;
-      int k = j + d;
-      k -= k >= nv ? nv : 0;
-      float v[8];
-      tslot[lane] = pair_bwd_bwd<SH, SE>(j, k, la, lb, lu, lf, gs, gz, p, tile + lane * ts, v);
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        atomicAdd(hacc + e * ka + j, v[e]);
-        atomicAdd(hacc + e * ka + k, v[4 + e]);
-      }
+  const int warps = gridDim.x * kWarpsPerBlock;
+  int atom = blockIdx.x * kWarpsPerBlock + warp;
+  // the species of the warp's next atom, lanes 0-31, loaded one atom ahead
+  int t_next = atom < p.n && lane < ka ? species[static_cast<size_t>(atom) * ka + lane] : -1;
+  for (; atom < p.n; atom += warps) {
+    const size_t row = static_cast<size_t>(atom) * ka;
+    const int t0 = t_next;
+    const size_t next_row = static_cast<size_t>(atom + warps) * ka;
+    t_next = atom + warps < p.n && lane < ka ? species[next_row + lane] : -1;
+    for (int i = lane; i < p.num_pairs; i += 32) {
+      met[i] = 0;
     }
     __syncwarp();
-    const int cnt = min(32, num - q0);
-    for (int m = 0; m < cnt; ++m) {
-      const int slot = tslot[m];
-      if (slot != cur) {
-        if (cur >= 0) {
+    copy_met_rows(g + static_cast<long long>(atom) * g_stride, species, row, lane, t0, p, nz,
+                  gz, gs, acc, met);
+    for (int i = lane; i < kPlaneCopies * ka; i += 32) {
+      hacc[i] = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+    }
+    const int nv = stage_bwdbwd_lanes(dist, diff, species, u_dist, u_diff, row, lane, t0, p, la,
+                                      lb, lu, lf, map);
+    cp_async_wait_all();
+    __syncwarp();
+
+    const int num = nv * (nv - 1) / 2;
+    if (num > 0) {
+      // pair q = (d - 1) nv + j of the rounds: k = (j + d) mod nv
+      const int step_d = 32 / nv, step_j = 32 % nv;
+      int d = lane / nv + 1, j = lane % nv;
+      for (int q0 = 0; q0 < num; q0 += 32) {
+        const bool on = q0 + lane < num;
+        int k = j + d;
+        k -= k >= nv ? nv : 0;
+        const int slot = on ? triu_slot(__float_as_int(lb[j].w), __float_as_int(lb[k].w),
+                                        p.num_species)
+                            : -1;
+        // the batch's pairs ordered by slot: segment e (held by lane e) is
+        // one slot's rows [end of e - 1, seg_end) of the tile
+        unsigned left = __ballot_sync(kFullMask, on);
+        int place = 0, filled = 0, segs = 0, seg_slot = 0, seg_end = 0;
+        while (left != 0) {
+          const int s = __shfl_sync(kFullMask, slot, __ffs(left) - 1);
+          const unsigned same = __ballot_sync(kFullMask, slot == s);
+          if (slot == s) {
+            place = filled + __popc(same & below);
+          }
+          filled += __popc(same);
+          if (lane == segs) {
+            seg_slot = s;
+            seg_end = filled;
+          }
+          ++segs;
+          left &= ~same;
+        }
+        float v[8];
+        float4* h = hacc + (d % kPlaneCopies) * ka;
+        if (on) {
+          pair_bwd_bwd<SH, SE>(j, k, slot, la, lb, lu, lf, gs, gz, p, tile + place * ts, v);
+          add4(h + j, v[0], v[1], v[2], v[3]);
+        }
+        __syncwarp();
+        if (on) {
+          add4(h + k, v[4], v[5], v[6], v[7]);
+        }
+        __syncwarp();
+        int start = 0;
+        for (int e = 0; e < segs; ++e) {
+          const int s = __shfl_sync(kFullMask, seg_slot, e);
+          const int end = __shfl_sync(kFullMask, seg_end, e);
 #pragma unroll
           for (int i = 0; i < kZPerLane; ++i) {
             if (lane + 32 * i < nz) {
-              acc[cur * nz + lane + 32 * i] += run[i];
+              float r0 = 0.0f, r1 = 0.0f;
+#pragma unroll 4
+              for (int m = start; m < end; ++m) {
+                const float* t = tile + m * ts;
+                const float2 xy = *reinterpret_cast<const float2*>(t + col_x[i]);
+                const float2 aa = *reinterpret_cast<const float2*>(t + col_a[i]);
+                r0 = fmaf(xy.x, aa.x, r0);
+                r1 = fmaf(xy.y, aa.y, r1);
+              }
+              acc[s * nz + lane + 32 * i] += r0 + r1;
             }
-            run[i] = 0.0f;
           }
+          start = end;
         }
-        cur = slot;
-      }
-      const float* t = tile + m * ts;
-#pragma unroll
-      for (int i = 0; i < kZPerLane; ++i) {
-        run[i] += t[col_a[i]] * t[col_b[i]] + t[sh + col_a[i]] * t[se + col_b[i]];
-      }
-    }
-    __syncwarp();
-  }
-  if (cur >= 0) {
-#pragma unroll
-    for (int i = 0; i < kZPerLane; ++i) {
-      if (lane + 32 * i < nz) {
-        acc[cur * nz + lane + 32 * i] += run[i];
+        __syncwarp();
+        j += step_j;
+        d += step_d;
+        if (j >= nv) {
+          j -= nv;
+          ++d;
+        }
       }
     }
-  }
-  __syncwarp();
 
-  float* o = gg + static_cast<size_t>(atom) * pz;
-  for (int i = lane; i < pz; i += 32) {
-    o[i] = acc[i];
-  }
-  for (int l = lane; l < ka; l += 32) {
-    const int c = map[l];
-    hdist[row + l] = c >= 0 ? hacc[c] : 0.0f;
-  }
-  for (int i = lane; i < 3 * ka; i += 32) {
-    const int c = map[i / 3];
-    hdiff[row * 3 + i] = c >= 0 ? hacc[(1 + i % 3) * ka + c] : 0.0f;
+    // gg: the met slots' accumulator rows, zeros elsewhere
+    float* o = gg + static_cast<size_t>(atom) * pz;
+    if (kVec) {
+      constexpr int kQ = kVec ? SH * SE / 4 : 1;  // float4s a slot
+      for (int i = lane; i < pz / 4; i += 32) {
+        reinterpret_cast<float4*>(o)[i] = met[i / kQ]
+                                              ? reinterpret_cast<const float4*>(acc)[i]
+                                              : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+      }
+    } else {
+      for (int i = lane; i < pz; i += 32) {
+        o[i] = met[i / nz] ? acc[i] : 0.0f;
+      }
+    }
+    for (int l = lane; l < ka; l += 32) {
+      const int c = map[l];
+      float sum = 0.0f;
+      if (c >= 0) {
+#pragma unroll
+        for (int cp = 0; cp < kPlaneCopies; ++cp) {
+          sum += hacc[cp * ka + c].x;
+        }
+      }
+      hdist[row + l] = sum;
+    }
+    for (int i = lane; i < 3 * ka; i += 32) {
+      const int c = map[i / 3];
+      float sum = 0.0f;
+      if (c >= 0) {
+#pragma unroll
+        for (int cp = 0; cp < kPlaneCopies; ++cp) {
+          sum += reinterpret_cast<const float*>(hacc + cp * ka + c)[1 + i % 3];
+        }
+      }
+      hdiff[row * 3 + i] = sum;
+    }
+    __syncwarp();  // every lane is done with this atom's shared memory
   }
 }
 
@@ -1089,14 +1246,12 @@ cudaError_t allow_shared(const void* kernel, size_t smem) {
   return cudaSuccess;
 }
 
-// K3b's persistent grid: as many blocks as the card holds at once (from
-// the kernel's registers and shared memory), no more than the atoms need;
+// A persistent grid of one wave for `kernel` with `smem` bytes of shared
+// memory a block: as many blocks as the card holds at once (from the
+// kernel's registers and shared memory), no more than the atoms need;
 // raises the kernel's shared memory limit on the way
-cudaError_t bwd_shape(BwdKernel kernel, const AngularParams& p, int device, int& blocks,
-                      size_t& smem) {
-  smem = kWarpsPerBlock * sizeof(float) *
-         bwd_warp_floats(p.num_pairs, p.num_shifts * p.num_sections, p.ka);
-  cudaError_t err = allow_shared(reinterpret_cast<const void*>(kernel), smem);
+cudaError_t persistent_shape(const void* kernel, size_t smem, int n, int device, int& blocks) {
+  cudaError_t err = allow_shared(kernel, smem);
   if (err != cudaSuccess) {
     return err;
   }
@@ -1112,8 +1267,24 @@ cudaError_t bwd_shape(BwdKernel kernel, const AngularParams& p, int device, int&
   if (per_sm == 0) {
     return cudaErrorInvalidConfiguration;  // not one block fits an SM
   }
-  blocks = std::min((p.n + kWarpsPerBlock - 1) / kWarpsPerBlock, per_sm * sms);
+  blocks = std::min((n + kWarpsPerBlock - 1) / kWarpsPerBlock, per_sm * sms);
   return cudaSuccess;
+}
+
+// K3b's persistent grid
+cudaError_t bwd_shape(BwdKernel kernel, const AngularParams& p, int device, int& blocks,
+                      size_t& smem) {
+  smem = kWarpsPerBlock * sizeof(float) *
+         bwd_warp_floats(p.num_pairs, p.num_shifts * p.num_sections, p.ka);
+  return persistent_shape(reinterpret_cast<const void*>(kernel), smem, p.n, device, blocks);
+}
+
+// K3bb's persistent grid
+cudaError_t bwd_bwd_shape(BwdBwdKernel kernel, const AngularParams& p, int device, int& blocks,
+                          size_t& smem) {
+  smem = kWarpsPerBlock * sizeof(float) *
+         bwdbwd_warp_floats(p.num_pairs, p.num_shifts, p.num_sections, p.ka);
+  return persistent_shape(reinterpret_cast<const void*>(kernel), smem, p.n, device, blocks);
 }
 
 }  // namespace
@@ -1206,22 +1377,23 @@ int angular_aev_bwd_bwd_launch(const float* g, long long g_row_stride, const flo
   if ((err = cudaSetDevice(device)) != cudaSuccess) {
     return static_cast<int>(err);
   }
-  const size_t smem =
-      kWarpsPerBlock * sizeof(float) * bwdbwd_warp_floats(p.num_pairs, num_shifts, num_sections, ka);
+  int blocks = 0;
+  size_t smem = 0;
   const BwdBwdKernel kernel = pick_bwd_bwd(num_shifts, num_sections);
-  if ((err = allow_shared(reinterpret_cast<const void*>(kernel), smem)) != cudaSuccess) {
+  if ((err = bwd_bwd_shape(kernel, p, device, blocks, smem)) != cudaSuccess) {
     return static_cast<int>(err);
   }
-  const int blocks = (n + kWarpsPerBlock - 1) / kWarpsPerBlock;
   kernel<<<blocks, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
       g, g_row_stride, dist, diff, species, u_dist, u_diff, gg, hdist, hdiff, p);
   return static_cast<int>(cudaGetLastError());
 }
 
-// K3b's persistent grid for these widths on `device`, without launching:
-// blocks, threads a block and shared memory a block
+// K3b's (second_order 0) or K3bb's (1) persistent grid for these widths on
+// `device`, without launching: blocks, threads a block and shared memory a
+// block
 int angular_aev_bwd_shape(int n, int ka, int num_species, int num_shifts, int num_sections,
-                          int device, int* blocks, int* threads, long long* smem_bytes) {
+                          int second_order, int device, int* blocks, int* threads,
+                          long long* smem_bytes) {
   AngularParams p;
   const float zeros[kMaxShifts > kMaxSections ? kMaxShifts : kMaxSections] = {};
   cudaError_t err = make_params(p, n, ka, num_species, zeros, num_shifts, zeros, zeros,
@@ -1233,7 +1405,9 @@ int angular_aev_bwd_shape(int n, int ka, int num_species, int num_shifts, int nu
     return static_cast<int>(err);
   }
   size_t smem = 0;
-  err = bwd_shape(pick_bwd(num_shifts, num_sections), p, device, *blocks, smem);
+  err = second_order
+            ? bwd_bwd_shape(pick_bwd_bwd(num_shifts, num_sections), p, device, *blocks, smem)
+            : bwd_shape(pick_bwd(num_shifts, num_sections), p, device, *blocks, smem);
   *threads = kThreads;
   *smem_bytes = static_cast<long long>(smem);
   return static_cast<int>(err);

@@ -5,12 +5,15 @@ Inputs may be numpy arrays or tensors; they are moved to the model's device.
 Returned tensors are detached, except those of `forces_for_training`.
 
 Where the JAX package takes one ``jacfwd`` of the gradient for the Hessian,
-the port writes the batch out: each molecule is replicated once per Hessian
-row of a chunk, the forces are taken with ``create_graph=True`` and one
-backward with one-hot row directions gives the chunk's rows
-(`hessian_rows` rows a pass).  On the card each pass launches the angular
-AEV's kernels K3 and K3bb once each and K3b twice: once for the forces,
-once for the second backward's pass through the AEV.
+the port writes the batch out: the neighbor table is built once without a
+graph, each molecule's table is replicated once per Hessian row of a chunk
+and its pair vectors rebuilt from each replica's coordinates, the forces
+are taken with ``create_graph=True`` and one backward with one-hot row
+directions gives the chunk's rows (`hessian_rows` rows a pass).  So a
+neighbor list that takes a single system (``cell_list``) serves too.  On
+the card each pass launches the angular AEV's kernels K3 and K3bb once each
+and K3b twice: once for the forces, once for the second backward's pass
+through the AEV.
 """
 
 import math
@@ -20,6 +23,7 @@ import torch
 
 from torchani_tpu_torch.annotations import Tensor
 from torchani_tpu_torch.arch import as_tensor
+from torchani_tpu_torch.neighbors import _finalize, _gather_atoms
 from torchani_tpu_torch.tuples import EnergiesForcesHessians, ForcesHessians, VibAnalysis
 from torchani_tpu_torch.units import mhessian2fconst, sqrt_mhessian2invcm, sqrt_mhessian2milliev
 from torchani_tpu_torch.utils import get_atomic_masses
@@ -122,21 +126,31 @@ def hessians(model, species, coords, cell=None, pbc=None) -> Tensor:
     """Hessian of each molecule, shape ``(molecules, 3A, 3A)`` (padded atoms
     included, with zero rows).
 
-    Per pass, R = `hessian_rows` replicas of the batch, the forces with
+    The neighbor table of the configuration is built once, without a graph
+    (its selection carries no derivative), with each lane's image shift.
+    Per pass, R = `hessian_rows` replicas of the batch on that table, their
+    pair vectors rebuilt from the replicas' coordinates, the forces with
     ``create_graph=True`` and one backward whose direction is row ``i0 + r``
     of the identity on replica r: ``ceil(3A / R)`` passes."""
-    coords, cell, pbc = _inputs(model, coords, cell, pbc)
-    coords = coords.detach()
-    species = as_tensor(species, torch.int64, model.device)
-    c, a = species.shape
+    elem, coords, _, nb = _fixed_neighbors(model, species, coords, cell, pbc)
+    c, a = elem.shape
     n = 3 * a
+    shift = torch.where(
+        nb.mask[..., None], nb.diff - (_gather_atoms(coords, nb.idx) - coords[:, :, None]), 0.0
+    )
     rows = hessian_rows(c, a)
     eye = torch.eye(n, dtype=coords.dtype, device=coords.device)
     out = coords.new_empty((c, n, n))
     for start in range(0, n, rows):
         r = min(rows, n - start)
-        x = coords.expand(r, c, a, 3).reshape(r * c, a, 3).clone().requires_grad_(True)
-        e = model(species.repeat(r, 1), x, cell, pbc)
+
+        def rep(t: Tensor) -> Tensor:
+            return t.expand((r,) + t.shape).reshape((r * c,) + t.shape[1:])
+
+        x = rep(coords).clone().requires_grad_(True)
+        nb_r = _finalize(x, rep(nb.idx), rep(nb.mask), rep(shift), nb.overflow,
+                         None if nb.elem is None else rep(nb.elem))
+        e = model.compute_from_neighbors(rep(elem), x, nb_r).energies
         (g,) = torch.autograd.grad(e.sum(), x, create_graph=True)
         v = eye[start:start + r, None, :].expand(r, c, n).reshape(r * c, a, 3)
         (h,) = torch.autograd.grad(g, x, v)
@@ -188,9 +202,14 @@ def members_energies_and_forces(
 ) -> tp.Tuple[Tensor, Tensor]:
     """Each ensemble member's energies ``(E, C)`` and forces ``(E, C, A,
     3)``: one forward and one backward per member (on the card, one K3 and
-    E K3b launches)."""
+    E K3b launches).  Raises `ValueError` for a model without an ensemble."""
     coords, cell, pbc = _inputs(model, coords, cell, pbc)
     e = model(species, coords, cell, pbc, ensemble_values=True)
+    if e.dim() != 2 or e.shape[1] != coords.shape[0]:
+        raise ValueError(
+            f"the model has no ensemble: its ensemble_values=True output has shape "
+            f"{tuple(e.shape)}, not (members, {coords.shape[0]})"
+        )
     members = e.shape[0]
     out = [
         -torch.autograd.grad(e[i].sum(), coords, retain_graph=i + 1 < members)[0]
