@@ -59,7 +59,21 @@ card against CPU; `members_energies_and_forces`,
 launch, one K3b per member or one), card against CPU at 1,002 atoms; and 20
 steps each of `run_nvt_nose_hoover` and `run_npt_berendsen`
 (``npt_compression=0.05``) on the water box (K1, K2, K3 and K3b once per
-step), card against CPU at 1,002 atoms.  Every number it prints was
+step), card against CPU at 1,002 atoms.  Then the tools on top of MD and
+the user surface, each with its launch counts: `trajectory` (50 NVE steps
+of the box, a frame every 10, from the main path's start, against
+`run_nve`, alternating; 20 NHC and 20 NPT steps, a frame every 5, against
+their runs); the O-O RDF of those frames (its peak device memory, card
+against CPU: per-bin counts equal but for pairs at a bin edge), MSD and the
+diffusion coefficient; `minimize_fire` on the 30-water cluster and
+`minimize_fire_batched` on 64 perturbations of it (30 iterations each, host
+syncs per iteration counted in CUDA's sync debug mode, card against CPU
+after 10); `neb_path` over 9 images (endpoints fixed to the bit); replica
+exchange of 8 replicas of the cluster at 280-420 K (5 segments of 10
+steps, card against CPU over one segment with one CPU generator, a ladder
+of equal temperatures accepting every swap); and `cli.main` in process:
+`sp -f` of the box from an xyz file, `md --nvt-nhc --traj` (4 frames read
+back), `opt` of a 4-conformer file.  Every number it prints was
 measured or computed in the run.  It prints a ``kernels`` JSON line (all
 nine kernels) and, last, ``{"ok": true, "device": {...}}``.  Any failed
 check raises, and the script exits non-zero without that last line; so does
@@ -67,11 +81,14 @@ a machine with no CUDA device, or a directory without the package.  A few
 minutes of command time on an H100.
 """
 
+import contextlib
+import io as io_mod
 import json
 import subprocess
 import sys
 import tempfile
 import time
+import warnings
 
 import numpy as np
 import torch
@@ -134,6 +151,18 @@ STRESS_TOL = 1e-5
 #: the Nose-Hoover and Berendsen NPT runs: steps, thermostat and barostat
 #: settings (the JAX package's defaults, water's compressibility)
 THERMO_STEPS, NHC_TAU_FS, NPT_COMPRESSION = 20, 25.0, 0.05
+#: `trajectory`: a frame every TRAJ_EVERY of the MD_STEPS NVE steps, every
+#: THERMO_EVERY of the THERMO_STEPS Nose-Hoover and NPT steps
+TRAJ_EVERY, THERMO_EVERY = 10, 5
+#: the O-O RDF of the NVE frames; card against CPU: per-bin counts equal but
+#: for pairs within RDF_EDGE_TOL A of a bin edge (tests/test_torch_observables.py)
+RDF_RMAX, RDF_BINS, RDF_EDGE_TOL = 8.0, 100, 1e-5
+#: FIRE and NEB on the 30-water cluster: iterations (under an unreachable
+#: fmax), conformers of the batch and their seeded perturbation (A), images
+FIRE_ITERS, FIRE_CONFS, FIRE_SIGMA, NEB_IMAGES = 30, 64, 0.05, 9
+#: replica exchange of the cluster: replicas (280-420 K, geometric),
+#: segments and Langevin steps a segment
+REPLICAS, REX_SEGMENTS, REX_STEPS = 8, 5, 10
 
 
 def check(ok: bool, what: str) -> None:
@@ -154,6 +183,20 @@ def cuda_ms(fn, reps: int, warmup: int = 2) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def count_syncs(fn):
+    """``fn()`` under CUDA's sync debug mode: its result and the number of
+    operations that made the host wait for the device."""
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            out = fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    return out, sum("synchronizing" in str(w.message) for w in caught)
 
 
 def kernels_ms(fn, reps: int) -> float:
@@ -417,7 +460,7 @@ def main() -> int:
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"python {sys.version.split()[0]}")
 
-    from torchani_tpu_torch import convert, csrc, paths
+    from torchani_tpu_torch import cli, convert, csrc, paths
     from torchani_tpu_torch.aev.kernels import (
         angular_aev,
         angular_aev_bwd,
@@ -471,9 +514,20 @@ def main() -> int:
         _refresh_neighbors,
         kinetic_temperature,
     )
+    from torchani_tpu_torch.io import read_xyz, write_xyz
     from torchani_tpu_torch.models import ANI1x, ANI2dr, ANI2x
+    from torchani_tpu_torch.neb import neb_path
     from torchani_tpu_torch.neighbors import CellList, _static_grid_shape
+    from torchani_tpu_torch.observables import (
+        _min_image_dist2,
+        diffusion_coefficient,
+        mean_squared_displacement,
+        radial_distribution,
+    )
+    from torchani_tpu_torch.optimize import _energy_and_forces as _fire_forces
+    from torchani_tpu_torch.optimize import minimize_fire, minimize_fire_batched
     from torchani_tpu_torch.profiling import peak_gib, wall_times_ms
+    from torchani_tpu_torch.replica import ReplicaExchange
     from torchani_tpu_torch.testing import make_water_box
 
     dev = torch.device("cuda")
@@ -1748,6 +1802,317 @@ def main() -> int:
               f"{dc_:.3e} A{extra}")
         check(dc_ <= MD_COORD_ATOL, f"{name} coordinates agree with the CPU")
 
+    # ---- 23. a: trajectory on the water box ----
+    t_phases = time.perf_counter()
+    tools = {}  # launches of each new path
+    traj_md = MolecularDynamics(md_model, species, cell=cell, pbc=True)
+    traj_start = traj_md.init(coords, temperature=300.0, generator=torch.Generator().manual_seed(0))
+    traj_ms, runs, counts = {"run_nve": [], "trajectory": []}, {}, {}
+    for name in ("run_nve", "trajectory", "trajectory", "run_nve"):
+        reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if name == "run_nve":
+            runs[name] = (traj_md.run_nve(traj_start, MD_STEPS), None)
+        else:
+            runs[name] = traj_md.trajectory(traj_start, MD_STEPS, record_every=TRAJ_EVERY)
+        torch.cuda.synchronize()
+        traj_ms[name].append((time.perf_counter() - t0) * 1e3 / MD_STEPS)
+        counts[name] = read_counts()
+    want = {k_: MD_STEPS for k_ in
+            ("angular_aev", "angular_aev_bwd", "bucket_select_fwd", "bucket_select_bwd")}
+    for name in ("run_nve", "trajectory"):
+        check(counts[name] == {k_: want.get(k_, 0) for k_ in kernels_fn}
+              and angular_grid.calls == 0, f"{name}: K1, K2, K3 and K3b {MD_STEPS} times each")
+    tools["trajectory_nve"] = counts["trajectory"]
+    (nve_end, _), (traj_end, nve_traj) = runs["run_nve"], runs["trajectory"]
+    dx = float((traj_end.coords - nve_end.coords).abs().max())
+    frames = MD_STEPS // TRAJ_EVERY
+    check(tuple(nve_traj["coords"].shape) == (frames, num_atoms, 3)
+          and all(bool(torch.isfinite(t).all()) for t in nve_traj.values()),
+          f"trajectory: {frames} finite frames")
+    check(torch.equal(nve_traj["coords"][-1], traj_end.coords), "the last frame is the final state")
+    check(dx <= MD_COORD_ATOL, "trajectory ends where run_nve ends")
+    print(f"{card}: trajectory NVE {MD_STEPS} steps, a frame every {TRAJ_EVERY}: "
+          f"{traj_ms['trajectory']} ms/step against run_nve's {traj_ms['run_nve']} (alternating, "
+          f"host clock to a synchronize); final coordinates max |dx| {dx:.3e} A; launches "
+          f"{tools['trajectory_nve']}; temperatures {nve_traj['temperatures'].tolist()}")
+    del runs, nve_end
+    for name, ensemble, kw, params in (
+        ("nvt_nhc", "nvt-nhc", {}, dict(temperature=300.0, tau_fs=NHC_TAU_FS)),
+        ("npt", "npt", dict(npt_compression=NPT_COMPRESSION),
+         dict(temperature=300.0, pressure_bar=1.0)),
+    ):
+        runner = MolecularDynamics(model, species, cell=cell, pbc=True, **kw)
+        start = runner.init(coords, temperature=300.0, generator=gen0())
+        end_run = (runner.run_nvt_nose_hoover(start, THERMO_STEPS, **params) if name == "nvt_nhc"
+                   else runner.run_npt_berendsen(start, THERMO_STEPS, **params))
+        reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        end, traj = runner.trajectory(start, THERMO_STEPS, record_every=THERMO_EVERY,
+                                      ensemble=ensemble, **params)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3 / THERMO_STEPS
+        tools[f"trajectory_{name}"] = read_counts()
+        want = {k_: THERMO_STEPS for k_ in
+                ("angular_aev", "angular_aev_bwd", "bucket_select_fwd", "bucket_select_bwd")}
+        check(tools[f"trajectory_{name}"] == {k_: want.get(k_, 0) for k_ in kernels_fn},
+              f"trajectory {ensemble}: K1, K2, K3 and K3b once a step")
+        dx = float((end.coords - end_run.coords).abs().max())
+        check(dx <= MD_COORD_ATOL, f"trajectory {ensemble} ends where its run ends")
+        check(tuple(traj["coords"].shape) == (THERMO_STEPS // THERMO_EVERY, num_atoms, 3)
+              and (("scales" in traj) == (name == "npt")), f"trajectory {ensemble} frames")
+        extra = f", scales {traj['scales'].tolist()}" if name == "npt" else ""
+        print(f"{card}: trajectory {ensemble} {THERMO_STEPS} steps, a frame every {THERMO_EVERY}: "
+              f"{ms:.3f} ms/step; against its run max |dx| {dx:.3e} A; launches "
+              f"{tools[f'trajectory_{name}']}{extra}")
+        del runner, start, end_run, end, traj
+
+    # ---- 24. b: observables on the NVE frames ----
+    frames_card = nve_traj["coords"]
+    frames_cpu = frames_card.cpu()
+    o_idx = torch.nonzero(species[0] == 8).reshape(-1)
+    held = held_gib()
+    t0 = time.perf_counter()
+    rdf_peak = peak_gib(lambda: radial_distribution(frames_card, cell, RDF_RMAX, RDF_BINS,
+                                                    species=species[0], pair=(8, 8)))
+    r_c, g_card = radial_distribution(frames_card, cell, RDF_RMAX, RDF_BINS,
+                                      species=species[0], pair=(8, 8))
+    torch.cuda.synchronize()
+    rdf_ms = (time.perf_counter() - t0) * 1e3 / 2
+    t0 = time.perf_counter()
+    _, g_cpu = radial_distribution(frames_cpu, cell_np, RDF_RMAX, RDF_BINS,
+                                   species=species_np[0], pair=(8, 8))
+    rdf_cpu_s = time.perf_counter() - t0
+    # per-bin pair counts, card against CPU: equal but for pairs within
+    # RDF_EDGE_TOL of a bin edge (float64 distances, on the card)
+    n_o = o_idx.numel()
+    ideal = (4.0 * np.pi * r_c**2 * (RDF_RMAX / RDF_BINS) * (n_o / float(np.linalg.det(cell_np)))
+             * n_o)
+    counts_card = np.rint(g_card * ideal * frames).astype(np.int64)
+    counts_cpu = np.rint(g_cpu * ideal * frames).astype(np.int64)
+    near_edge = np.zeros(RDF_BINS + 2, np.int64)
+    cell64 = cell.double()
+    inv64 = torch.linalg.inv(cell64)
+    for fr in frames_card.double():
+        cols = fr.index_select(0, o_idx)
+        for start in range(0, n_o, 64):
+            rows_idx = o_idx[start:start + 64]
+            d = torch.sqrt(_min_image_dist2(fr.index_select(0, rows_idx), cols, cell64, inv64))
+            d = d[rows_idx[:, None] != o_idx[None, :]]
+            scaled = d / RDF_RMAX * RDF_BINS
+            near = (scaled - torch.round(scaled)).abs() * (RDF_RMAX / RDF_BINS) < RDF_EDGE_TOL
+            near_edge += np.bincount(torch.round(scaled[near]).long().cpu().numpy(),
+                                     minlength=RDF_BINS + 2)[:RDF_BINS + 2]
+    off = np.flatnonzero(counts_card != counts_cpu)
+    check(all(abs(int(counts_card[k]) - int(counts_cpu[k])) <= near_edge[k] + near_edge[k + 1]
+              for k in off), "O-O RDF: card counts equal the CPU's but for pairs at a bin edge")
+    check(int(counts_card.sum()) > 0 and bool(np.isfinite(g_card).all()), "RDF counted pairs")
+    msd = mean_squared_displacement(frames_card)
+    diff_coef = diffusion_coefficient(frames_card, float(TRAJ_EVERY))
+    check(msd.shape == (frames,) and msd[0] == 0.0 and bool(np.isfinite(msd).all()),
+          "MSD finite, (F,)")
+    print(f"{card}: O-O RDF of {frames} frames ({n_o} O, r_max {RDF_RMAX} A, {RDF_BINS} bins): "
+          f"{rdf_ms:.3f} ms, peak device memory {rdf_peak:.3f} GiB ({held:.3f} held before); "
+          f"first peak g = {float(g_card.max()):.3f} at {float(r_c[int(np.argmax(g_card))]):.3f} A; "
+          f"CPU {rdf_cpu_s:.1f} s; bins that differ from the CPU's {off.tolist()} "
+          f"(pairs at a bin edge: {int(near_edge.sum())}); MSD {msd.tolist()} A^2; "
+          f"D {diff_coef:.4e} A^2/fs")
+    del frames_card, frames_cpu, nve_traj, traj_end
+
+    # ---- 25. c: FIRE on the 90-atom cluster ----
+    def iteration_syncs(run):
+        """Host syncs an iteration of ``run(n)`` (n iterations): a run of
+        FIRE_ITERS less a run of none, over FIRE_ITERS."""
+        base = count_syncs(lambda: run(0))[1]
+        return (count_syncs(lambda: run(FIRE_ITERS))[1] - base) / FIRE_ITERS
+
+    def linear(c):
+        """An energy that makes no host sync and never converges."""
+        return 0.01 * torch.sum(c, dim=(-2, -1))
+
+    cl_t = torch.as_tensor(cl_sp, device=dev)
+    e_one = lambda c: torch.sum(h_model(cl_t, c[None]))  # noqa: E731
+    x_one = torch.as_tensor(cl_co[0], device=dev)
+    batch_co = torch.as_tensor(
+        cl_co + FIRE_SIGMA * np.random.RandomState(5).randn(FIRE_CONFS, cl_atoms, 3),
+        dtype=torch.float32, device=dev)
+    batch_sp = torch.as_tensor(np.repeat(cl_sp, FIRE_CONFS, axis=0), device=dev)
+    e_batch = lambda c: h_model(batch_sp, c)  # noqa: E731
+    fire_runs = {
+        "fire": (minimize_fire, e_one, x_one),
+        "fire_batched": (minimize_fire_batched, e_batch, batch_co),
+    }
+    for name, (minimizer, energy_fn, x) in fire_runs.items():
+        def run(n, minimizer=minimizer, energy_fn=energy_fn, x=x):
+            return minimizer(energy_fn, x, max_steps=n, fmax=1e-12)
+
+        fn = lambda run=run: run(FIRE_ITERS)  # noqa: E731
+        reset_counts()
+        st = fn()
+        torch.cuda.synchronize()
+        tools[name] = read_counts()
+        want = {"angular_aev": FIRE_ITERS + 1, "angular_aev_bwd": FIRE_ITERS + 1}
+        check(tools[name] == {k_: want.get(k_, 0) for k_ in kernels_fn} and st.step == FIRE_ITERS,
+              f"{name}: K3 and K3b once an evaluation ({FIRE_ITERS + 1}), nothing else")
+        check(bool(torch.isfinite(st.coords).all()) and st.dt.dtype == torch.float32
+              and st.dt.device.type == "cuda", f"{name}: finite, f32 schedule on the card")
+        ms = float(np.median(wall_times_ms(fn, reps=3))) / FIRE_ITERS
+        syncs = iteration_syncs(run)
+        eval_syncs = count_syncs(lambda e=energy_fn, x=x: _fire_forces(e, x))[1]
+        own = iteration_syncs(
+            lambda n, minimizer=minimizer, x=x: minimizer(linear, x, max_steps=n, fmax=1e-12))
+        check(own == 1.0, f"{name}: one host sync an iteration of its own (the loop's condition)")
+        print(f"{card}: {name} ({FIRE_CONFS if name == 'fire_batched' else 1} x {cl_atoms} atoms): "
+              f"{ms:.3f} ms per iteration (median of 3 runs of {FIRE_ITERS}); {syncs:.2f} host "
+              f"syncs an iteration: the energy evaluation's {eval_syncs} and FIRE's own {own:.2f} "
+              f"(under an energy that makes none); fmax {float(st.fmax.max()):.4e}")
+    cpu_model = ANI2x(pretrained=False, seed=0, device="cpu")
+    ends = {}
+    for where, m in (("cuda", h_model), ("cpu", cpu_model)):
+        sp_w = torch.as_tensor(cl_sp, device=where)
+        ends[where] = minimize_fire(lambda c, m=m, sp_w=sp_w: torch.sum(m(sp_w, c[None])),
+                                    torch.as_tensor(cl_co[0], device=where), max_steps=10,
+                                    fmax=1e-12)
+    dx = float((ends["cuda"].coords.cpu() - ends["cpu"].coords).abs().max())
+    same = (float(ends["cuda"].dt) == float(ends["cpu"].dt)
+            and int(ends["cuda"].n_pos) == int(ends["cpu"].n_pos))
+    print(f"FIRE card vs CPU, {cl_atoms} atoms, 10 iterations: max |dx| {dx:.3e} A, the same "
+          f"schedule {same}")
+    check(dx <= MD_COORD_ATOL and same, "FIRE agrees with the CPU")
+
+    # ---- 26. d: NEB between the cluster and a perturbation of it ----
+    far = cl_co[0] + FIRE_SIGMA * 4 * np.random.RandomState(6).randn(cl_atoms, 3)
+    t_img = np.linspace(0.0, 1.0, NEB_IMAGES)[:, None, None]
+    band = ((1 - t_img) * cl_co[0] + t_img * far).astype(np.float32)
+    band_sp = torch.as_tensor(np.repeat(cl_sp, NEB_IMAGES, axis=0), device=dev)
+    band_t = torch.as_tensor(band, device=dev)
+    neb_fn = lambda: neb_path(lambda x: h_model(band_sp, x), band_t,  # noqa: E731
+                              max_steps=FIRE_ITERS, fmax=1e-12)
+    reset_counts()
+    nst = neb_fn()
+    torch.cuda.synchronize()
+    tools["neb"] = read_counts()
+    want = {"angular_aev": FIRE_ITERS + 1, "angular_aev_bwd": FIRE_ITERS + 1}
+    check(tools["neb"] == {k_: want.get(k_, 0) for k_ in kernels_fn} and nst.step == FIRE_ITERS,
+          f"NEB: K3 and K3b once an evaluation ({FIRE_ITERS + 1}), nothing else")
+    check(torch.equal(nst.images[0], band_t[0]) and torch.equal(nst.images[-1], band_t[-1]),
+          "NEB endpoints fixed to the bit")
+    check(bool(torch.isfinite(nst.images).all()), "NEB band finite")
+    neb_ms = float(np.median(wall_times_ms(neb_fn, reps=3))) / FIRE_ITERS
+    neb_syncs = iteration_syncs(
+        lambda n: neb_path(lambda x: h_model(band_sp, x), band_t, max_steps=n, fmax=1e-12))
+    neb_own = iteration_syncs(lambda n: neb_path(linear, band_t, max_steps=n, fmax=1e-12))
+    check(neb_own == 1.0, "NEB: one host sync an iteration of its own (the loop's condition)")
+    print(f"{card}: NEB {NEB_IMAGES} images x {cl_atoms} atoms: {neb_ms:.3f} ms per iteration "
+          f"(median of 3 runs of {FIRE_ITERS}); {neb_syncs:.2f} host syncs an iteration, "
+          f"{neb_own:.2f} of them NEB's own; climbing image "
+          f"{int(torch.argmax(nst.energies[1:-1])) + 1}, fmax {float(nst.fmax):.4e}")
+    del nst, band_t
+
+    # ---- 27. e: replica exchange of the cluster ----
+    ladder = [280.0 * (420.0 / 280.0) ** (i / (REPLICAS - 1)) for i in range(REPLICAS)]
+    rex = ReplicaExchange(h_model, cl_sp, ladder)
+    reset_counts()
+    rex_start = rex.init(cl_co[0], generator=torch.Generator().manual_seed(0))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    rst = rex.run(rex_start, REX_SEGMENTS, REX_STEPS)
+    torch.cuda.synchronize()
+    rex_ms = (time.perf_counter() - t0) * 1e3 / (REX_SEGMENTS * REX_STEPS)
+    tools["replica"] = read_counts()
+    steps = REX_SEGMENTS * REX_STEPS
+    want = {"angular_aev": steps + 1, "angular_aev_bwd": steps + 1}
+    check(tools["replica"] == {k_: want.get(k_, 0) for k_ in kernels_fn},
+          f"replica: K3 and K3b once a step and once in init ({steps + 1}), nothing else")
+    check(bool(torch.isfinite(rst.coords).all()) and rst.step == steps, "replica run finite")
+    _, rex_syncs = count_syncs(lambda: rex.run(rex_start, 1, REX_STEPS))
+
+    class LinearModel(torch.nn.Module):
+        """A stand-in model that makes no host sync."""
+
+        device = dev
+
+        def forward(self, species, coords, cell=None, pbc=None):
+            return linear(coords)
+
+    lin_rex = ReplicaExchange(LinearModel(), cl_sp, ladder)
+    lin_start = lin_rex.init(cl_co[0], generator=torch.Generator().manual_seed(0))
+    _, rex_own = count_syncs(lambda: lin_rex.acceptance_rate(lin_rex.run(lin_start, 2, REX_STEPS)))
+    check(rex_own == 1, "replica exchange: no host sync of its own but acceptance_rate's one")
+    rate = rex.acceptance_rate(rst)
+    print(f"{card}: replica exchange {REPLICAS} x {cl_atoms} atoms, {ladder[0]:.0f}-{ladder[-1]:.0f} "
+          f"K: {rex_ms:.3f} ms per step ({REX_SEGMENTS} segments of {REX_STEPS}); acceptance "
+          f"{rate:.3f} ({int(rst.swaps_accepted)} of {int(rst.swaps_attempted)}); {rex_syncs} host "
+          f"syncs in a segment of {REX_STEPS} steps and a sweep, all of them the model's (under a "
+          f"model that makes none, 2 segments and acceptance_rate make {rex_own})")
+    sides = {}
+    for where, m in (("cuda", h_model), ("cpu", cpu_model)):
+        r_w = ReplicaExchange(m, cl_sp, ladder, device=where)
+        st_w = r_w.init(cl_co[0], generator=torch.Generator().manual_seed(0))
+        sides[where] = r_w.run(st_w, 1, REX_STEPS)
+    dx = float((sides["cuda"].coords.cpu() - sides["cpu"].coords).abs().max())
+    same = int(sides["cuda"].swaps_accepted) == int(sides["cpu"].swaps_accepted)
+    print(f"replica card vs CPU, one segment: max |dx| {dx:.3e} A, accepted "
+          f"{int(sides['cuda'].swaps_accepted)} and {int(sides['cpu'].swaps_accepted)}")
+    check(dx <= MD_COORD_ATOL and same, "replica exchange agrees with the CPU")
+    flat = ReplicaExchange(h_model, cl_sp, [300.0] * REPLICAS)
+    fst = flat.run(flat.init(cl_co[0], generator=torch.Generator().manual_seed(1)), 2, 1)
+    check(flat.acceptance_rate(fst) == 1.0, "a ladder of equal temperatures accepts every swap")
+    del rex, rex_start, rst, sides, flat, fst
+
+    # ---- 28. f: the command line in process ----
+    with tempfile.TemporaryDirectory() as tmp:
+        box_xyz, out_json = f"{tmp}/box.xyz", f"{tmp}/sp.json"
+        write_xyz(species_np, coords_np, box_xyz, cell=cell_np)
+        conf = (cl_co + FIRE_SIGMA * np.random.RandomState(7).randn(4, cl_atoms, 3)).astype(np.float32)
+        write_xyz(np.repeat(cl_sp, 4, axis=0), conf, f"{tmp}/confs.xyz")
+        commands = {
+            "cli_sp": ["sp", box_xyz, "-f", "--compact", "-o", out_json],
+            "cli_md": ["md", box_xyz, "--nvt-nhc", "-n", "20", "--traj", f"{tmp}/traj.xyz",
+                       "--record-every", "5"],
+            "cli_opt": ["opt", f"{tmp}/confs.xyz", "-n", "10", "--fmax", "1e-12", "-o",
+                        f"{tmp}/opt.xyz"],
+        }
+        cli_ms, printed = {}, {}
+        for name, argv in commands.items():
+            reset_counts()
+            text = io_mod.StringIO()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(text):
+                cli.main(argv)
+            torch.cuda.synchronize()
+            cli_ms[name] = (time.perf_counter() - t0) * 1e3
+            tools[name] = read_counts()
+            printed[name] = text.getvalue()
+        want = {
+            "cli_sp": {"angular_aev": 1, "angular_aev_bwd": 1},
+            "cli_md": {k_: 21 for k_ in ("angular_aev", "angular_aev_bwd", "bucket_select_fwd",
+                                          "bucket_select_bwd")},
+            "cli_opt": {"angular_aev": 11, "angular_aev_bwd": 11},
+        }
+        for name, w in want.items():
+            check(tools[name] == {k_: w.get(k_, 0) for k_ in kernels_fn},
+                  f"{name}: launches {w}")
+        with open(out_json) as f:
+            sp_out = json.load(f)
+        sp_f = np.asarray(sp_out["forces"])
+        check(sp_f.shape == (1, num_atoms, 3) and bool(np.isfinite(sp_f).all()),
+              "cli sp: finite forces of the box")
+        check(float(np.abs(sp_f[0] - forces[0].cpu().numpy()).max()) <= FORCE_ATOL,
+              "cli sp forces equal the E+F path's")
+        _, t_co, t_cell, _ = read_xyz(f"{tmp}/traj.xyz")
+        check(t_co.shape == (4, num_atoms, 3) and bool(np.isfinite(t_co).all())
+              and "wrote 4 frames" in printed["cli_md"], "cli md: 4 frames read back")
+        o_sp, o_co, _, _ = read_xyz(f"{tmp}/opt.xyz")
+        check(o_co.shape == (4, cl_atoms, 3) and printed["cli_opt"].count("converged=") == 4,
+              "cli opt: 4 relaxed conformers")
+    print(f"{card}: cli (in process, model built each time): sp {cli_ms['cli_sp']:.0f} ms, md "
+          f"{cli_ms['cli_md']:.0f} ms, opt {cli_ms['cli_opt']:.0f} ms; launches "
+          f"{ {k_: tools[k_] for k_ in commands} }")
+    print(f"new phases (trajectory to CLI): {time.perf_counter() - t_phases:.1f} s of wall time")
+
     def entry(name, source, replaces, err, ms, plain, bound, by, library):
         return {
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
@@ -1762,6 +2127,7 @@ def main() -> int:
                 "hessian_ani2dr_cell_list": dr_hess_launches[name],
                 **{k_: v[name] for k_, v in ens_launches.items()},
                 **{k_: v["launches"][name] for k_, v in thermo.items()},
+                **{k_: v[name] for k_, v in tools.items()},
             },
             "max_abs_err": err, "ms": ms, "plain_ms": plain, "bound_ms": bound,
             "bound_by": by, "library_ms": library,

@@ -1,8 +1,9 @@
-"""PyTorch port: it imports no JAX, never falls back to the CPU on its own,
-and keeps TF32 off."""
+"""PyTorch port: it imports no JAX and loads no file of the JAX package,
+never falls back to the CPU on its own, and keeps TF32 off."""
 
 import ast
 import pathlib
+import re
 
 import numpy as np
 import pytest
@@ -15,6 +16,10 @@ from torchani_tpu_torch.aev.terms import ANIRadial
 from torchani_tpu_torch.arch import simple_ani
 from torchani_tpu_torch.interop import load_jax_md_state
 from torchani_tpu_torch.md import CachedSinglePoint, MolecularDynamics, MultipleTimestepMD
+from torchani_tpu_torch.neb import neb_path
+from torchani_tpu_torch.observables import mean_squared_displacement, radial_distribution
+from torchani_tpu_torch.optimize import minimize_fire, minimize_fire_batched
+from torchani_tpu_torch.replica import ReplicaExchange
 from torchani_tpu_torch.potentials import RepulsionXTB, RepulsionZBL, TwoBodyDispersionD3
 from torchani_tpu_torch.sae import SelfEnergy
 from torchani_tpu_torch.utils import resolve_device
@@ -38,9 +43,50 @@ def test_new_modules_are_covered():
     for module in (
         "md.py", "bucket_refresh.py", "interop.py", "profiling.py",
         "bucket_refresh_packed.py", "potentials/core.py", "potentials/repulsion.py",
-        "potentials/dispersion.py", "convert.py", "paths.py",
+        "potentials/dispersion.py", "convert.py", "paths.py", "observables.py",
+        "optimize.py", "neb.py", "replica.py", "io.py", "cli.py", "__main__.py", "ase.py",
     ):
         assert f"torchani_tpu_torch/{module}" in names
+
+
+#: calls that open or load a file by its path
+_LOADERS = {"open", "Path", "PurePath", "CDLL", "PyDLL", "LoadLibrary", "load_library"}
+_JAX_PACKAGE_PATH = re.compile(r"(^|[/\\])torchani_tpu([/\\]|$)")
+
+
+def _call_name(func) -> str:
+    return func.id if isinstance(func, ast.Name) else getattr(func, "attr", "")
+
+
+def _jax_package_paths(source: str):
+    """String constants naming a path under ``torchani_tpu/`` inside a call
+    that opens or loads a file, or inside a path joined with ``/``."""
+    for node in ast.walk(ast.parse(source)):
+        if isinstance(node, ast.Call) and _call_name(node.func) in _LOADERS:
+            parts = node.args + [k.value for k in node.keywords]
+        elif isinstance(node, ast.BinOp) and isinstance(node.op, ast.Div):
+            parts = [node.left, node.right]
+        else:
+            continue
+        for part in parts:
+            for leaf in ast.walk(part):
+                if isinstance(leaf, ast.Constant) and isinstance(leaf.value, str):
+                    if _JAX_PACKAGE_PATH.search(leaf.value):
+                        yield leaf.value
+
+
+@pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: str(p.relative_to(REPO)))
+def test_no_jax_package_files_loaded(path):
+    assert list(_jax_package_paths(path.read_text())) == []
+
+
+@pytest.mark.parametrize("source", [
+    'ctypes.CDLL("torchani_tpu/csrc/libxyzparse.so")',
+    'lib = ctypes.cdll.LoadLibrary(str(REPO / "torchani_tpu" / "csrc" / "x.so"))',
+    'open(Path(__file__).parent.parent / "torchani_tpu/csrc/xyzparse.cpp")',
+])
+def test_jax_package_path_check_finds_a_load(source):
+    assert list(_jax_package_paths(source))
 
 
 @pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: str(p.relative_to(REPO)))
@@ -76,11 +122,19 @@ def no_cuda(monkeypatch):
         lambda: CachedSinglePoint(models.ANI2x(model_index=0, device="cpu"), WATER),
         lambda: MultipleTimestepMD(simple_ani(("H", "O"), dispersion=True, device="cpu"), WATER),
         lambda: load_jax_md_state({}),
+        lambda: ReplicaExchange(models.ANI2x(model_index=0, device="cpu"), WATER, (300.0, 310.0)),
+        lambda: minimize_fire(lambda c: c.sum(), np.zeros((2, 3))),
+        lambda: minimize_fire_batched(lambda c: c.sum((1, 2)), np.zeros((2, 2, 3))),
+        lambda: neb_path(lambda c: c.sum((1, 2)), np.zeros((3, 1, 3))),
+        lambda: radial_distribution(np.zeros((1, 2, 3)), None, 1.0),
+        lambda: mean_squared_displacement(np.zeros((2, 2, 3))),
     ],
     ids=[
         "ANI2x", "ANI2x-cuda", "ANI2dr", "ANI2xr", "ANI1x", "ANI1ccx", "simple_ani", "RepulsionXTB", "RepulsionZBL",
         "TwoBodyDispersionD3", "AEVComputer", "ANIRadial", "SelfEnergy", "resolve_device",
         "MolecularDynamics", "CachedSinglePoint", "MultipleTimestepMD", "load_jax_md_state",
+        "ReplicaExchange", "minimize_fire", "minimize_fire_batched", "neb_path",
+        "radial_distribution", "mean_squared_displacement",
     ],
 )
 def test_default_device_raises_without_cuda(no_cuda, entry):

@@ -5,7 +5,11 @@ Models are ``torch.nn.Module``s, everything else plain functions on tensors.
 Published-scheme weights load through `convert` (``models.*(pretrained=True)``
 reads them from `paths.state_dicts_dir`); `grad` gives forces, Hessians,
 vibrational analysis, ensemble forces and stress; MD runs NVE, Langevin,
-Nose-Hoover, Berendsen NPT and RESPA multiple-timestep dynamics.
+Nose-Hoover, Berendsen NPT and RESPA multiple-timestep dynamics and records
+trajectories.  On top of MD: `observables` (RDF, MSD, diffusion, VACF),
+`optimize` (FIRE), `neb` (nudged elastic band), `replica` (parallel
+tempering); the user surface is `io` (xyz, pdb), `ase` (an ASE calculator)
+and `cli` (``ani-tpu-torch sp|md|opt``).
 Entry points run on CUDA unless the caller passes ``device="cpu"``; without a
 CUDA device such a call raises.  The angular AEV (forward, backward and the
 backward's own backward, for second derivatives), the
@@ -27,19 +31,26 @@ torch.set_float32_matmul_precision("highest")
 
 from torchani_tpu_torch import (  # noqa: E402
     aev,
+    ase,
     bucket_refresh,
     bucket_refresh_packed,
+    cli,
     constants,
     convert,
     cutoffs,
     grad,
     interop,
+    io,
     md,
     models,
+    neb,
     neighbors,
     nn,
+    observables,
+    optimize,
     paths,
     potentials,
+    replica,
     sae,
     testing,
     tuples,
@@ -67,7 +78,14 @@ from torchani_tpu_torch.md import (  # noqa: E402
     kinetic_temperature,
     maxwell_boltzmann_velocities,
 )
+from torchani_tpu_torch.neb import NEBState, neb_path  # noqa: E402
 from torchani_tpu_torch.nn import AtomicNetworks, Ensemble, SpeciesConverter  # noqa: E402
+from torchani_tpu_torch.optimize import (  # noqa: E402
+    FireState,
+    minimize_fire,
+    minimize_fire_batched,
+)
+from torchani_tpu_torch.replica import ReplicaExchange, ReplicaState  # noqa: E402
 from torchani_tpu_torch.sae import SelfEnergy  # noqa: E402
 
 __all__ = [
@@ -77,10 +95,14 @@ __all__ = [
     "AtomicNetworks",
     "CachedSinglePoint",
     "Ensemble",
+    "FireState",
     "MDState",
     "MTSState",
     "MolecularDynamics",
     "MultipleTimestepMD",
+    "NEBState",
+    "ReplicaExchange",
+    "ReplicaState",
     "SelfEnergy",
     "SpeciesConverter",
     "energies_and_forces",
@@ -89,25 +111,35 @@ __all__ = [
     "kinetic_temperature",
     "maxwell_boltzmann_velocities",
     "members_energies_and_forces",
+    "minimize_fire",
+    "minimize_fire_batched",
+    "neb_path",
     "simple_ani",
     "single_point",
     "stress_fdotr",
     "stress_scaling",
     "vibrational_analysis",
     "aev",
+    "ase",
     "bucket_refresh",
     "bucket_refresh_packed",
+    "cli",
     "constants",
     "convert",
     "cutoffs",
     "grad",
     "interop",
+    "io",
     "md",
     "models",
+    "neb",
     "neighbors",
     "nn",
+    "observables",
+    "optimize",
     "paths",
     "potentials",
+    "replica",
     "sae",
     "testing",
     "tuples",

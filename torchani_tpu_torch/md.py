@@ -1,7 +1,8 @@
 """Molecular dynamics with Verlet-cached neighbors (counterpart of
-``torchani_tpu/md.py``, as far as NVE, Langevin (BAOAB), the Nose-Hoover
-chain (NVT), Berendsen NPT, multiple-timestep RESPA (`MultipleTimestepMD`)
-and `CachedSinglePoint`, for models of one or several potentials).
+``torchani_tpu/md.py``: NVE, Langevin (BAOAB), the Nose-Hoover chain (NVT),
+Berendsen NPT, recorded trajectories of each (`MolecularDynamics.trajectory`),
+multiple-timestep RESPA (`MultipleTimestepMD`) and `CachedSinglePoint`, for
+models of one or several potentials).
 
 The neighbor topology is a cell list built at ``cutoff + skin`` and reused
 until a pair can have closed the skin gap.  Each step recomputes only the
@@ -951,10 +952,11 @@ class MolecularDynamics:
     ) -> MDState:
         """Deterministic NVT through a Nose-Hoover chain of ``chain``
         thermostats (installed at rest where the state has none)."""
-        if state.nhc is None:
-            state = state.replace(nhc=state.coords.new_zeros((2, chain)))
+        state, step = self._ensemble_step(
+            state, "nvt-nhc", dict(temperature=temperature, tau_fs=tau_fs, chain=chain)
+        )
         for _ in range(num_steps):
-            state = self.step_nvt_nose_hoover(state, temperature, tau_fs)
+            state = step(state)
         return state
 
     def step_npt_berendsen(
@@ -1011,14 +1013,12 @@ class MolecularDynamics:
         object with ``npt_compression`` (e.g. 0.1) for the box's headroom;
         past that margin the ``overflow`` flag trips (`rebaseline` then
         re-centres it).  The physical cell is ``state.scale * cell``."""
-        if self.cell is None:
-            raise ValueError("NPT requires a periodic cell")
-        if state.scale is None:
-            state = state.replace(scale=state.coords.new_ones(()))
+        state, step = self._ensemble_step(state, "npt", dict(
+            temperature=temperature, pressure_bar=pressure_bar, tau_t_fs=tau_t_fs,
+            tau_p_fs=tau_p_fs, kappa_per_bar=kappa_per_bar,
+        ))
         for _ in range(num_steps):
-            state = self.step_npt_berendsen(
-                state, temperature, pressure_bar, tau_t_fs, tau_p_fs, kappa_per_bar
-            )
+            state = step(state)
         return state
 
     def rebaseline(self, state: MDState) -> tp.Tuple["MolecularDynamics", MDState]:
@@ -1042,11 +1042,16 @@ class MolecularDynamics:
         )
 
     def _ensemble_step(
-        self, ensemble: str, params: tp.Dict[str, tp.Any]
-    ) -> tp.Callable[[MDState], MDState]:
-        """The one-step function of an ensemble name (``"nve"``, or
-        ``"langevin"`` / ``"nvt"`` with ``temperature`` and optionally
-        ``friction_per_fs``)."""
+        self, state: MDState, ensemble: str, params: tp.Dict[str, tp.Any]
+    ) -> tp.Tuple[MDState, tp.Callable[[MDState], MDState]]:
+        """``(prepared state, one-step function)`` of an ensemble name:
+        ``"nve"``; ``"langevin"`` / ``"nvt"`` (``temperature``,
+        ``friction_per_fs``); ``"nvt-nhc"`` (``temperature``, ``tau_fs``,
+        ``chain``: a chain at rest is installed where the state has none);
+        ``"npt"`` (``temperature``, ``pressure_bar``, ``tau_t_fs``,
+        ``tau_p_fs``, ``kappa_per_bar``: scale 1 is installed where the state
+        has none).  Shared by the ``run_*`` methods, `trajectory` and
+        `MultipleTimestepMD.run`."""
         p = dict(params)
         if ensemble == "nve":
             step = self.step_nve
@@ -1056,11 +1061,75 @@ class MolecularDynamics:
 
             def step(st: MDState) -> MDState:
                 return self.step_langevin(st, t, fr)
+        elif ensemble == "nvt-nhc":
+            t = float(p.pop("temperature"))
+            tau = float(p.pop("tau_fs", 25.0))
+            chain = int(p.pop("chain", 3))
+            if state.nhc is None:
+                state = state.replace(nhc=state.coords.new_zeros((2, chain)))
+
+            def step(st: MDState) -> MDState:
+                return self.step_nvt_nose_hoover(st, t, tau)
+        elif ensemble == "npt":
+            if self.cell is None:
+                raise ValueError("NPT requires a periodic cell")
+            t = float(p.pop("temperature"))
+            pb = float(p.pop("pressure_bar", 1.0))
+            tau_t = float(p.pop("tau_t_fs", 100.0))
+            tau_p = float(p.pop("tau_p_fs", 1000.0))
+            kappa = float(p.pop("kappa_per_bar", 4.6e-5))
+            if state.scale is None:
+                state = state.replace(scale=state.coords.new_ones(()))
+
+            def step(st: MDState) -> MDState:
+                return self.step_npt_berendsen(st, t, pb, tau_t, tau_p, kappa)
         else:
             raise ValueError(f"unknown ensemble {ensemble!r}")
         if p:
             raise TypeError(f"unused {ensemble} parameters: {sorted(p)}")
-        return step
+        return state, step
+
+    def trajectory(
+        self,
+        state: MDState,
+        num_steps: int,
+        record_every: int = 10,
+        ensemble: str = "nve",
+        **params,
+    ) -> tp.Tuple[MDState, tp.Dict[str, Tensor]]:
+        """Run ``num_steps`` steps of ``ensemble`` (parameters as
+        `_ensemble_step` takes them), recording a frame every
+        ``record_every`` steps.
+
+        Returns ``(final state, traj)`` with ``traj["coords"] (F, A, 3)``,
+        ``"energies" (F,)``, ``"temperatures" (F,)`` (Kelvin, over the real
+        atoms' degrees of freedom) and, under NPT, ``"scales" (F,)``.  The
+        frames are preallocated on the model's device and copied in there:
+        recording adds no wait for the device to the steps' own."""
+        if num_steps % record_every:
+            raise ValueError("num_steps must be a multiple of record_every")
+        state, step = self._ensemble_step(state, ensemble, params)
+        frames = num_steps // record_every
+        new = state.coords.new_empty
+        traj = {
+            "coords": new((frames,) + tuple(state.coords.shape)),
+            "energies": new((frames,)),
+            "temperatures": new((frames,)),
+        }
+        if state.scale is not None:
+            traj["scales"] = new((frames,))
+        dof_kb = 3 * self._n_real * KB_HARTREE
+        for frame in range(frames):
+            for _ in range(record_every):
+                state = step(state)
+            with torch.no_grad():
+                ke = 0.5 * torch.sum(self.masses[:, None] * state.velocities**2) / ACCEL_UNIT
+                traj["coords"][frame] = state.coords
+                traj["energies"][frame] = state.energy
+                traj["temperatures"][frame] = 2.0 * ke / dof_kb
+                if state.scale is not None:
+                    traj["scales"][frame] = state.scale
+        return state, traj
 
 
 @dataclasses.dataclass(frozen=True)
@@ -1229,7 +1298,7 @@ class MultipleTimestepMD:
             raise ValueError("num_steps must be a multiple of `every`")
         if ensemble in ("npt", "nvt-nhc"):
             raise ValueError(f"ensemble {ensemble!r} not supported under MTS")
-        inner_step = self.fast._ensemble_step(ensemble, params)
+        _, inner_step = self.fast._ensemble_step(state.fast, ensemble, params)
         for _ in range(num_steps // self.every):
             state = self._outer_step(state, inner_step)
         return state
