@@ -73,8 +73,24 @@ exchange of 8 replicas of the cluster at 280-420 K (5 segments of 10
 steps, card against CPU over one segment with one CPU generator, a ladder
 of equal temperatures accepting every swap); and `cli.main` in process:
 `sp -f` of the box from an xyz file, `md --nvt-nhc --traj` (4 frames read
-back), `opt` of a 4-conformer file.  Every number it prints was
-measured or computed in the run.  It prints a ``kernels`` JSON line (all
+back), `opt` of a 4-conformer file.  Then the charge models, the remaining
+pair potentials and the rest of the model zoo: K3, K3b and K3bb at
+SnnANI2xr's tables (6 angular sections, Z = 48 terms a species pair) on the
+box against their plain versions, with times, bounds, launch shapes and
+shared memory; ANI-mbis E+F (one K3 and one K3b, the charge networks never
+run, counted with a forward hook) and `energies_and_charges` at total
+charge 0 and +1 (one K3 each; the charges sum to the total within the
+rounding of an f32 sum), `compute_dipole` and `DipoleComputer`, card
+against CPU at 1,002 atoms, its times beside ANI-2x's E+F; 10 NVE steps of
+ANI-mbis from the ANI-2x MD phase's start (K1 = K2 = K3 = K3b = 10, no
+charge network), on ANI-2x's trajectory; SnnANI2xr E+F (time, peak memory,
+card against CPU); ANI-r2s in water, chloroform, acetonitrile and vacuum on
+the 90-atom cluster (all pairs), card against CPU; Lennard-Jones, its
+repulsive and dispersive halves, fixed Coulomb and MNOK alone on the cluster
+and on the box at 8 A, card against CPU, and `pair_curves`; and 10 NVE steps
+of ANI-2x + Lennard-Jones (8 A, TIP3P's O-O parameters) through
+`Assembler.add_potential`, the networks on a lane prefix.  Every number it
+prints was measured or computed in the run.  It prints a ``kernels`` JSON line (all
 nine kernels) and, last, ``{"ok": true, "device": {...}}``.  Any failed
 check raises, and the script exits non-zero without that last line; so does
 a machine with no CUDA device, or a directory without the package.  A few
@@ -163,6 +179,20 @@ FIRE_ITERS, FIRE_CONFS, FIRE_SIGMA, NEB_IMAGES = 30, 64, 0.05, 9
 #: replica exchange of the cluster: replicas (280-420 K, geometric),
 #: segments and Langevin steps a segment
 REPLICAS, REX_SEGMENTS, REX_STEPS = 8, 5, 10
+#: ANI-mbis: charges card against CPU (e), and the total charge on the box
+#: within CHARGE_SUM_ATOL plus the worst-case rounding of a pairwise f32 sum
+#: of its atoms (2 log2(N) F32_EPS sum |q|; F32_EPS is f32's unit roundoff)
+CHARGE_ATOL, CHARGE_SUM_ATOL, F32_EPS = 1e-5, 1e-5, 2.0**-24
+#: the pair potentials on the box (smooth envelope) and in ANI-2x + LJ MD:
+#: cutoff (A); card against CPU |k - c| <= PAIR_TOL (1 + |c|) (f32 sums over
+#: ~300 lanes and the powers x^12, x^6 in another order)
+PAIR_CUTOFF, PAIR_TOL = 8.0, 1e-5
+#: fixed charges (e) of TIP3P water on the ANI-2x elements (H, C, N, O, S, F,
+#: Cl); and TIP3P's Lennard-Jones (O-O only: the hydrogens carry no eps; the
+#: other elements at the JAX package's defaults), eps in kcal/mol, sigma in A
+WATER_CHARGES = (0.417, 0.0, 0.0, -0.834, 0.0, 0.0, 0.0)
+TIP3P_EPS_KCAL = (0.0, 0.1, 0.1, 0.1521, 0.1, 0.1, 0.1)
+TIP3P_SIGMA = (1.5, 1.5, 1.5, 3.1507, 1.5, 1.5, 1.5)
 
 
 def check(ok: bool, what: str) -> None:
@@ -514,8 +544,11 @@ def main() -> int:
         _refresh_neighbors,
         kinetic_temperature,
     )
+    from torchani_tpu_torch.arch import Assembler
+    from torchani_tpu_torch.constants import ATOMIC_NUMBER, HARDNESS, MASS
+    from torchani_tpu_torch.electro import DipoleComputer, compute_dipole
     from torchani_tpu_torch.io import read_xyz, write_xyz
-    from torchani_tpu_torch.models import ANI1x, ANI2dr, ANI2x
+    from torchani_tpu_torch.models import ANI1x, ANI2dr, ANI2x, ANImbis, ANIr2s, SnnANI2xr
     from torchani_tpu_torch.neb import neb_path
     from torchani_tpu_torch.neighbors import CellList, _static_grid_shape
     from torchani_tpu_torch.observables import (
@@ -526,9 +559,19 @@ def main() -> int:
     )
     from torchani_tpu_torch.optimize import _energy_and_forces as _fire_forces
     from torchani_tpu_torch.optimize import minimize_fire, minimize_fire_batched
+    from torchani_tpu_torch.potentials import (
+        DispersionLJ,
+        FixedCoulomb,
+        FixedMNOK,
+        LennardJones,
+        RepulsionLJ,
+    )
+    from torchani_tpu_torch.potentials.utils import pair_curves
     from torchani_tpu_torch.profiling import peak_gib, wall_times_ms
     from torchani_tpu_torch.replica import ReplicaExchange
     from torchani_tpu_torch.testing import make_water_box
+    from torchani_tpu_torch.units import HARTREE_TO_EV, HARTREE_TO_KCALPERMOL
+    from torchani_tpu_torch.utils import SYMBOLS_2X
 
     dev = torch.device("cuda")
 
@@ -2113,6 +2156,330 @@ def main() -> int:
           f"{ {k_: tools[k_] for k_ in commands} }")
     print(f"new phases (trajectory to CLI): {time.perf_counter() - t_phases:.1f} s of wall time")
 
+    # ---- 29. g: K3, K3b and K3bb at Z = 48 (SnnANI2xr's tables on the box) ----
+    t_zoo = time.perf_counter()
+    zoo = {}  # launches of each new path
+    snn = SnnANI2xr(pretrained=False, seed=0)
+    snn.neighborlist = CellList(capacity=96)
+    z_aevc = snn.aev_computer
+    z_elem = snn._convert(species)
+    _, z_ang, z_over = z_aevc.flat_tables(
+        z_elem, snn.neighborlist(snn.cutoff, z_elem, coords, cell, pbc))
+    check(not bool(z_over), "SnnANI2xr's water-box tables do not overflow")
+    z_in = z_aevc.angular_inputs(z_elem.reshape(-1), z_ang)
+    z_kw = z_aevc.kernel_kwargs()
+    z_sh, z_se = len(z_kw["shifts"]), len(z_kw["sections"])
+    z_n, z_ka = z_in[0].shape
+    z_species = lane_species(z_in[2], z_in[3])
+    z_pairs_n = z_kw["num_species"] * (z_kw["num_species"] + 1) // 2
+    # K3's shared memory a block (csrc/angular_aev.cu:fwd_warp_floats): 4 warps of
+    # the (P, Z) sums, a (32, (sh + se) | 1) tile, 32 slots and 6 lane planes
+    z_k3_smem = 4 * 4 * (z_pairs_n * z_sh * z_se + 32 * ((z_sh + z_se) | 1) + 32 + 6 * z_ka)
+    print(f"K3 at Z = 48: N={z_n}, Ka={z_ka}, S={z_kw['num_species']}, Z={z_sh * z_se} "
+          f"({z_sh} shifts x {z_se} sections, {snn.cutoff} A, {z_kw['cutoff_kind']} cutoff); "
+          f"{-(-z_n // 4)} blocks of 128 threads, {z_k3_smem} bytes of shared memory a block")
+    z_out = angular_aev(*z_in, **z_kw)
+    torch.cuda.synchronize()
+    z_k3_err = kernel_errors(z_out, angular_aev_reference(*z_in, **z_kw),
+                             "K3 SnnANI2xr water box (Z = 48) vs plain")
+    z_block = z_aevc._atom_block(z_ka)
+    z_gen = torch.Generator(dev).manual_seed(17)
+    z_g = torch.randn((z_n, z_out.shape[1] + 112), device=dev, generator=z_gen)[:, 112:]
+    z_k3b_shape = k3b_launch_shape("K3b at Z = 48", z_in, z_kw)
+    z_k3b_err = bwd_errors(
+        angular_aev_bwd(z_g, *z_in, z_species, **z_kw),
+        angular_aev_bwd_reference(z_g, *z_in, atom_block=z_block, **z_kw),
+        z_in[2], "K3b SnnANI2xr water box (Z = 48) vs plain")
+    z_u = (torch.randn(z_in[0].shape, device=dev, generator=z_gen),
+           torch.randn(z_in[1].shape, device=dev, generator=z_gen))
+    z_bb_block = max(1, z_block // 4)
+    z_k3bb_shape = k3b_launch_shape("K3bb at Z = 48", z_in, z_kw, second_order=True)
+    z_k3bb_err = bwd_bwd_errors(
+        angular_aev_bwd_bwd(z_g, *z_in, *z_u, z_species, **z_kw),
+        angular_aev_bwd_bwd_reference(z_g, *z_in, *z_u, atom_block=z_bb_block, **z_kw),
+        z_in[2], "K3bb SnnANI2xr water box (Z = 48) vs plain")
+    z_lanes = z_in[2].sum(1).to(torch.float64)
+    z_pairs = float((z_lanes * (z_lanes - 1) / 2).sum())
+    z_valid = float(z_lanes.sum())
+    z_lane_bytes = sum(t.numel() * t.element_size() for t in (z_in[0], z_in[1], z_species))
+    z_k3b_bytes = k3b_bytes(z_in, z_species, z_kw["num_species"], z_sh * z_se)
+    z48 = {
+        "K3": dict(
+            err=z_k3_err,
+            ms=both_ms(lambda: angular_aev(*z_in, species=z_species, **z_kw)),
+            plain=kernels_ms(lambda: angular_aev_reference(*z_in, **z_kw), reps=3),
+            bound=angular_bound_ms(z_pairs, z_valid, z_sh, z_se,
+                                   z_lane_bytes + z_out.numel() * 4, False),
+            smem=z_k3_smem,
+        ),
+        "K3b": dict(
+            err=z_k3b_err,
+            ms=both_ms(lambda: angular_aev_bwd(z_g, *z_in, z_species, **z_kw)),
+            plain=kernels_ms(lambda: angular_aev_bwd_reference(
+                z_g, *z_in, atom_block=z_block, **z_kw), reps=3),
+            bound=angular_bound_ms(z_pairs, z_valid, z_sh, z_se, z_k3b_bytes, True),
+            smem=z_k3b_shape["smem_bytes"], grid=z_k3b_shape,
+        ),
+        "K3bb": dict(
+            err=z_k3bb_err,
+            ms=both_ms(lambda: angular_aev_bwd_bwd(z_g, *z_in, *z_u, z_species, **z_kw)),
+            plain=kernels_ms(lambda: angular_aev_bwd_bwd_reference(
+                z_g, *z_in, *z_u, atom_block=z_bb_block, **z_kw), reps=1),
+            bound=k3bb_bound_ms(z_pairs, z_valid, z_sh, z_se, z_k3b_bytes
+                                + sum(t.numel() * 4 for t in z_u) + z_out.numel() * 4),
+            smem=z_k3bb_shape["smem_bytes"], grid=z_k3bb_shape,
+        ),
+    }
+    for name, r in z48.items():
+        print(f"{card}: {name} at Z = 48 alone: {r['ms'][0]:.4f} ms ({r['ms'][1]:.4f} between "
+              f"events); plain version {r['plain']:.3f} ms; {z_pairs:.0f} valid pairs; bound "
+              f"{r['bound'][0]:.4f} ms by {r['bound'][1]} ({r['bound'][2] / 1e6:.1f} MB; by "
+              f"operations {r['bound'][3]:.4f} ms f32, {r['bound'][4]:.4f} ms special "
+              f"functions); {r['smem']} bytes of shared memory a block")
+    del z_in, z_ang, z_out, z_g, z_u, z_species, z_elem
+
+    # ---- 30. h: ANI-mbis single point on the water box ----
+    mbis = ANImbis(pretrained=False, seed=0)
+    mbis.neighborlist = CellList(capacity=96)
+    charge_calls = []
+    mbis.potentials["nnp"].charge_networks.register_forward_hook(
+        lambda *_: charge_calls.append(1))
+    reset_counts()
+    mb_e, mb_f = energies_and_forces(mbis, species, coords, cell, pbc)
+    torch.cuda.synchronize()
+    zoo["animbis_ef"] = read_counts()
+    check(zoo["animbis_ef"] == {k_: int(k_ in ("angular_aev", "angular_aev_bwd"))
+                                for k_ in kernels_fn} and not charge_calls,
+          "ANI-mbis E+F: K3 and K3b once, the charge networks never")
+    check(bool(torch.isfinite(mb_e).all()) and bool(torch.isfinite(mb_f).all())
+          and tuple(mb_f.shape) == (1, num_atoms, 3), "ANI-mbis E+F finite, forces (1, A, 3)")
+    d_2x = float((mb_f - forces).abs().max())
+    print(f"ANI-mbis E+F: E = {float(mb_e[0]):.6f} Ha; max |dF| against ANI-2x's E+F (the same "
+          f"energy networks) {d_2x:.3e} Ha/A")
+    check(d_2x <= FORCE_ATOL, "ANI-mbis forces equal ANI-2x's of the same seed")
+    reset_counts()
+    with torch.no_grad():
+        mb_q = {q: mbis.energies_and_charges(species, coords, cell, pbc, charge=q) for q in (0, 1)}
+    torch.cuda.synchronize()
+    zoo["animbis_charges"] = read_counts()
+    check(zoo["animbis_charges"] == {k_: 2 * int(k_ == "angular_aev") for k_ in kernels_fn}
+          and len(charge_calls) == 2,
+          "energies_and_charges: one K3 launch and one run of the charge networks each")
+    for q, r in mb_q.items():
+        qs = r.scalars
+        total = float(qs.double().sum())
+        # the worst-case rounding of a pairwise f32 sum of N terms
+        tol = CHARGE_SUM_ATOL + 2 * np.log2(num_atoms) * F32_EPS * float(qs.abs().sum())
+        print(f"ANI-mbis charges at total charge {q}: sum {total:.6e} e (tolerance {tol:.2e}), "
+              f"range {float(qs.min()):.4f} to {float(qs.max()):.4f} e")
+        check(bool(torch.isfinite(qs).all()) and abs(total - q) <= tol,
+              f"ANI-mbis charges finite, summing to {q}")
+        check(float((r.energies - mb_e).abs().max()) <= 1e-6 * abs(float(mb_e[0])),
+              "energies_and_charges gives the E+F path's energies")
+    qs0 = mb_q[0].scalars
+    dip = compute_dipole(species, coords, qs0)
+    masses_by_z = [0.0 if np.isnan(m_) else m_ for m_ in MASS]
+    dip_c = DipoleComputer(masses=masses_by_z)(species, coords, qs0)
+    d_dip = float((dip - dip_c).abs().max() / dip.abs().max())
+    print(f"ANI-mbis dipole of the box (center of mass): {dip[0].tolist()} e A; DipoleComputer "
+          f"with the mass table, relative difference {d_dip:.3e}")
+    check(tuple(dip.shape) == (1, 3) and bool(torch.isfinite(dip).all()) and d_dip <= 1e-5,
+          "compute_dipole and DipoleComputer agree")
+    mb_cpu = {}
+    for where in ("cuda", "cpu"):
+        m = ANImbis(pretrained=False, seed=0, device=where)
+        m.neighborlist = CellList()
+        e_, f_ = energies_and_forces(m, sp_s, co_s, cell_s, pbc_np)
+        with torch.no_grad():
+            q_ = m.atomic_charges(sp_s, co_s, cell_s, pbc_np, charge=1)
+        mb_cpu[where] = (f_.cpu(), q_.cpu())
+    df = float((mb_cpu["cuda"][0] - mb_cpu["cpu"][0]).abs().max())
+    dq = float((mb_cpu["cuda"][1] - mb_cpu["cpu"][1]).abs().max())
+    print(f"ANI-mbis card vs CPU, {sp_s.shape[1]} atoms: max |dF| {df:.3e} Ha/A, max |dq| "
+          f"{dq:.3e} e (total charge 1)")
+    check(df <= FORCE_ATOL and dq <= CHARGE_ATOL, "ANI-mbis forces and charges agree with the CPU")
+    zoo_ms = {
+        "ani2x_ef": wall_times_ms(lambda: energies_and_forces(model, species, coords, cell, pbc),
+                                  reps=10),
+        "animbis_ef": wall_times_ms(lambda: energies_and_forces(mbis, species, coords, cell, pbc),
+                                    reps=10),
+    }
+    with torch.no_grad():
+        zoo_ms["animbis_charges"] = wall_times_ms(
+            lambda: mbis.energies_and_charges(species, coords, cell, pbc), reps=10)
+    print(f"{card}: {num_atoms} atoms, median of 10 (host clock to a synchronize): ANI-2x E+F "
+          f"{np.median(zoo_ms['ani2x_ef']):.3f} ms, ANI-mbis E+F "
+          f"{np.median(zoo_ms['animbis_ef']):.3f} ms, ANI-mbis energies_and_charges "
+          f"{np.median(zoo_ms['animbis_charges']):.3f} ms")
+    del mb_q, qs0, mb_cpu
+
+    # ---- 31. i: ANI-mbis MD from the start of the ANI-2x MD phase ----
+    mb_md = MolecularDynamics(mbis, species, cell=cell, pbc=True)
+    mb_start = mb_md.init(coords, temperature=300.0, generator=torch.Generator().manual_seed(0))
+    check(torch.equal(mb_start.velocities, md_start.velocities),
+          "ANI-mbis MD starts from the ANI-2x MD phase's velocities")
+    charge_calls.clear()
+    reset_counts()
+    mb_end = mb_md.run_nve(mb_start, DR_STEPS)
+    torch.cuda.synchronize()
+    zoo["animbis_md"] = read_counts()
+    x2_md = MolecularDynamics(md_model, species, cell=cell, pbc=True)
+    x2_end = x2_md.run_nve(
+        x2_md.init(coords, temperature=300.0, generator=torch.Generator().manual_seed(0)),
+        DR_STEPS)
+    dx = float((mb_end.coords - x2_end.coords).abs().max())
+    print(f"ANI-mbis MD, {DR_STEPS} NVE steps: launches {zoo['animbis_md']}, charge networks run "
+          f"{len(charge_calls)} times; max |dx| against ANI-2x's {DR_STEPS} steps {dx:.3e} A")
+    md_want = {k_: DR_STEPS if k_ in ("angular_aev", "angular_aev_bwd", "bucket_select_fwd",
+                                      "bucket_select_bwd") else 0 for k_ in kernels_fn}
+    check(zoo["animbis_md"] == md_want and not charge_calls,
+          f"ANI-mbis MD: K1, K2, K3 and K3b {DR_STEPS} times each, the charge networks never")
+    check(not bool(mb_end.overflow) and dx <= MD_COORD_ATOL,
+          "ANI-mbis MD follows ANI-2x's trajectory")
+    del mbis, mb_md, mb_start, mb_end, x2_md, x2_end
+
+    # ---- 32. j: SnnANI2xr E+F on the water box ----
+    reset_counts()
+    held = held_gib()
+    sn_e, sn_f = energies_and_forces(snn, species, coords, cell, pbc)
+    torch.cuda.synchronize()
+    zoo["snnani2xr_ef"] = read_counts()
+    check(zoo["snnani2xr_ef"] == {k_: int(k_ in ("angular_aev", "angular_aev_bwd"))
+                                  for k_ in kernels_fn}, "SnnANI2xr E+F: K3 and K3b once")
+    check(bool(torch.isfinite(sn_e).all()) and bool(torch.isfinite(sn_f).all()),
+          "SnnANI2xr E+F finite")
+    sn_ms = wall_times_ms(lambda: energies_and_forces(snn, species, coords, cell, pbc), reps=10)
+    sn_peak = peak_gib(lambda: energies_and_forces(snn, species, coords, cell, pbc))
+    sn_cpu = {}
+    for where in ("cuda", "cpu"):
+        m = SnnANI2xr(pretrained=False, seed=0, device=where)
+        m.neighborlist = CellList()
+        sn_cpu[where] = energies_and_forces(m, sp_s, co_s, cell_s, pbc_np)[1].cpu()
+    df = float((sn_cpu["cuda"] - sn_cpu["cpu"]).abs().max())
+    print(f"{card}: SnnANI2xr E+F {num_atoms} atoms: median {np.median(sn_ms):.3f} ms over 10; "
+          f"peak device memory {sn_peak:.3f} GiB ({held:.3f} held before); card vs CPU at "
+          f"{sp_s.shape[1]} atoms max |dF| {df:.3e} Ha/A")
+    check(df <= FORCE_ATOL, "SnnANI2xr forces agree with the CPU")
+    del snn, sn_e, sn_f, sn_cpu
+
+    # ---- 33. k: ANI-r2s in four solvents on the 90-atom cluster ----
+    r2s_e = {}
+    for solvent in ("water", "chcl3", "ch3cn", "vacuum"):
+        outs_ = {}
+        for where in ("cuda", "cpu"):
+            m = ANIr2s(solvent, pretrained=False, seed=0, device=where)
+            check(m.cutoff == float("inf"), "ANI-r2s: an infinite cutoff (all pairs)")
+            reset_counts()
+            outs_[where] = energies_and_forces(m, cl_sp, cl_co)
+            if where == "cuda":
+                torch.cuda.synchronize()
+                zoo[f"anir2s_{solvent}_ef"] = read_counts()
+        (e_k, f_k), (e_c, f_c) = outs_["cuda"], outs_["cpu"]
+        df = float((f_k.cpu() - f_c).abs().max())
+        de = abs(float(e_k[0]) - float(e_c[0]))
+        r2s_e[solvent] = float(e_k[0])
+        print(f"ANI-r2s ({solvent}), {cl_atoms} atoms: E = {r2s_e[solvent]:.6f} Ha, card vs CPU "
+              f"|dE| {de:.3e} Ha, max |dF| {df:.3e} Ha/A; launches {zoo[f'anir2s_{solvent}_ef']}")
+        check(zoo[f"anir2s_{solvent}_ef"] == {k_: int(k_ in ("angular_aev", "angular_aev_bwd"))
+                                              for k_ in kernels_fn},
+              f"ANI-r2s ({solvent}) E+F: K3 and K3b once")
+        check(df <= FORCE_ATOL and de <= 1e-6 * abs(float(e_c[0])),
+              f"ANI-r2s ({solvent}) agrees with the CPU")
+    check(len(set(r2s_e.values())) == 4, "the four solvents give four energies")
+
+    # ---- 34. l: the pair potentials alone, and their dimer curves ----
+    mnok_eta = [HARDNESS[ATOMIC_NUMBER[s_]] / HARTREE_TO_EV for s_ in SYMBOLS_2X]  # Ha
+    pair_pots = {
+        "LennardJones": lambda cut, where: LennardJones(SYMBOLS_2X, cutoff=cut, device=where),
+        "RepulsionLJ": lambda cut, where: RepulsionLJ(SYMBOLS_2X, cutoff=cut, device=where),
+        "DispersionLJ": lambda cut, where: DispersionLJ(SYMBOLS_2X, cutoff=cut, device=where),
+        "FixedCoulomb": lambda cut, where: FixedCoulomb(
+            SYMBOLS_2X, WATER_CHARGES, cutoff=cut, device=where),
+        "FixedMNOK": lambda cut, where: FixedMNOK(
+            SYMBOLS_2X, WATER_CHARGES, mnok_eta, cutoff=cut, device=where),
+    }
+    systems = {"cluster": (cl_sp, cl_co, None, None, float("inf")),
+               "box": (species_np, coords_np, cell_np, pbc_np, PAIR_CUTOFF)}
+    pair_ms = {}
+    for pname, make in pair_pots.items():
+        for sname, (sp_, co_, cell_, pbc_, cut) in systems.items():
+            res = {}
+            for where in ("cuda", "cpu"):
+                pot = make(cut, where)
+                c_ = torch.as_tensor(co_, device=where).requires_grad_(True)
+                args = (torch.as_tensor(sp_, device=where), c_,
+                        None if cell_ is None else torch.as_tensor(cell_, device=where),
+                        None if pbc_ is None else torch.as_tensor(pbc_, device=where))
+                reset_counts()
+                e_ = pot(*args)
+                (g_,) = torch.autograd.grad(e_.sum(), c_)
+                res[where] = (e_.detach().cpu(), -g_.cpu())
+                if where == "cuda":
+                    torch.cuda.synchronize()
+                    check(all(v == 0 for v in read_counts().values()),
+                          f"{pname} alone launches no hand kernel")
+
+                    def pair_ef(pot=pot, args=args):
+                        c2 = args[1].detach().requires_grad_(True)
+                        torch.autograd.grad(pot(args[0], c2, *args[2:]).sum(), c2)
+
+                    pair_ms[f"{pname}_{sname}"] = float(np.median(wall_times_ms(pair_ef, reps=5)))
+            (e_k, f_k), (e_c, f_c) = res["cuda"], res["cpu"]
+            print(f"{pname} on the {sname} (cutoff {cut} A): E = {float(e_k[0]):.6f} Ha, card vs "
+                  f"CPU |dE| {float((e_k - e_c).abs().max()):.3e} Ha, max |dF| "
+                  f"{float((f_k - f_c).abs().max()):.3e} Ha/A; "
+                  f"{pair_ms[f'{pname}_{sname}']:.3f} ms E+F")
+            check(within(e_k, e_c, PAIR_TOL) and within(f_k, f_c, PAIR_TOL),
+                  f"{pname} on the {sname} agrees with the CPU")
+    curves = {where: pair_curves(LennardJones(SYMBOLS_2X, cutoff=PAIR_CUTOFF, device=where),
+                                 force=True)[1] for where in ("cuda", "cpu")}
+    d_curve = max(float(np.max(np.abs(curves["cuda"][k_] - v) / (1 + np.abs(v))))
+                  for k_, v in curves["cpu"].items())
+    print(f"pair_curves(LennardJones, force=True), {len(curves['cpu'])} element pairs x 1000 "
+          f"points: card vs CPU max |d| / (1 + |f|) {d_curve:.3e}")
+    check(d_curve <= PAIR_TOL, "pair_curves agree with the CPU")
+
+    # ---- 35. m: ANI-2x + Lennard-Jones (8 A) MD on the water box ----
+    lj_asm = Assembler()
+    lj_asm.set_symbols(SYMBOLS_2X)
+    lj_asm.set_global_cutoff_fn("cosine")
+    lj_asm.set_aev_computer(radial="ani2x", angular="ani2x")
+    lj_asm.set_atomic_networks(ctor="ani2x")
+    lj_asm.set_gsaes_as_self_energies("wb97x-631gd")
+    tip3p_eps = [e_ / HARTREE_TO_KCALPERMOL for e_ in TIP3P_EPS_KCAL]
+    lj_asm.add_potential("lj", lambda d: LennardJones(
+        SYMBOLS_2X, eps=tip3p_eps, sigma=TIP3P_SIGMA, cutoff=PAIR_CUTOFF, device=d))
+    lj_model = lj_asm.assemble(8, seed=0)
+    lj_md = MolecularDynamics(lj_model, species, cell=cell, pbc=True)
+    lj_start = lj_md.init(coords, temperature=300.0, generator=torch.Generator().manual_seed(0))
+    print(f"ANI-2x + LJ MD: build radius {lj_md.build_radius:.2f} A, grid {lj_md.grid_shape}, "
+          f"K={lj_md.capacity} lanes, lane prefixes {lj_md._lane_prefixes}, angular prefix "
+          f"{lj_md._ang_prefix}")
+    check("nnp" in lj_md._lane_prefixes and "lj" not in lj_md._lane_prefixes,
+          "the networks run on a lane prefix, Lennard-Jones on every lane")
+    reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    lj_end = lj_md.run_nve(lj_start, DR_STEPS)
+    torch.cuda.synchronize()
+    lj_step_ms = (time.perf_counter() - t0) * 1e3 / DR_STEPS
+    zoo["ani2x_lj_md"] = read_counts()
+    check(zoo["ani2x_lj_md"] == md_want,
+          f"ANI-2x + LJ MD: K1, K2, K3 and K3b {DR_STEPS} times each")
+    check(not bool(lj_end.overflow) and bool(torch.isfinite(lj_end.forces).all()),
+          "ANI-2x + LJ MD finite, no overflow")
+    lj_e, lj_f = energies_and_forces(lj_model, species, lj_end.coords[None], cell, pbc)
+    de = abs(float(lj_end.energy) - float(lj_e[0]))
+    df = float((lj_end.forces - lj_f[0]).abs().max())
+    print(f"{card}: ANI-2x + LJ MD, {DR_STEPS} NVE steps: {lj_step_ms:.3f} ms a step, "
+          f"{lj_end.rebuilds} rebuilds; final state against its single point |dE| {de:.3e} Ha, "
+          f"max |dF| {df:.3e} Ha/A; launches {zoo['ani2x_lj_md']}")
+    check(de <= 1e-6 * abs(float(lj_e[0])) and df <= REBUILD_FORCE_ATOL,
+          "ANI-2x + LJ MD energy and forces equal a single point of the final state")
+    del lj_model, lj_md, lj_start, lj_end
+    print(f"new phases (Z = 48 kernels to ANI-2x + LJ MD): {time.perf_counter() - t_zoo:.1f} s "
+          f"of wall time")
+
     def entry(name, source, replaces, err, ms, plain, bound, by, library):
         return {
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
@@ -2128,6 +2495,7 @@ def main() -> int:
                 **{k_: v[name] for k_, v in ens_launches.items()},
                 **{k_: v["launches"][name] for k_, v in thermo.items()},
                 **{k_: v[name] for k_, v in tools.items()},
+                **{k_: v[name] for k_, v in zoo.items()},
             },
             "max_abs_err": err, "ms": ms, "plain_ms": plain, "bound_ms": bound,
             "bound_by": by, "library_ms": library,
@@ -2150,14 +2518,20 @@ def main() -> int:
         {**entry("angular_aev", angular_cu, "torchani_tpu/aev/pallas_kernels.py:186", k3_err,
                  k3_ms, plain_ms, k3_bound[0], k3_bound[1], None),
          "at_ani1x": {"max_abs_err": x1_k3_err, "ms": x1_k3["ms"], "plain_ms": x1_k3["plain"],
-                      "bound_ms": x1_k3["bound"][0]}},
+                      "bound_ms": x1_k3["bound"][0]},
+         "at_z48": {"max_abs_err": z48["K3"]["err"], "ms": z48["K3"]["ms"][0],
+                    "plain_ms": z48["K3"]["plain"], "bound_ms": z48["K3"]["bound"][0],
+                    "bound_by": z48["K3"]["bound"][1], "smem_bytes": z48["K3"]["smem"]}},
         {**entry("angular_aev_bwd", angular_cu,
                  "torchani_tpu/aev/computer.py:1045 (_angular_pallas_bwd, XLA recompute; "
                  "no pallas_call)", k3b_err, k3b_ms, k3b_plain_ms, k3b_bound[0], k3b_bound[1],
                  None),
          "replaced_recompute_ms": recompute_ms, "grid": k3b_shape,
          "at_ani1x": {"max_abs_err": x1_k3b_err, "ms": x1_k3b["ms"], "plain_ms": x1_k3b["plain"],
-                      "bound_ms": x1_k3b["bound"][0], "grid": x1_k3b_shape}},
+                      "bound_ms": x1_k3b["bound"][0], "grid": x1_k3b_shape},
+         "at_z48": {"max_abs_err": z48["K3b"]["err"], "ms": z48["K3b"]["ms"][0],
+                    "plain_ms": z48["K3b"]["plain"], "bound_ms": z48["K3b"]["bound"][0],
+                    "bound_by": z48["K3b"]["bound"][1], "smem_bytes": z48["K3b"]["smem"], "grid": z48["K3b"]["grid"]}},
         {**entry("angular_aev_bwd_bwd", angular_cu,
                  "torchani_tpu/aev/computer.py:1045 (second derivative through "
                  "_angular_pallas_bwd's XLA recompute; no pallas_call)", k3bb_err, k3bb_ms,
@@ -2166,7 +2540,10 @@ def main() -> int:
          "at_hessian_pass": {"max_abs_err": h_k3bb_err, "ms": h_k3bb_ms,
                              "plain_ms": h_k3bb_plain_ms, "bound_ms": h_k3bb_bound[0],
                              "bound_by": h_k3bb_bound[1], "rows": rows, "passes": passes,
-                             "grid": h_k3bb_shape}},
+                             "grid": h_k3bb_shape},
+         "at_z48": {"max_abs_err": z48["K3bb"]["err"], "ms": z48["K3bb"]["ms"][0],
+                    "plain_ms": z48["K3bb"]["plain"], "bound_ms": z48["K3bb"]["bound"][0],
+                    "bound_by": z48["K3bb"]["bound"][1], "smem_bytes": z48["K3bb"]["smem"], "grid": z48["K3bb"]["grid"]}},
         {**entry("bucket_select_fwd", select_cu, "torchani_tpu/bucket_refresh.py:504",
                  k1_err, k1_ms, k1_plain_ms, k1_bound, k1_by, k1_lib_ms),
          "split": k1_shape["split"], "threads": k1_shape["threads"],

@@ -13,14 +13,23 @@ import torchani_tpu_torch
 from torchani_tpu_torch import csrc, models
 from torchani_tpu_torch.aev import AEVComputer
 from torchani_tpu_torch.aev.terms import ANIRadial
-from torchani_tpu_torch.arch import simple_ani
+from torchani_tpu_torch.arch import simple_ani, simple_aniq
+from torchani_tpu_torch.electro import ChargeNormalizer, DipoleComputer
 from torchani_tpu_torch.interop import load_jax_md_state
 from torchani_tpu_torch.md import CachedSinglePoint, MolecularDynamics, MultipleTimestepMD
 from torchani_tpu_torch.neb import neb_path
 from torchani_tpu_torch.observables import mean_squared_displacement, radial_distribution
 from torchani_tpu_torch.optimize import minimize_fire, minimize_fire_batched
 from torchani_tpu_torch.replica import ReplicaExchange
-from torchani_tpu_torch.potentials import RepulsionXTB, RepulsionZBL, TwoBodyDispersionD3
+from torchani_tpu_torch.nn import ANISharedNetworks, SingleNN
+from torchani_tpu_torch.potentials import (
+    FixedCoulomb,
+    FixedMNOK,
+    LennardJones,
+    RepulsionXTB,
+    RepulsionZBL,
+    TwoBodyDispersionD3,
+)
 from torchani_tpu_torch.sae import SelfEnergy
 from torchani_tpu_torch.utils import resolve_device
 
@@ -45,6 +54,8 @@ def test_new_modules_are_covered():
         "bucket_refresh_packed.py", "potentials/core.py", "potentials/repulsion.py",
         "potentials/dispersion.py", "convert.py", "paths.py", "observables.py",
         "optimize.py", "neb.py", "replica.py", "io.py", "cli.py", "__main__.py", "ase.py",
+        "electro.py", "nn/shared.py", "potentials/nnp_charges.py", "potentials/lj.py",
+        "potentials/fixed_coulomb.py", "potentials/utils.py",
     ):
         assert f"torchani_tpu_torch/{module}" in names
 
@@ -128,13 +139,29 @@ def no_cuda(monkeypatch):
         lambda: neb_path(lambda c: c.sum((1, 2)), np.zeros((3, 1, 3))),
         lambda: radial_distribution(np.zeros((1, 2, 3)), None, 1.0),
         lambda: mean_squared_displacement(np.zeros((2, 2, 3))),
+        lambda: models.ANImbis(),
+        lambda: models.ANIr2s("chcl3"),
+        lambda: models.ANIr2s_water(),
+        lambda: models.SnnANI2xr(model_index=0),
+        lambda: simple_aniq(("H", "O"), merge_charge_networks=True),
+        lambda: simple_ani(("H", "O"), container="ANISharedNetworks", ensemble_size=2),
+        lambda: SingleNN.large(("H", "O"), 16),
+        lambda: ANISharedNetworks.build(("H", "O"), 16),
+        lambda: ChargeNormalizer.from_electronegativity_and_hardness(("H", "O")),
+        lambda: DipoleComputer(masses=(0.0, 1.008)),
+        lambda: LennardJones.ff19SB(("H", "O"), cutoff=8.0),
+        lambda: FixedCoulomb(("H", "O"), (0.4, -0.8)),
+        lambda: FixedMNOK(("H", "O"), (0.4, -0.8), (12.8, 12.2)),
     ],
     ids=[
         "ANI2x", "ANI2x-cuda", "ANI2dr", "ANI2xr", "ANI1x", "ANI1ccx", "simple_ani", "RepulsionXTB", "RepulsionZBL",
         "TwoBodyDispersionD3", "AEVComputer", "ANIRadial", "SelfEnergy", "resolve_device",
         "MolecularDynamics", "CachedSinglePoint", "MultipleTimestepMD", "load_jax_md_state",
         "ReplicaExchange", "minimize_fire", "minimize_fire_batched", "neb_path",
-        "radial_distribution", "mean_squared_displacement",
+        "radial_distribution", "mean_squared_displacement", "ANImbis", "ANIr2s",
+        "ANIr2s_water", "SnnANI2xr", "simple_aniq", "simple_ani-shared", "SingleNN",
+        "ANISharedNetworks", "ChargeNormalizer", "DipoleComputer", "LennardJones",
+        "FixedCoulomb", "FixedMNOK",
     ],
 )
 def test_default_device_raises_without_cuda(no_cuda, entry):

@@ -30,6 +30,7 @@ from torchani_tpu_torch import models
 from torchani_tpu_torch.arch import simple_ani
 from torchani_tpu_torch.grad import energies_and_forces
 from torchani_tpu_torch.interop import load_jax_arrays
+from torchani_tpu_torch.nn import SingleNN
 from torchani_tpu_torch.potentials import (
     PairPotential,
     RepulsionXTB,
@@ -252,8 +253,11 @@ def test_disabled_potential_is_skipped():
     assert model.cutoff == 5.2
     without = model(species, coords)
     assert float((full - without).detach().abs().max()) > 1e-6
-    with pytest.raises(NotImplementedError, match="SingleNN"):
-        simple_ani(("H", "O"), container="SingleNN", device=CPU)
+    # the shared-weight containers are ported: `simple_ani` builds them
+    snn = simple_ani(("H", "O"), container="SingleNN", device=CPU)
+    assert isinstance(snn.neural_networks, SingleNN)
+    with pytest.raises(KeyError):
+        simple_ani(("H", "O"), container="NoSuchNetworks", device=CPU)
 
 
 def test_ani2xr_zoo_goldens_through_the_weight_bridge():

@@ -9,7 +9,10 @@ Nose-Hoover, Berendsen NPT and RESPA multiple-timestep dynamics and records
 trajectories.  On top of MD: `observables` (RDF, MSD, diffusion, VACF),
 `optimize` (FIRE), `neb` (nudged elastic band), `replica` (parallel
 tempering); the user surface is `io` (xyz, pdb), `ase` (an ASE calculator)
-and `cli` (``ani-tpu-torch sp|md|opt``).
+and `cli` (``ani-tpu-torch sp|md|opt``).  `ANIq` models (`models.ANImbis`,
+`simple_aniq`) also predict atomic charges, normalized by `electro`, which
+computes dipoles too; `potentials` holds the pair potentials (xTB and ZBL
+repulsion, D3 dispersion, Lennard-Jones, fixed-charge Coulomb and MNOK).
 Entry points run on CUDA unless the caller passes ``device="cpu"``; without a
 CUDA device such a call raises.  The angular AEV (forward, backward and the
 backward's own backward, for second derivatives), the
@@ -38,6 +41,7 @@ from torchani_tpu_torch import (  # noqa: E402
     constants,
     convert,
     cutoffs,
+    electro,
     grad,
     interop,
     io,
@@ -58,7 +62,7 @@ from torchani_tpu_torch import (  # noqa: E402
     utils,
 )
 from torchani_tpu_torch.aev import AEVComputer  # noqa: E402
-from torchani_tpu_torch.arch import ANI, Assembler, simple_ani  # noqa: E402
+from torchani_tpu_torch.arch import ANI, ANIq, Assembler, simple_ani, simple_aniq  # noqa: E402
 from torchani_tpu_torch.grad import (  # noqa: E402
     energies_and_forces,
     force_qbc,
@@ -91,6 +95,7 @@ from torchani_tpu_torch.sae import SelfEnergy  # noqa: E402
 __all__ = [
     "AEVComputer",
     "ANI",
+    "ANIq",
     "Assembler",
     "AtomicNetworks",
     "CachedSinglePoint",
@@ -115,6 +120,7 @@ __all__ = [
     "minimize_fire_batched",
     "neb_path",
     "simple_ani",
+    "simple_aniq",
     "single_point",
     "stress_fdotr",
     "stress_scaling",
@@ -127,6 +133,7 @@ __all__ = [
     "constants",
     "convert",
     "cutoffs",
+    "electro",
     "grad",
     "interop",
     "io",

@@ -22,19 +22,29 @@ from torchani_tpu_torch.neighbors import (
     narrow_to_cutoff,
     parse_neighborlist,
 )
-from torchani_tpu_torch.nn import AtomicNetworks, Ensemble, SpeciesConverter
+from torchani_tpu_torch.electro import ChargeNormalizer
+from torchani_tpu_torch.nn import (
+    ANISharedNetworks,
+    AtomicNetworks,
+    Ensemble,
+    GenericEnsemble,
+    SingleNN,
+    SpeciesConverter,
+)
 from torchani_tpu_torch.nn.containers import NETWORK_WIDTHS, SpeciesRanges, layer_dims_for
 from torchani_tpu_torch.potentials import (
+    MergedChargesNNPotential,
     NNPotential,
     Potential,
     RepulsionXTB,
+    SeparateChargesNNPotential,
     TwoBodyDispersionD3,
 )
 from torchani_tpu_torch.sae import SelfEnergy
-from torchani_tpu_torch.tuples import SpeciesEnergies
+from torchani_tpu_torch.tuples import EnergiesScalars, SpeciesEnergies
 from torchani_tpu_torch.utils import resolve_device
 
-__all__ = ["ANI", "Assembler", "as_tensor", "simple_ani"]
+__all__ = ["ANI", "ANIq", "Assembler", "as_tensor", "simple_ani", "simple_aniq"]
 
 #: `Assembler.set_atomic_networks`' constructor names, by the width table
 #: each selects
@@ -61,6 +71,9 @@ class ANI(torch.nn.Module):
     and coordinates in Angstrom ``(molecules, atoms, 3)``; outputs are
     energies in Hartree.  Inputs are moved to the model's device.
     """
+
+    #: whether the model takes charged molecules (an `ANIq` does)
+    takes_charge = False
 
     def __init__(
         self,
@@ -112,14 +125,28 @@ class ANI(torch.nn.Module):
         coords: Tensor,
         cell: tp.Optional[Tensor] = None,
         pbc: tp.Optional[Tensor] = None,
+        charge: int = 0,
         atomic: bool = False,
         ensemble_values: bool = False,
     ) -> Tensor:
         """Total energies (Hartree), shape ``(molecules,)``.
 
         With ``atomic=True``: per-atom energies ``(molecules, atoms)``.
-        With ``ensemble_values=True``: a leading ensemble-member axis.
+        With ``ensemble_values=True``: a leading ensemble-member axis.  A
+        ``charge`` other than 0 raises unless the model `takes_charge`.
         """
+        if charge != 0 and not self.takes_charge:
+            raise ValueError("Model only supports neutral molecules")
+        elem_idxs, coords, neighbors = self._prepare(species, coords, cell, pbc)
+        return self.compute_from_neighbors(
+            elem_idxs, coords, neighbors, charge, atomic, ensemble_values
+        ).energies
+
+    def _prepare(
+        self, species, coords, cell, pbc
+    ) -> tp.Tuple[Tensor, Tensor, Neighbors]:
+        """Element indices, coordinates and the neighbor table of an input,
+        on the model's device."""
         elem_idxs = self._convert(species)
         coords = as_tensor(coords, torch.float32, self.device)
         if elem_idxs.dim() != 2 or coords.shape != elem_idxs.shape + (3,):
@@ -133,15 +160,25 @@ class ANI(torch.nn.Module):
         if pbc is not None:
             pbc = as_tensor(pbc, torch.bool, self.device)
         neighbors = self.neighborlist(self.cutoff, elem_idxs, coords, cell, pbc)
-        return self.compute_from_neighbors(
-            elem_idxs, coords, neighbors, atomic, ensemble_values
-        ).energies
+        return elem_idxs, coords, neighbors
+
+    def _narrowed(self, neighbors: Neighbors) -> tp.Iterator[tp.Tuple[str, Potential, Neighbors]]:
+        """Each enabled potential by name, with its view of the table."""
+        for name in sorted(self.potentials):
+            pot = self.potentials[name]
+            if pot.enabled:
+                yield name, pot, (
+                    narrow_to_cutoff(neighbors, pot.cutoff)
+                    if pot.cutoff < self.cutoff
+                    else neighbors
+                )
 
     def compute_from_neighbors(
         self,
         elem_idxs: Tensor,
         coords: tp.Optional[Tensor],
         neighbors: Neighbors,
+        charge: int = 0,
         atomic: bool = False,
         ensemble_values: bool = False,
         species_ranges: tp.Optional[SpeciesRanges] = None,
@@ -149,22 +186,14 @@ class ANI(torch.nn.Module):
         """Energies from a neighbor table.  ``species_ranges`` is for a caller
         whose flattened ``elem_idxs`` is sorted by species and known on the
         host (`MolecularDynamics`): no potential then reads the species back from
-        the device."""
+        the device.  Charge networks do not run: nothing here reads them."""
         energies = None
-        for name in sorted(self.potentials):
-            pot = self.potentials[name]
-            if not pot.enabled:
-                continue
-            pot_neighbors = (
-                narrow_to_cutoff(neighbors, pot.cutoff)
-                if pot.cutoff < self.cutoff
-                else neighbors
-            )
-            e = pot.compute_from_neighbors(
-                elem_idxs, coords, pot_neighbors,
+        for _, pot, pot_neighbors in self._narrowed(neighbors):
+            e = pot._energies_from_neighbors(
+                elem_idxs, coords, pot_neighbors, charge=charge,
                 atomic=atomic, ensemble_values=ensemble_values,
                 species_ranges=species_ranges,
-            ).energies
+            )
             energies = e if energies is None else energies + e
         if self.energy_shifter.enabled:
             energies = energies + self.energy_shifter(elem_idxs, atomic=atomic)
@@ -173,6 +202,112 @@ class ANI(torch.nn.Module):
     def members_energies(self, species, coords, cell=None, pbc=None) -> Tensor:
         """Per-member energies, shape ``(E, molecules)``."""
         return self(species, coords, cell, pbc, ensemble_values=True)
+
+
+class ANIq(ANI):
+    """An ANI-style model that also predicts normalized atomic charges: its
+    ``"nnp"`` potential is a `MergedChargesNNPotential` or a
+    `SeparateChargesNNPotential`.  `forward` gives the energies alone (the
+    charge networks do not run, whatever ``charge``);
+    `energies_and_charges` gives both."""
+
+    takes_charge = True
+
+    def compute_with_charges(
+        self,
+        species: Tensor,
+        coords: Tensor,
+        cell: tp.Optional[Tensor] = None,
+        pbc: tp.Optional[Tensor] = None,
+        charge: tp.Union[int, Tensor] = 0,
+        atomic: bool = False,
+        ensemble_values: bool = False,
+    ) -> EnergiesScalars:
+        """Energies and the ``"nnp"`` potential's charges ``(molecules,
+        atoms)``, which sum to ``charge`` (an int, or a tensor that
+        broadcasts against ``(molecules, 1)``)."""
+        elem_idxs, coords, neighbors = self._prepare(species, coords, cell, pbc)
+        if not isinstance(charge, int):
+            charge = as_tensor(charge, torch.float32, self.device)
+        energies = charges = None
+        for name, pot, pot_neighbors in self._narrowed(neighbors):
+            e, qs = pot.compute_from_neighbors(
+                elem_idxs, coords, pot_neighbors, charge=charge,
+                atomic=atomic, ensemble_values=ensemble_values,
+            )
+            energies = e if energies is None else energies + e
+            if name == "nnp":
+                charges = qs
+        if self.energy_shifter.enabled:
+            energies = energies + self.energy_shifter(elem_idxs, atomic=atomic)
+        return EnergiesScalars(energies, charges)
+
+    def energies_and_charges(self, species, coords, cell=None, pbc=None, charge=0) -> EnergiesScalars:
+        return self.compute_with_charges(species, coords, cell, pbc, charge)
+
+    def atomic_charges(self, species, coords, cell=None, pbc=None, charge=0) -> Tensor:
+        return self.compute_with_charges(species, coords, cell, pbc, charge).scalars
+
+
+def simple_aniq(
+    symbols: tp.Sequence[str],
+    lot: str = "wb97x-631gd",
+    ensemble_size: int = 1,
+    merge_charge_networks: bool = False,
+    repulsion: bool = True,
+    scale_charge_normalizer_weights: bool = True,
+    normalize: bool = True,
+    seed: int = 0,
+    device: DeviceArg = None,
+    **kwargs,
+) -> ANIq:
+    """`simple_ani` with charges: separate like-2x charge networks (gelu, no
+    bias) by default, or with ``merge_charge_networks`` energy networks with
+    a head of two; the normalizer's weights are (chi / eta)^2 scaled by q^2
+    (``normalize=False``: uniform).  The charge networks' random weights come
+    from a generator of their own (seed ``seed + 7``)."""
+    symbols = tuple(symbols)
+    base = simple_ani(
+        symbols, lot, ensemble_size, repulsion=repulsion, seed=seed, device=device, **kwargs
+    )
+    nnp = base.potentials["nnp"]
+    dev = base.device
+    if normalize:
+        normalizer = ChargeNormalizer.from_electronegativity_and_hardness(
+            symbols, scale_weights_by_charges_squared=scale_charge_normalizer_weights,
+            device=dev,
+        )
+    else:
+        normalizer = ChargeNormalizer(symbols, device=dev)
+    generator = torch.Generator().manual_seed(seed + 7)
+    in_dim = nnp.aev_computer.out_dim
+    if merge_charge_networks:
+        dims, default_dims, _, _ = NETWORK_WIDTHS["like_2x"]
+        layer_dims = layer_dims_for(symbols, in_dim, dims, default_dims, out_dim=2)
+        kw = dict(activation="gelu", bias=False)
+        if ensemble_size == 1:
+            networks = AtomicNetworks.random(symbols, layer_dims, generator, dev, **kw)
+        else:
+            networks = Ensemble.random(ensemble_size, symbols, layer_dims, generator, dev, **kw)
+        new_nnp: Potential = MergedChargesNNPotential(
+            symbols, nnp.aev_computer, networks, normalizer
+        )
+    else:
+        charge_networks = AtomicNetworks.like_2x(
+            symbols, in_dim, out_dim=1, activation="gelu", bias=False,
+            generator=generator, device=dev,
+        )
+        new_nnp = SeparateChargesNNPotential(
+            symbols, nnp.aev_computer, nnp.neural_networks, charge_networks, normalizer
+        )
+    potentials = dict(base.potentials)
+    potentials["nnp"] = new_nnp
+    return ANIq(
+        potentials=potentials,
+        energy_shifter=base.energy_shifter,
+        symbols=base.symbols,
+        neighborlist=base.neighborlist,
+    )
 
 
 class Assembler:
@@ -209,10 +344,19 @@ class Assembler:
         ctor: str = "ani2x",
         activation: tp.Optional[str] = None,
         bias: tp.Optional[bool] = None,
+        cls: tp.Optional[type] = None,
     ) -> "Assembler":
         """The per-element networks: ``ctor`` names the layer widths
         (``"ani1x"``, ``"ani1ccx"``, ``"ani2x"``, ``"anidr"``, ``"aniala"``);
-        ``activation`` and ``bias`` default to that family's."""
+        ``activation`` and ``bias`` default to that family's.  With ``cls``
+        the same names (or any other) resolve to constructors of that class,
+        e.g. ``cls=SingleNN, ctor="large"``; its members are stacked into a
+        `GenericEnsemble`."""
+        if cls is not None:
+            factory = getattr(cls, _NETWORK_CTORS.get(ctor, ctor))
+            kw = {k: v for k, v in (("activation", activation), ("bias", bias)) if v is not None}
+            self._networks = dict(factory=factory, kw=kw)
+            return self
         try:
             dims, default_dims, default_act, default_bias = NETWORK_WIDTHS[_NETWORK_CTORS[ctor]]
         except KeyError:
@@ -265,19 +409,26 @@ class Assembler:
             device=dev,
         )
         nets = self._networks
-        layer_dims = layer_dims_for(
-            self.symbols, aev.out_dim, nets["dims"], nets["default_dims"]
-        )
         generator = torch.Generator().manual_seed(seed)
-        kw = dict(activation=nets["activation"], bias=nets["bias"])
-        if ensemble_size == 1:
-            networks: Ensemble = AtomicNetworks.random(
-                self.symbols, layer_dims, generator, dev, **kw
-            )
+        if "factory" in nets:
+            members = [
+                nets["factory"](
+                    self.symbols, aev.out_dim, generator=generator, device=dev, **nets["kw"]
+                )
+                for _ in range(ensemble_size)
+            ]
+            networks = members[0] if ensemble_size == 1 else GenericEnsemble.from_members(members)
         else:
-            networks = Ensemble.random(
-                ensemble_size, self.symbols, layer_dims, generator, dev, **kw
+            layer_dims = layer_dims_for(
+                self.symbols, aev.out_dim, nets["dims"], nets["default_dims"]
             )
+            kw = dict(activation=nets["activation"], bias=nets["bias"])
+            if ensemble_size == 1:
+                networks = AtomicNetworks.random(self.symbols, layer_dims, generator, dev, **kw)
+            else:
+                networks = Ensemble.random(
+                    ensemble_size, self.symbols, layer_dims, generator, dev, **kw
+                )
         if self._lot is not None:
             shifter = SelfEnergy.from_lot(self.symbols, self._lot, dev)
         else:
@@ -326,13 +477,10 @@ def simple_ani(
     enveloped at the radial cutoff and, with ``dispersion``, D3(BJ) dispersion
     of ``lot``'s functional at 8 A.  Random weights from ``seed``.
 
-    Only the ``"ANINetworks"`` container is ported; ``"SingleNN"`` and
-    ``"ANISharedNetworks"`` raise.
+    ``container`` picks the network family (``"ANINetworks"``,
+    ``"SingleNN"``, ``"ANISharedNetworks"``) and ``container_ctor`` its
+    constructor (e.g. ``"large"``, SnnANI2xr's head).
     """
-    if container != "ANINetworks":
-        raise NotImplementedError(
-            f"network container {container!r} is not ported yet; only 'ANINetworks' is"
-        )
     symbols = tuple(symbols)
     asm = Assembler()
     asm.set_symbols(symbols)
@@ -348,10 +496,14 @@ def simple_ani(
             cutoff_fn=cutoff_fn, device=dev,
         ),
     )
-    # the "default" constructor of this container is ANI-2x's widths; the
-    # activation and bias passed here override the family's
-    ctor = "ani2x" if container_ctor == "default" else container_ctor
-    asm.set_atomic_networks(ctor=ctor, activation=activation, bias=bias)
+    if container == "ANINetworks":
+        # the "default" constructor of this container is ANI-2x's widths; the
+        # activation and bias passed here override the family's
+        ctor = "ani2x" if container_ctor == "default" else container_ctor
+        asm.set_atomic_networks(ctor=ctor, activation=activation, bias=bias)
+    else:
+        cls = {"SingleNN": SingleNN, "ANISharedNetworks": ANISharedNetworks}[container]
+        asm.set_atomic_networks(ctor=container_ctor, activation=activation, bias=bias, cls=cls)
     asm.set_neighborlist(neighborlist)
     asm.set_gsaes_as_self_energies(lot)
     if repulsion:

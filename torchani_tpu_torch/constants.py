@@ -20,7 +20,11 @@ __all__ = [
     "ATOMIC_CONSTANTS",
     "ATOMIC_NUMBER",
     "ATOMIC_MASS",
+    "ATOMIC_HARDNESS",
+    "ATOMIC_ELECTRONEGATIVITY",
     "MASS",
+    "HARDNESS",
+    "ELECTRONEGATIVITY",
     "PERIODIC_TABLE",
     "GSAES",
     "FUNCTIONAL_D3BJ_CONSTANTS",
@@ -71,6 +75,19 @@ ATOMIC_MASS: tp.Dict[str, float] = {
     if s and v.get("mass") is not None
 }
 
+#: symbol -> chemical hardness and electronegativity (eV), the charge
+#: normalizer's weights
+ATOMIC_HARDNESS: tp.Dict[str, float] = {
+    s: float(v["hardness"])
+    for s, v in ATOMIC_CONSTANTS.items()
+    if s and v.get("hardness") is not None
+}
+ATOMIC_ELECTRONEGATIVITY: tp.Dict[str, float] = {
+    s: float(v["electronegativity"])
+    for s, v in ATOMIC_CONSTANTS.items()
+    if s and v.get("electronegativity") is not None
+}
+
 #: ``MASS[z]`` is the mass (AMU) of atomic number ``z`` (index 0 is NaN, as
 #: are elements the table has no mass for)
 MASS: tp.Tuple[float, ...] = tuple(
@@ -93,6 +110,9 @@ def _znumber_indexed(key: str) -> tp.Tuple[float, ...]:
 COVALENT_RADIUS = _znumber_indexed("covalent_radius")
 #: square roots of the empirical charges, D3 C8 coefficients and BJ radii
 SQRT_EMPIRICAL_CHARGE = _znumber_indexed("sqrt_empirical_charge")
+#: chemical hardness and electronegativity (eV)
+HARDNESS = _znumber_indexed("hardness")
+ELECTRONEGATIVITY = _znumber_indexed("electronegativity")
 #: GFN2-xTB repulsion parameters
 XTB_REPULSION_ALPHA = _znumber_indexed("xtb_repulsion_alpha")
 XTB_REPULSION_YEFF = _znumber_indexed("xtb_repulsion_yeff")

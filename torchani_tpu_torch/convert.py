@@ -29,6 +29,7 @@ __all__ = [
 
 _AEV_PREFIX = "potentials.nnp.aev_computer."
 _NETWORKS_PREFIX = "potentials.nnp.neural_networks."
+_CHARGE_PREFIX = "potentials.nnp.charge_networks."
 #: the AEV constants of the key scheme, as ``(term, buffer)``
 _AEV_CONSTANTS = (
     ("radial", "eta"),
@@ -211,12 +212,12 @@ def load_state_dict(model: ANI, sd: tp.Mapping[str, tp.Any]) -> ANI:
     """Fill ``model`` (in place; returned) from a reference-scheme state
     dict of any vintage (keys pass through `canonicalize_torch_keys`).
 
-    Loads the AEV constants, each member's per-element layers, the pair
-    potentials' element-pair tables and the self energies.  A constant the
-    dict lacks keeps the model's value; a network without its
-    ``final_layer`` raises `KeyError`, and a layer wider than the model's
-    stack `ValueError`.  Charge-network keys are ignored: the port's models
-    have no charge networks.
+    Loads the AEV constants, each member's per-element layers, the charge
+    networks of an `ANIq` model (``potentials.nnp.charge_networks.*``, where
+    the dict has them), the pair potentials' element-pair tables and the self
+    energies.  A constant the dict lacks keeps the model's value; a network
+    without its ``final_layer`` raises `KeyError`, and a layer wider than the
+    model's stack `ValueError`.
     """
     sd = canonicalize_torch_keys(sd)
     nnp = model.potentials["nnp"]
@@ -226,6 +227,9 @@ def load_state_dict(model: ANI, sd: tp.Mapping[str, tp.Any]) -> ANI:
         if key in sd:
             _copy_into(getattr(getattr(aev, term), name), sd[key], key)
     _load_networks(nnp.neural_networks, sd, _NETWORKS_PREFIX)
+    charge_networks = getattr(nnp, "charge_networks", None)
+    if charge_networks is not None and any(k.startswith(_CHARGE_PREFIX) for k in sd):
+        _load_networks(charge_networks, sd, _CHARGE_PREFIX)
     for pname, pot in model.potentials.items():
         if pname == "nnp":
             continue
@@ -274,6 +278,9 @@ def save_state_dict(model: ANI) -> tp.Dict[str, np.ndarray]:
     for term, name in _AEV_CONSTANTS:
         sd[f"{_AEV_PREFIX}{term}.{name}"] = host(getattr(getattr(nnp.aev_computer, term), name))
     sd.update(_network_arrays(nnp.neural_networks, _NETWORKS_PREFIX))
+    charge_networks = getattr(nnp, "charge_networks", None)
+    if charge_networks is not None:
+        sd.update(_network_arrays(charge_networks, _CHARGE_PREFIX))
     for pname, pot in model.potentials.items():
         if pname == "nnp":
             continue

@@ -275,13 +275,16 @@ def single_point(
     coords,
     cell=None,
     pbc=None,
+    charge: int = 0,
     forces: bool = False,
     hessians: bool = False,
     atomic_energies: bool = False,
     ensemble_values: bool = False,
     vibrational: bool = False,
 ) -> tp.Dict[str, Tensor]:
-    """Energies and the requested derived quantities, as a dict.
+    """Energies and the requested derived quantities, as a dict.  ``charge``
+    goes to every call of the model (an `ANIq` takes charged molecules; any
+    other model raises for a charge other than 0).
 
     Keys: ``energies``; with ``ensemble_values`` also ``ensemble_energies``,
     ``ensemble_std`` and ``qbcs``; ``atomic_energies``; ``forces``;
@@ -291,7 +294,7 @@ def single_point(
     out: tp.Dict[str, Tensor] = {}
     if ensemble_values:
         with torch.no_grad():
-            member = model(species, coords, cell, pbc, ensemble_values=True)
+            member = model(species, coords, cell, pbc, charge=charge, ensemble_values=True)
             num_atoms = (model._convert(species) >= 0).sum(-1)
         out["energies"] = member.mean(0)
         out["ensemble_energies"] = member
@@ -299,14 +302,16 @@ def single_point(
         out["qbcs"] = out["ensemble_std"] / num_atoms.to(member.dtype).sqrt()
     elif forces:
         out["energies"], out["forces"] = energies_and_forces(
-            model, species, coords, cell, pbc
+            model, species, coords, cell, pbc, charge=charge
         )
     else:
-        out["energies"] = energies(model, species, coords, cell, pbc)
+        out["energies"] = energies(model, species, coords, cell, pbc, charge=charge)
     if atomic_energies:
-        out["atomic_energies"] = energies(model, species, coords, cell, pbc, atomic=True)
+        out["atomic_energies"] = energies(
+            model, species, coords, cell, pbc, charge=charge, atomic=True
+        )
     if forces and "forces" not in out:
-        out["forces"] = energies_and_forces(model, species, coords, cell, pbc)[1]
+        out["forces"] = energies_and_forces(model, species, coords, cell, pbc, charge=charge)[1]
     if hessians or vibrational:
         h = globals()["hessians"](model, species, coords, cell, pbc)
         out["hessians"] = h

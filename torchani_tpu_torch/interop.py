@@ -7,8 +7,12 @@ The JAX package's `ANI` is a pytree whose leaves sit at paths such as
 attribute names and layouts (``(E, S, in, out)`` weight stacks, ``(E, S,
 out)`` biases, the AEV constants, the self energies), so each path resolves
 to one parameter or buffer here; so do the constant tables of the pair
-potentials (``.potentials['dispersion_d3'].precalc_coeff6``, ...), which the
-port builds from its own resources.  This module reads only numpy arrays and
+potentials (``.potentials['dispersion_d3'].precalc_coeff6``, ``.eps``,
+``.sigma``, ``.charges``, ``.eta``, ...), which the port builds from its own
+resources, an `ANIq`'s charge networks and normalizer
+(``.potentials['nnp'].charge_networks.weights[0]``,
+``.charge_normalizer.weights``) and a stacked `GenericEnsemble`
+(``.neural_networks.stacked.weights[0]``, ``.stacked.embedding``).  This module reads only numpy arrays and
 never imports JAX: the caller flattens the JAX model, e.g.::
 
     arrays = {jax.tree_util.keystr(p): np.asarray(x)

@@ -715,10 +715,10 @@ class MolecularDynamics:
                 aux = pair_aux[name]
                 nbp = nbp.replace(pair_aux=aux if p is None else aux[:, :p])
             e = e + torch.sum(
-                pot.compute_from_neighbors(
+                pot._energies_from_neighbors(
                     self.elem_idxs, cs[None], _batch1(nbp),
                     species_ranges=self._species_ranges,
-                ).energies
+                )
             )
         if self.model.energy_shifter.enabled:
             e = e + torch.sum(self.model.energy_shifter(self.elem_idxs))

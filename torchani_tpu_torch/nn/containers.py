@@ -20,7 +20,9 @@ from torchani_tpu_torch.utils import resolve_device
 
 __all__ = [
     "AtomicNetworks",
+    "AtomicNetworksDiscardFirstScalar",
     "Ensemble",
+    "GenericEnsemble",
     "SpeciesConverter",
     "parse_activation",
     "DIMS_1X",
@@ -242,14 +244,16 @@ class Ensemble(torch.nn.Module):
         read from the tensor.
         """
         c, a = elem_idxs.shape
-        x0 = aevs.reshape(c * a, aevs.shape[-1])
+        # aevs ``(C, A, F)``, or ``(E, C, A, F)`` with a row per member (the
+        # heads of a stacked `ANISharedNetworks`)
+        x0 = aevs.reshape(tuple(aevs.shape[:-3]) + (c * a, aevs.shape[-1]))
         e = self._stacks()[0][0].shape[0]
         if species_ranges is not None:
             pieces, pos = [], 0
             for s, start, stop in species_ranges:
                 if start > pos:
                     pieces.append(x0.new_zeros((e, start - pos, self.out_dim)))
-                pieces.append(self._species_mlp(s, x0[start:stop]))
+                pieces.append(self._species_mlp(s, x0[..., start:stop, :]))
                 pos = stop
             if pos < c * a:
                 pieces.append(x0.new_zeros((e, c * a - pos, self.out_dim)))
@@ -260,7 +264,7 @@ class Ensemble(torch.nn.Module):
             if not 0 <= s < self.num_species:
                 continue
             rows = torch.nonzero(elem == s).squeeze(1)
-            out = out.index_copy(1, rows, self._species_mlp(s, x0.index_select(0, rows)))
+            out = out.index_copy(1, rows, self._species_mlp(s, x0.index_select(-2, rows)))
         return out.reshape(e, c, a, self.out_dim)
 
     def forward(
@@ -341,6 +345,16 @@ class AtomicNetworks(Ensemble):
         return cls._like("like_1x", symbols, in_dim, out_dim, activation, bias, generator, device)
 
     @classmethod
+    def like_2x(
+        cls, symbols: tp.Sequence[str] = ("H", "C", "N", "O", "S", "F", "Cl"),
+        in_dim: int = 1008, out_dim: int = 1, activation: tp.Optional[str] = None,
+        bias: tp.Optional[bool] = None, generator: tp.Optional[torch.Generator] = None,
+        device: DeviceArg = None,
+    ) -> "AtomicNetworks":
+        """ANI-2x widths (CELU with biases by default)."""
+        return cls._like("like_2x", symbols, in_dim, out_dim, activation, bias, generator, device)
+
+    @classmethod
     def like_dr(
         cls, symbols: tp.Sequence[str] = ("H", "C", "N", "O", "S", "F", "Cl"),
         in_dim: int = 1008, out_dim: int = 1, activation: tp.Optional[str] = None,
@@ -369,6 +383,78 @@ class AtomicNetworks(Ensemble):
         species_ranges: tp.Optional[SpeciesRanges] = None,
     ) -> Tensor:
         return super().forward(elem_idxs, aevs, atomic=atomic, species_ranges=species_ranges)
+
+
+class AtomicNetworksDiscardFirstScalar(AtomicNetworks):
+    """Networks with ``out_dim >= 2`` whose first output is discarded: each
+    atom's value is output column 1 (the published ANI-mbis charge networks
+    have a head of two, the first unused)."""
+
+    def forward(
+        self,
+        elem_idxs: Tensor,
+        aevs: Tensor,
+        atomic: bool = False,
+        ensemble_values: bool = False,
+        species_ranges: tp.Optional[SpeciesRanges] = None,
+    ) -> Tensor:
+        scalars = self.member_values(elem_idxs, aevs, species_ranges)[0, ..., 1]
+        if atomic:
+            return scalars
+        return torch.sum(scalars, dim=-1)
+
+
+class GenericEnsemble(torch.nn.Module):
+    """Average of E members of a container whose parameters are not
+    per-element stacks (`SingleNN`, `ANISharedNetworks`).
+
+    ``stacked`` is one container whose every parameter carries a leading
+    member axis, so that the members run as one batched product per layer:
+    the counterpart of the JAX package's ``vmap`` over its stacked pytree
+    (the leaf paths are the same, ``.stacked.weights[0]``, ...).
+    """
+
+    def __init__(self, stacked: torch.nn.Module) -> None:
+        super().__init__()
+        self.stacked = stacked
+
+    @classmethod
+    def from_members(cls, members: tp.Sequence[torch.nn.Module]) -> "GenericEnsemble":
+        return cls(type(members[0]).stack(members))
+
+    @property
+    def symbols(self) -> Symbols:
+        return self.stacked.symbols
+
+    @property
+    def num_species(self) -> int:
+        return len(self.symbols)
+
+    @property
+    def total_members_num(self) -> int:
+        return next(self.stacked.parameters()).shape[0]
+
+    def member(self, idx: int) -> torch.nn.Module:
+        """One member as a plain container (with its own copy of the
+        member's weights)."""
+        if not 0 <= idx < self.total_members_num:
+            raise IndexError(f"Idx {idx} should be 0 <= idx < {self.total_members_num}")
+        return self.stacked.unstack(idx)
+
+    def forward(
+        self,
+        elem_idxs: Tensor,
+        aevs: Tensor,
+        atomic: bool = False,
+        ensemble_values: bool = False,
+        species_ranges: tp.Optional[SpeciesRanges] = None,
+    ) -> Tensor:
+        vals = self.stacked.member_values(elem_idxs, aevs, species_ranges)  # (E, C, A)
+        if not atomic:
+            vals = torch.sum(vals, dim=-1)
+        if ensemble_values:
+            return vals
+        return torch.mean(vals, dim=0)
 
 
 class SpeciesConverter:

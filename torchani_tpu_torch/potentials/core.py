@@ -20,7 +20,7 @@ from torchani_tpu_torch.tuples import EnergiesScalars
 from torchani_tpu_torch.units import ANGSTROM_TO_BOHR
 from torchani_tpu_torch.utils import resolve_device
 
-__all__ = ["Potential", "BasePairPotential", "PairPotential"]
+__all__ = ["Potential", "DummyPotential", "BasePairPotential", "PairPotential"]
 
 
 class Potential(torch.nn.Module):
@@ -69,11 +69,53 @@ class Potential(torch.nn.Module):
         elem_idxs: Tensor,
         coords: tp.Optional[Tensor],
         neighbors: Neighbors,
+        charge: int = 0,
         atomic: bool = False,
         ensemble_values: bool = False,
         species_ranges: tp.Optional[SpeciesRanges] = None,
     ) -> EnergiesScalars:
+        """Energies (and, for a potential that predicts them, per-atom
+        scalars) from a neighbor table.  ``species_ranges`` is for a caller
+        whose flattened ``elem_idxs`` is sorted by species and known on the
+        host (`MolecularDynamics`)."""
         raise NotImplementedError("Must be implemented by subclasses")
+
+    def _energies_from_neighbors(
+        self,
+        elem_idxs: Tensor,
+        coords: tp.Optional[Tensor],
+        neighbors: Neighbors,
+        charge: int = 0,
+        atomic: bool = False,
+        ensemble_values: bool = False,
+        species_ranges: tp.Optional[SpeciesRanges] = None,
+    ) -> Tensor:
+        """The energies alone, which `ANI` and `MolecularDynamics` sum.  A
+        potential that also predicts charges overrides this to skip them:
+        nothing on an energy path reads them."""
+        return self.compute_from_neighbors(
+            elem_idxs, coords, neighbors, charge=charge, atomic=atomic,
+            ensemble_values=ensemble_values, species_ranges=species_ranges,
+        ).energies
+
+
+class DummyPotential(Potential):
+    """A potential of zero energy."""
+
+    def compute_from_neighbors(
+        self,
+        elem_idxs: Tensor,
+        coords: tp.Optional[Tensor],
+        neighbors: Neighbors,
+        charge: int = 0,
+        atomic: bool = False,
+        ensemble_values: bool = False,
+        species_ranges: tp.Optional[SpeciesRanges] = None,
+    ) -> EnergiesScalars:
+        shape = elem_idxs.shape if atomic else elem_idxs.shape[:1]
+        return EnergiesScalars(
+            torch.zeros(shape, dtype=torch.float32, device=elem_idxs.device)
+        )
 
 
 class BasePairPotential(Potential):
@@ -149,6 +191,7 @@ class BasePairPotential(Potential):
         elem_idxs: Tensor,  # (C, A)
         coords: tp.Optional[Tensor],
         neighbors: Neighbors,  # (C, A, K)
+        charge: int = 0,
         atomic: bool = False,
         ensemble_values: bool = False,
         species_ranges: tp.Optional[SpeciesRanges] = None,

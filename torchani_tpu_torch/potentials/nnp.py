@@ -32,18 +32,28 @@ class NNPotential(Potential):
         elem_idxs: Tensor,
         coords: tp.Optional[Tensor],
         neighbors: Neighbors,
+        charge: int = 0,
         atomic: bool = False,
         ensemble_values: bool = False,
         species_ranges: tp.Optional[SpeciesRanges] = None,
     ) -> EnergiesScalars:
-        present = None
-        if species_ranges is not None:
-            present = tuple(s for s, _, _ in species_ranges)
-        aevs = self.aev_computer.compute_from_neighbors(
-            elem_idxs, coords, neighbors, present=present
-        )
+        aevs = self._aevs(elem_idxs, coords, neighbors, species_ranges)
         energies = self.neural_networks(
             elem_idxs, aevs, atomic=atomic, ensemble_values=ensemble_values,
             species_ranges=species_ranges,
         )
         return EnergiesScalars(energies)
+
+    def _aevs(
+        self,
+        elem_idxs: Tensor,
+        coords: tp.Optional[Tensor],
+        neighbors: Neighbors,
+        species_ranges: tp.Optional[SpeciesRanges],
+    ) -> Tensor:
+        present = None
+        if species_ranges is not None:
+            present = tuple(s for s, _, _ in species_ranges)
+        return self.aev_computer.compute_from_neighbors(
+            elem_idxs, coords, neighbors, present=present
+        )

@@ -351,9 +351,9 @@ def dr_report() -> None:
             if state.pair_aux is not None and name in state.pair_aux:
                 aux = state.pair_aux[name]
                 nbp = nbp.replace(pair_aux=aux if p is None else aux[:, :p])
-            e = pot.compute_from_neighbors(
+            e = pot._energies_from_neighbors(
                 md.elem_idxs, None, _batch1(nbp), species_ranges=md._species_ranges
-            ).energies.sum()
+            ).sum()
             if backward:
                 torch.autograd.grad(e, c)
 

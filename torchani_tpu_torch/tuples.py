@@ -31,3 +31,21 @@ class EnergiesForcesHessians(tp.NamedTuple):
 class ForcesHessians(tp.NamedTuple):
     forces: Tensor
     hessians: Tensor
+
+
+class SpeciesEnergiesAtomicCharges(tp.NamedTuple):
+    species: Tensor
+    energies: Tensor
+    atomic_charges: Tensor
+
+
+class EnergiesAtomicCharges(tp.NamedTuple):
+    energies: Tensor
+    atomic_charges: Tensor
+
+
+class SpeciesAtomicCharges(tp.NamedTuple):
+    # the field names are the JAX package's, ``energies`` in the first slot
+    # despite the class name
+    energies: Tensor
+    atomic_charges: Tensor
