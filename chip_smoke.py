@@ -501,7 +501,7 @@ def main() -> int:
         angular_grid,
         lane_species,
     )
-    from torchani_tpu_torch.aev.terms import ANIAngular
+    from torchani_tpu_torch.aev.terms import ANIAngular, Angular, Radial
     from torchani_tpu_torch.bucket_refresh import (
         BucketTables,
         _cand_table,
@@ -542,6 +542,7 @@ def main() -> int:
         MolecularDynamics,
         MultipleTimestepMD,
         _refresh_neighbors,
+        choose_angular_split,
         kinetic_temperature,
     )
     from torchani_tpu_torch.arch import Assembler
@@ -550,7 +551,22 @@ def main() -> int:
     from torchani_tpu_torch.io import read_xyz, write_xyz
     from torchani_tpu_torch.models import ANI1x, ANI2dr, ANI2x, ANImbis, ANIr2s, SnnANI2xr
     from torchani_tpu_torch.neb import neb_path
-    from torchani_tpu_torch.neighbors import CellList, _static_grid_shape
+    from torchani_tpu_torch.neighbors import (
+        CellList,
+        VerletCellList,
+        _static_grid_shape,
+        atom_image_converters,
+        coords_to_fractional,
+        coords_to_grid_idx3,
+        count_atoms_in_buckets,
+        flatten_idx3,
+        narrow_down,
+        neighbors_to_triples,
+        parse_neighborlist,
+        reconstruct_shifts,
+        setup_grid,
+    )
+    from torchani_tpu_torch.nn.partition import measure_caps
     from torchani_tpu_torch.observables import (
         _min_image_dist2,
         diffusion_coefficient,
@@ -571,7 +587,7 @@ def main() -> int:
     from torchani_tpu_torch.replica import ReplicaExchange
     from torchani_tpu_torch.testing import make_water_box
     from torchani_tpu_torch.units import HARTREE_TO_EV, HARTREE_TO_KCALPERMOL
-    from torchani_tpu_torch.utils import SYMBOLS_2X
+    from torchani_tpu_torch.utils import SYMBOLS_2X, get_atomic_masses
 
     dev = torch.device("cuda")
 
@@ -1850,37 +1866,57 @@ def main() -> int:
     tools = {}  # launches of each new path
     traj_md = MolecularDynamics(md_model, species, cell=cell, pbc=True)
     traj_start = traj_md.init(coords, temperature=300.0, generator=torch.Generator().manual_seed(0))
-    traj_ms, runs, counts = {"run_nve": [], "trajectory": []}, {}, {}
+    traj_ms = {"run_nve": [], "trajectory": []}
+    runs = {"run_nve": [], "trajectory": []}  # (end, frames) of every run, in order
+    want = {k_: MD_STEPS for k_ in
+            ("angular_aev", "angular_aev_bwd", "bucket_select_fwd", "bucket_select_bwd")}
     for name in ("run_nve", "trajectory", "trajectory", "run_nve"):
         reset_counts()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         if name == "run_nve":
-            runs[name] = (traj_md.run_nve(traj_start, MD_STEPS), None)
+            runs[name].append((traj_md.run_nve(traj_start, MD_STEPS), None))
         else:
-            runs[name] = traj_md.trajectory(traj_start, MD_STEPS, record_every=TRAJ_EVERY)
+            runs[name].append(traj_md.trajectory(traj_start, MD_STEPS, record_every=TRAJ_EVERY))
         torch.cuda.synchronize()
         traj_ms[name].append((time.perf_counter() - t0) * 1e3 / MD_STEPS)
-        counts[name] = read_counts()
-    want = {k_: MD_STEPS for k_ in
-            ("angular_aev", "angular_aev_bwd", "bucket_select_fwd", "bucket_select_bwd")}
-    for name in ("run_nve", "trajectory"):
-        check(counts[name] == {k_: want.get(k_, 0) for k_ in kernels_fn}
-              and angular_grid.calls == 0, f"{name}: K1, K2, K3 and K3b {MD_STEPS} times each")
-    tools["trajectory_nve"] = counts["trajectory"]
-    (nve_end, _), (traj_end, nve_traj) = runs["run_nve"], runs["trajectory"]
-    dx = float((traj_end.coords - nve_end.coords).abs().max())
+        counts = read_counts()
+        check(counts == {k_: want.get(k_, 0) for k_ in kernels_fn} and angular_grid.calls == 0,
+              f"{name}: K1, K2, K3 and K3b {MD_STEPS} times each")
+        if name == "trajectory":
+            tools["trajectory_nve"] = counts
     frames = MD_STEPS // TRAJ_EVERY
-    check(tuple(nve_traj["coords"].shape) == (frames, num_atoms, 3)
-          and all(bool(torch.isfinite(t).all()) for t in nve_traj.values()),
-          f"trajectory: {frames} finite frames")
-    check(torch.equal(nve_traj["coords"][-1], traj_end.coords), "the last frame is the final state")
-    check(dx <= MD_COORD_ATOL, "trajectory ends where run_nve ends")
+    # what the recording can alter, held where the kernels' summation order
+    # cannot hide it: the first frame against `run_nve` over as many steps
+    first = traj_md.run_nve(traj_start, TRAJ_EVERY)
+    dx_first = []
+    for end, rec in runs["trajectory"]:
+        check(tuple(rec["coords"].shape) == (frames, num_atoms, 3)
+              and all(bool(torch.isfinite(t).all()) for t in rec.values()),
+              f"trajectory: {frames} finite frames")
+        check(torch.equal(rec["coords"][-1], end.coords), "the last frame is the final state")
+        dx_first.append(float((rec["coords"][0] - first.coords).abs().max()))
+    check(max(dx_first) <= MD_COORD_ATOL,
+          f"trajectory's first frame is where run_nve is after {TRAJ_EVERY} steps")
+
+    def spread(a, b):
+        return float((a[0].coords - b[0].coords).abs().max())
+
+    # measurements, not checks: after MD_STEPS steps the two paths differ by
+    # what K2's cluster sums and K3b's shared-memory atomics add in another
+    # order, grown by the random-weight dynamics; so do two runs of one path
+    dx_runs = [spread(t_, n_) for t_, n_ in zip(runs["trajectory"], runs["run_nve"])]
+    dx_nve = spread(*runs["run_nve"])
+    dx_traj = spread(*runs["trajectory"])
+    traj_end, nve_traj = runs["trajectory"][0]
     print(f"{card}: trajectory NVE {MD_STEPS} steps, a frame every {TRAJ_EVERY}: "
           f"{traj_ms['trajectory']} ms/step against run_nve's {traj_ms['run_nve']} (alternating, "
-          f"host clock to a synchronize); final coordinates max |dx| {dx:.3e} A; launches "
-          f"{tools['trajectory_nve']}; temperatures {nve_traj['temperatures'].tolist()}")
-    del runs, nve_end
+          f"host clock to a synchronize); first frame against run_nve({TRAJ_EVERY}) max |dx| "
+          f"{dx_first} A; after {MD_STEPS} steps, trajectory against run_nve max |dx| {dx_runs} A, "
+          f"run_nve against run_nve {dx_nve:.3e} A, trajectory against trajectory {dx_traj:.3e} A "
+          f"(the run-to-run spread of the atomics); launches {tools['trajectory_nve']}; "
+          f"temperatures {nve_traj['temperatures'].tolist()}")
+    del runs, first
     for name, ensemble, kw, params in (
         ("nvt_nhc", "nvt-nhc", {}, dict(temperature=300.0, tau_fs=NHC_TAU_FS)),
         ("npt", "npt", dict(npt_compression=NPT_COMPRESSION),
@@ -2131,8 +2167,12 @@ def main() -> int:
             printed[name] = text.getvalue()
         want = {
             "cli_sp": {"angular_aev": 1, "angular_aev_bwd": 1},
-            "cli_md": {k_: 21 for k_ in ("angular_aev", "angular_aev_bwd", "bucket_select_fwd",
-                                          "bucket_select_bwd")},
+            # init's E+F and 20 steps; one more K1 at init, where
+            # `MolecularDynamics` refreshes the table to count angular
+            # neighbors for the count-class split (from 2,048 atoms, as the
+            # JAX package's does)
+            "cli_md": {"angular_aev": 21, "angular_aev_bwd": 21, "bucket_select_bwd": 21,
+                       "bucket_select_fwd": 21 + (num_atoms >= 2048)},
             "cli_opt": {"angular_aev": 11, "angular_aev_bwd": 11},
         }
         for name, w in want.items():
@@ -2480,6 +2520,267 @@ def main() -> int:
     print(f"new phases (Z = 48 kernels to ANI-2x + LJ MD): {time.perf_counter() - t_zoo:.1f} s "
           f"of wall time")
 
+    # ---- 36. n: element indices (periodic_table_index=False) ----
+    t_slice = time.perf_counter()
+    slice14 = {}  # launches of each path of this block
+    ef_ms = {"ani2x": np.median(wall_times_ms(
+        lambda: energies_and_forces(model, species, coords, cell, pbc), reps=5))}
+    idx_model = ANI2x(pretrained=False, seed=0)
+    idx_model.neighborlist = CellList(capacity=96)
+    idx_model.periodic_table_index = False
+    elem_box = model.species_converter(species)
+    ef_want = {k_: 1 if k_ in ("angular_aev", "angular_aev_bwd") else 0 for k_ in kernels_fn}
+
+    def ef_against_main(name, m, sp):
+        """One E+F of ``m`` on the box: its launches, and its energies and
+        forces against the main path's."""
+        reset_counts()
+        e_, f_ = energies_and_forces(m, sp, coords, cell, pbc)
+        torch.cuda.synchronize()
+        slice14[name] = read_counts()
+        de_ = abs(float(e_[0]) - float(energies[0]))
+        df_ = float((f_ - forces).abs().max())
+        check(slice14[name] == ef_want and angular_grid.calls == 0,
+              f"{name}: one E+F launches K3 and K3b once each, nothing else")
+        check(de_ <= 1e-6 * abs(float(energies[0])) and df_ <= FORCE_ATOL,
+              f"{name}: energies and forces equal the atomic-number model's")
+        ef_ms[name] = np.median(wall_times_ms(lambda: energies_and_forces(m, sp, coords, cell, pbc),
+                                              reps=5))
+        return de_, df_
+
+    de, df = ef_against_main("element_index_ef", idx_model, elem_box)
+    print(f"element-index E+F: |dE| {de:.3e} Ha, max |dF| {df:.3e} Ha/A against the atomic-number "
+          f"model; launches {slice14['element_index_ef']}")
+    z_md = MolecularDynamics(md_model, species, cell=cell, pbc=True)
+    z_start = z_md.init(coords, temperature=300.0, generator=torch.Generator().manual_seed(0))
+    idx_md = MolecularDynamics(idx_model, elem_box, cell=cell, pbc=True)
+    idx_start = idx_md.init(coords, temperature=300.0, generator=torch.Generator().manual_seed(0))
+    check(torch.equal(idx_md.masses, z_md.masses)
+          and torch.equal(idx_start.velocities, md_start.velocities)
+          and torch.equal(z_start.velocities, md_start.velocities),
+          "element-index MD: the masses and start of the ANI-2x MD phase")
+    step_ms = {}
+    for name, runner, start in (("ani2x_md", z_md, z_start),
+                                ("element_index_md", idx_md, idx_start)):
+        reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        end = runner.run_nve(start, DR_STEPS)
+        torch.cuda.synchronize()
+        step_ms[name] = (time.perf_counter() - t0) * 1e3 / DR_STEPS
+        slice14[name] = read_counts()
+        check(slice14[name] == md_want and not bool(end.overflow),
+              f"{name}: K1, K2, K3 and K3b {DR_STEPS} times each, no overflow")
+        if name == "ani2x_md":
+            z_end = end
+    dx = float((end.coords - z_end.coords).abs().max())
+    print(f"element-index MD, {DR_STEPS} NVE steps: max |dx| {dx:.3e} A against the atomic-number "
+          f"run; launches {slice14['element_index_md']}")
+    check(dx <= MD_COORD_ATOL, "element-index MD follows the atomic-number trajectory")
+    h_idx = ANI2x(pretrained=False, seed=0)
+    h_idx.periodic_table_index = False
+    cl_elem = h_model.species_converter(torch.as_tensor(cl_sp, device=dev))
+    vib = single_point(h_model, cl_sp, cl_co, vibrational=True)
+    reset_counts()
+    vib_i = single_point(h_idx, cl_elem, cl_co, vibrational=True)
+    slice14["element_index_vibrational"] = read_counts()
+    check(slice14["element_index_vibrational"] == vib_launches,
+          "element-index single_point(vibrational=True): the atomic-number run's launches")
+    dh = (vib_i["hessians"] - vib["hessians"]).abs()
+    check(bool((dh <= HESSIAN_ATOL + HESSIAN_RTOL * vib["hessians"].abs()).all()),
+          "element-index Hessian equals the atomic-number model's")
+    dfreq = float((vib_i["freqs"] - vib["freqs"]).abs().max())
+    check(torch.equal(get_atomic_masses(h_idx.atomic_numbers_of(cl_elem)),
+                      get_atomic_masses(h_model.atomic_numbers_of(cl_sp))),
+          "element-index masses come through the model's atomic numbers")
+    print(f"element-index vibrational analysis, {cl_atoms} atoms: max |dH| {float(dh.max()):.3e} "
+          f"Ha/A^2, max |d freq| {dfreq:.3e} cm^-1 against the atomic-number model's; launches "
+          f"{slice14['element_index_vibrational']}")
+    del idx_md, idx_start, z_md, z_start, end, z_end, vib_i, vib, h_idx
+
+    # ---- 37. o: VerletCellList as the model's neighbor list ----
+    v_model = ANI2x(pretrained=False, seed=0)
+    v_model.neighborlist = VerletCellList(capacity=96)
+    check(isinstance(parse_neighborlist("verlet_cell_list"), VerletCellList),
+          "\"verlet_cell_list\" builds a VerletCellList")
+    de, df = ef_against_main("verlet_cell_list_ef", v_model, species)
+    print(f"VerletCellList E+F (skin {v_model.neighborlist.skin} A, a plain cell list on its own): "
+          f"|dE| {de:.3e} Ha, max |dF| {df:.3e} Ha/A against CellList's; launches "
+          f"{slice14['verlet_cell_list_ef']}")
+    del v_model
+
+    # ---- 38. p: species-blocked networks (nn.partition) ----
+    p_model = ANI2x(pretrained=False, seed=0)
+    p_model.neighborlist = CellList(capacity=96)
+    caps = measure_caps([elem_box], p_model.neural_networks.num_species)
+    p_model.neural_networks.partition = caps
+    de, df = ef_against_main("partition_ef", p_model, species)
+    syncs = {
+        name: count_syncs(lambda m=m: energies_and_forces(m, species, coords, cell, pbc))[1]
+        for name, m in (("default", model), ("partition", p_model))
+    }
+    counts_s = [int((elem_box == s_).sum()) for s_ in range(len(caps))]
+    # the same budgets but 0 for the five species the box lacks: their
+    # networks do not run
+    p_model.neural_networks.partition = tuple(c_ if n_ else 0 for c_, n_ in zip(caps, counts_s))
+    de0, df0 = ef_against_main("partition_present_ef", p_model, species)
+    s_big = int(np.argmax(counts_s))
+    p_model.neural_networks.partition = tuple(
+        c_ - 1 if s_ == s_big else c_ for s_, c_ in enumerate(counts_s))
+    e_bad = p_model(species, coords, cell, pbc)
+    check(bool(torch.isnan(e_bad).all()), "a cap one row too small gives NaN energies")
+    print(f"species-blocked E+F: caps {caps} for counts {counts_s}; |dE| {de:.3e} Ha, max |dF| "
+          f"{df:.3e} Ha/A against the default container (caps of 0 for the absent species: "
+          f"{de0:.3e} Ha, {df0:.3e} Ha/A); host syncs of one E+F {syncs} "
+          f"(CUDA's sync debug mode); caps one row short of {counts_s[s_big]}: energies NaN; "
+          f"launches {slice14['partition_ef']}")
+    del p_model, e_bad
+
+    # ---- 39. q: the count-class angular split in MD ----
+    s_md = MolecularDynamics(md_model, species, cell=cell, pbc=True)
+    s_start = s_md.init(coords, temperature=300.0, generator=torch.Generator().manual_seed(0))
+    split = s_md.model.aev_computer.angular_split
+    s_aevc = s_md.model.aev_computer
+    s_cap = s_aevc._angular_capacity(s_md.capacity)
+    with torch.no_grad():
+        s_nb = _refresh_neighbors(s_start, s_start.coords)
+        s_counts = np.minimum(
+            (s_nb.mask & (s_nb.dist <= s_aevc.angular.cutoff)).sum(1).cpu().numpy(), s_cap)
+    rule = choose_angular_split(s_counts, s_cap)
+    check(split == (rule if num_atoms >= 2048 else None),
+          "the MD split is the JAX package's rule on the measured counts")
+    n_md = MolecularDynamics(md_model, species, cell=cell, pbc=True)
+    n_start = n_md.init(coords, temperature=300.0, generator=torch.Generator().manual_seed(0))
+    n_md.model.aev_computer.angular_split = None
+    ends = {}
+    for name, runner, start in (("split_md", s_md, s_start), ("no_split_md", n_md, n_start)):
+        reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ends[name] = runner.run_nve(start, DR_STEPS)
+        torch.cuda.synchronize()
+        step_ms[name] = (time.perf_counter() - t0) * 1e3 / DR_STEPS
+        slice14[name] = read_counts()
+        check(slice14[name] == md_want and not bool(ends[name].overflow),
+              f"{name}: K1, K2, K3 and K3b {DR_STEPS} times each, no overflow")
+    dx = float((ends["split_md"].coords - ends["no_split_md"].coords).abs().max())
+    check(dx <= MD_COORD_ATOL, "the split changes nothing on the card: the no-split trajectory")
+    print(f"angular split in MD ({num_atoms} atoms, capacity {s_cap}): picked "
+          f"{split if split is not None else 'none'}, the JAX rule (from 2,048 atoms) "
+          f"on the counts gives {rule} (counts: mean {float(s_counts.mean()):.2f}, max "
+          f"{int(s_counts.max())}); on the card K3 runs over the whole table: {DR_STEPS} NVE "
+          f"steps against the no-split run max |dx| {dx:.3e} A; launches {slice14['split_md']}")
+    del s_md, s_start, n_md, n_start, ends, s_nb
+
+    # ---- 40. r: user AEV terms and the new cutoffs on the 30-water cluster ----
+    class GaussRadial(Radial):
+        tensors = ["eta", "shifts"]
+
+        def compute(self, d):
+            return 0.25 * torch.exp(-self.eta * (d[..., None] - self.shifts) ** 2)
+
+    class CosAngular(Angular):
+        radial_tensors = ["eta", "shifts"]
+        angles_tensors = ["zeta", "sections"]
+
+        def compute_radial(self, a, b):
+            return torch.exp(-self.eta * ((a + b)[..., None] / 2 - self.shifts) ** 2)
+
+        def compute_cos_angles(self, c):
+            theta = torch.arccos(0.95 * c)
+            return 2 * ((1 + torch.cos(theta[..., None] - self.sections)) / 2) ** self.zeta
+
+    def term_model(where, kind):
+        asm = Assembler()
+        asm.set_symbols(SYMBOLS_2X)
+        if kind == "user":
+            asm.set_global_cutoff_fn("cosine")
+            asm.set_aev_computer(
+                radial=lambda d: GaussRadial.make(
+                    5.1, device=d, eta=19.7, shifts=[0.8 + 0.26875 * i for i in range(16)]),
+                angular=lambda d: CosAngular.make(
+                    3.5, device=d, eta=12.5, shifts=[0.8 + 0.3375 * i for i in range(8)],
+                    zeta=14.1, sections=[np.pi / 8 + np.pi / 4 * i for i in range(4)]),
+            )
+        else:
+            asm.set_global_cutoff_fn(kind)
+            asm.set_aev_computer(radial="ani2x", angular="ani2x")
+        asm.set_atomic_networks(ctor="ani2x")
+        asm.set_gsaes_as_self_energies("wb97x-631gd")
+        return asm.assemble(1, seed=0, device=where)
+
+    for kind in ("user", "biweight"):
+        outs_ = []  # the card's E+F, then the CPU's
+        for where in ("cuda", "cpu"):
+            m = term_model(where, kind)
+            reset_counts()
+            outs_.append(energies_and_forces(m, cl_sp, cl_co))
+            if len(outs_) == 1:
+                slice14[f"{kind}_terms_ef"] = read_counts()
+                calls = angular_grid.calls
+                m.aev_computer.strategy = "cuda"
+                try:
+                    energies_and_forces(m, cl_sp, cl_co)
+                    raised = False
+                except ValueError:
+                    raised = True
+        (e_card, f_card), (e_cpu, f_cpu) = outs_
+        df = float((f_card.cpu() - f_cpu).abs().max())
+        de = abs(float(e_card[0]) - float(e_cpu[0]))
+        print(f"{kind} AEV terms, {cl_atoms}-atom cluster: card vs CPU |dE| {de:.3e} Ha, max |dF| "
+              f"{df:.3e} Ha/A; under \"auto\" K3 and K3b launch "
+              f"{slice14[f'{kind}_terms_ef']['angular_aev']} times and the plain grid runs {calls} "
+              f"times (the JAX package routes these to its XLA path too); under \"cuda\" raises "
+              f"{raised}")
+        check(slice14[f"{kind}_terms_ef"] == {k_: 0 for k_ in kernels_fn} and calls > 0,
+              f"{kind} terms: the plain path under \"auto\", no kernel")
+        check(raised, f"{kind} terms: strategy \"cuda\" raises")
+        check(df <= FORCE_ATOL and de <= 1e-6 * abs(float(e_cpu[0])),
+              f"{kind} terms: the card agrees with the CPU")
+
+    # the reference's neighbor helpers on the box's table, card against CPU
+    box_nb = model.neighborlist(model.cutoff, elem, coords, cell, pbc)
+    cpu_nb = box_nb.replace(**{f_: getattr(box_nb, f_).cpu()
+                               for f_ in ("idx", "mask", "diff", "dist", "overflow")})
+    helper_err = {}
+    for name, fn in (
+        ("reconstruct_shifts", lambda nb, x, e: reconstruct_shifts(x, nb)),
+        ("narrow_down", lambda nb, x, e: narrow_down(3.5, e, x, nb).dist),
+        ("neighbors_to_triples", lambda nb, x, e: neighbors_to_triples(nb.replace(
+            **{f_: getattr(nb, f_)[:, :1000] for f_ in ("idx", "mask", "diff", "dist")}
+        )).side_dist),
+    ):
+        out_card = fn(box_nb, coords, elem)
+        out_cpu = fn(cpu_nb, coords.cpu(), elem.cpu())
+        helper_err[name] = float((out_card.cpu() - out_cpu).abs().max())
+        check(helper_err[name] <= 1e-5, f"{name}: the card agrees with the CPU")
+    grid = setup_grid(cell_np, model.cutoff)
+    frac_card, frac_cpu = (coords_to_fractional(coords[0].to(w_), cell.to(w_))
+                           for w_ in ("cuda", "cpu"))
+    idx3_card, idx3_cpu = (coords_to_grid_idx3(coords[0].to(w_), cell.to(w_), grid)
+                           for w_ in ("cuda", "cpu"))
+    scaled = frac_cpu * torch.as_tensor(grid)
+    near = ((scaled - scaled.round()).abs() < 1e-4).any(-1)  # at a bucket face
+    same_idx = (idx3_card.cpu() == idx3_cpu).all(-1)
+    helper_err["coords_to_fractional"] = float((frac_card.cpu() - frac_cpu).abs().max())
+    check(helper_err["coords_to_fractional"] <= 1e-5 and bool((same_idx | near).all()),
+          "fractional coordinates and grid indices agree with the CPU's (but at a bucket face)")
+    flat_c = flatten_idx3(idx3_card, grid)
+    cnt, cum = count_atoms_in_buckets(flat_c, grid)
+    i2a, a2i = atom_image_converters(flat_c)
+    check(int(cnt.sum()) == num_atoms and torch.equal(i2a[a2i], torch.arange(num_atoms, device=dev))
+          and bool((flat_c[i2a][1:] >= flat_c[i2a][:-1]).all()),
+          "bucket counts and image converters are consistent")
+    print(f"neighbor helpers on the box's table, card against CPU: max abs differences "
+          f"{helper_err}; grid {grid.tolist()}, {int((~same_idx).sum())} atoms in another bucket "
+          f"(at a face), {int(cnt.max())} atoms in the fullest bucket")
+    del box_nb, cpu_nb
+    print(f"{card}: E+F on the box (median of 5, host clock to a synchronize): "
+          f"{ {k_: round(float(v), 3) for k_, v in ef_ms.items()} } ms; NVE steps "
+          f"{ {k_: round(v, 3) for k_, v in step_ms.items()} } ms")
+    print(f"new phases (element indices to the neighbor helpers): "
+          f"{time.perf_counter() - t_slice:.1f} s of wall time")
+
     def entry(name, source, replaces, err, ms, plain, bound, by, library):
         return {
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
@@ -2496,6 +2797,7 @@ def main() -> int:
                 **{k_: v["launches"][name] for k_, v in thermo.items()},
                 **{k_: v[name] for k_, v in tools.items()},
                 **{k_: v[name] for k_, v in zoo.items()},
+                **{k_: v[name] for k_, v in slice14.items()},
             },
             "max_abs_err": err, "ms": ms, "plain_ms": plain, "bound_ms": bound,
             "bound_by": by, "library_ms": library,

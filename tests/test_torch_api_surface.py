@@ -16,41 +16,14 @@ from test_api_parity import REFERENCE_SURFACE
 #: the names of REFERENCE_SURFACE the port does not have yet, by module
 #: (a module that the port lacks altogether lists all of its names)
 MISSING = {
-    "": "ANIModel ANINetworks EnergyShifter",
     "cli": "data_ls data_info data_pack data_rm data_clean data_pull",
-    "cutoffs": "CutoffBiweight CutoffTriweight",
-    "neighbors": (
-        "FastCellList Neighborlist Triples VerletCellList atom_image_converters "
-        "coords_to_fractional coords_to_grid_idx3 count_atoms_in_buckets "
-        "discard_inter_molecule_pairs discard_outside_cutoff flatten_idx3 "
-        "image_pairs_within lower_image_pairs_between narrow_down "
-        "neighbors_to_triples reconstruct_shifts setup_grid"
-    ),
     "neurochem": REFERENCE_SURFACE["neurochem"],
-    "paths": "custom_models_dir datasets_dir neurochem_dir",
     "sae_estimation": REFERENCE_SURFACE["sae_estimation"],
     "transforms": REFERENCE_SURFACE["transforms"],
-    "tuples": (
-        "AtomicStdev EnergiesForces ForceMagnitudes ForceStdev SpeciesAEV "
-        "SpeciesCoordinates SpeciesEnergiesQBC SpeciesForces"
-    ),
-    "utils": (
-        "AtomicNumbersToChemicalSymbols AtomicNumbersToMasses "
-        "ChemicalSymbolsToAtomicNumbers ChemicalSymbolsToInts EnergyShifter "
-        "IntsToChemicalSymbols atomic_numbers_to_masses cumsum_from_zero "
-        "download_and_extract fast_masked_select merge_state_dicts "
-        "nonzero_in_chunks sort_by_atomic_num species_to_formula"
-    ),
-    "nn": (
-        "ANIModel ANINetworks AtomicContainer AtomicEmbedding AtomicNetwork "
-        "AtomicOneHot BmmAtomicNetwork BmmEnsemble BmmLinear MNPNetworks "
-        "Sequential TightCELU"
-    ),
-    "aev": "Angular BaseAngular BaseRadial Radial",
+    "utils": "merge_state_dicts",
     "datasets": REFERENCE_SURFACE["datasets"],
     "datasets.filters": REFERENCE_SURFACE["datasets.filters"],
     "legacy_data": REFERENCE_SURFACE["legacy_data"],
-    "testing": "ANITestCase expand make_neighbors make_tensor make_elem_idxs make_molec",
 }
 
 #: the names that the charge models, the remaining pair potentials and the

@@ -12,7 +12,7 @@ import torch
 import torchani_tpu_torch
 from torchani_tpu_torch import csrc, models
 from torchani_tpu_torch.aev import AEVComputer
-from torchani_tpu_torch.aev.terms import ANIRadial
+from torchani_tpu_torch.aev.terms import ANIRadial, Radial
 from torchani_tpu_torch.arch import simple_ani, simple_aniq
 from torchani_tpu_torch.electro import ChargeNormalizer, DipoleComputer
 from torchani_tpu_torch.interop import load_jax_md_state
@@ -21,7 +21,7 @@ from torchani_tpu_torch.neb import neb_path
 from torchani_tpu_torch.observables import mean_squared_displacement, radial_distribution
 from torchani_tpu_torch.optimize import minimize_fire, minimize_fire_batched
 from torchani_tpu_torch.replica import ReplicaExchange
-from torchani_tpu_torch.nn import ANISharedNetworks, SingleNN
+from torchani_tpu_torch.nn import ANISharedNetworks, AtomicEmbedding, AtomicNetwork, SingleNN
 from torchani_tpu_torch.potentials import (
     FixedCoulomb,
     FixedMNOK,
@@ -31,6 +31,7 @@ from torchani_tpu_torch.potentials import (
     TwoBodyDispersionD3,
 )
 from torchani_tpu_torch.sae import SelfEnergy
+from torchani_tpu_torch.testing import make_elem_idxs, make_molec, make_neighbors, make_tensor
 from torchani_tpu_torch.utils import resolve_device
 
 REPO = pathlib.Path(__file__).resolve().parent.parent
@@ -55,7 +56,8 @@ def test_new_modules_are_covered():
         "potentials/dispersion.py", "convert.py", "paths.py", "observables.py",
         "optimize.py", "neb.py", "replica.py", "io.py", "cli.py", "__main__.py", "ase.py",
         "electro.py", "nn/shared.py", "potentials/nnp_charges.py", "potentials/lj.py",
-        "potentials/fixed_coulomb.py", "potentials/utils.py",
+        "potentials/fixed_coulomb.py", "potentials/utils.py", "nn/core.py", "nn/partition.py",
+        "testing.py", "tuples.py", "utils.py", "cutoffs.py", "aev/terms.py", "neighbors.py",
     ):
         assert f"torchani_tpu_torch/{module}" in names
 
@@ -152,6 +154,13 @@ def no_cuda(monkeypatch):
         lambda: LennardJones.ff19SB(("H", "O"), cutoff=8.0),
         lambda: FixedCoulomb(("H", "O"), (0.4, -0.8)),
         lambda: FixedMNOK(("H", "O"), (0.4, -0.8), (12.8, 12.2)),
+        lambda: Radial.make(5.2),
+        lambda: AtomicNetwork.make((4, 1)),
+        lambda: AtomicEmbedding.make(("H", "O")),
+        lambda: make_tensor((2,)),
+        lambda: make_elem_idxs(1, 2),
+        lambda: make_molec(3),
+        lambda: make_neighbors(3),
     ],
     ids=[
         "ANI2x", "ANI2x-cuda", "ANI2dr", "ANI2xr", "ANI1x", "ANI1ccx", "simple_ani", "RepulsionXTB", "RepulsionZBL",
@@ -161,7 +170,8 @@ def no_cuda(monkeypatch):
         "radial_distribution", "mean_squared_displacement", "ANImbis", "ANIr2s",
         "ANIr2s_water", "SnnANI2xr", "simple_aniq", "simple_ani-shared", "SingleNN",
         "ANISharedNetworks", "ChargeNormalizer", "DipoleComputer", "LennardJones",
-        "FixedCoulomb", "FixedMNOK",
+        "FixedCoulomb", "FixedMNOK", "Radial", "AtomicNetwork", "AtomicEmbedding",
+        "make_tensor", "make_elem_idxs", "make_molec", "make_neighbors",
     ],
 )
 def test_default_device_raises_without_cuda(no_cuda, entry):

@@ -291,3 +291,140 @@ def test_cell_list_survives_a_non_finite_coordinate():
     others = good.mask[0].sum(-1) - (good.mask[0] & (good.idx[0] == 5)).sum(-1)
     others[5] = 0
     assert torch.equal(nbrs.mask[0].sum(-1), others)
+
+
+# ---- the reference's neighbor helpers (exact for indices and masks,
+# atol 1e-6 for shifts, distances and fractional coordinates) ----
+
+
+@pytest.fixture(scope="module")
+def box_tables():
+    """A periodic water box's cell-list table and a padded molecule's
+    all-pairs table, from both packages."""
+    elem, coords, cell = _water(600)
+    box = _both("cell_list", 5.1, elem, coords, cell, np.ones(3, bool))
+    melem, mcoords = _molecs(4)
+    melem, mcoords = melem[:1], mcoords[:1]  # one molecule, with padding atoms
+    mol = _both("all_pairs", 5.2, melem, mcoords)
+    return {"box": (elem, coords, cell) + box, "molecule": (melem, mcoords, None) + mol}
+
+
+@pytest.mark.parametrize("which", ["box", "molecule"])
+def test_reconstruct_shifts_and_narrow_down(box_tables, which):
+    elem, coords, _, jnb, pnb = box_tables[which]
+    jshift = jn.reconstruct_shifts(jnp.asarray(coords), jnb)
+    pshift = pn.reconstruct_shifts(torch.as_tensor(coords), pnb)
+    np.testing.assert_allclose(pshift.numpy(), np.asarray(jshift), atol=ATOL)
+    if which == "box":
+        # the image shifts of a box are whole cell vectors
+        assert np.abs(pshift.numpy()).max() > 10.0
+    for shifts in (None, (jshift, pshift)):
+        jr = jn.narrow_down(3.5, jnp.asarray(elem), jnp.asarray(coords), jnb,
+                            None if shifts is None else shifts[0])
+        pr = pn.narrow_down(3.5, torch.as_tensor(elem), torch.as_tensor(coords), pnb,
+                            None if shifts is None else shifts[1])
+        np.testing.assert_array_equal(pr.mask.numpy(), np.asarray(jr.mask))
+        np.testing.assert_array_equal(pr.idx.numpy(), np.asarray(jr.idx))
+        np.testing.assert_allclose(pr.dist.numpy(), np.asarray(jr.dist), atol=ATOL)
+        np.testing.assert_allclose(pr.diff.numpy(), np.asarray(jr.diff), atol=ATOL)
+    assert pn.discard_outside_cutoff is pn.narrow_to_cutoff
+
+
+@pytest.mark.parametrize("which", ["box", "molecule"])
+def test_neighbors_to_triples(box_tables, which):
+    *_, jnb, pnb = box_tables[which]
+    if which == "box":  # a slice of the rows keeps the (A, K, K) grids small
+        jnb = jnb.replace(**{f: getattr(jnb, f)[:, :40] for f in ("idx", "mask", "diff", "dist")})
+        pnb = pnb.replace(**{f: getattr(pnb, f)[:, :40] for f in ("idx", "mask", "diff", "dist")})
+    jt, pt_ = jn.neighbors_to_triples(jnb), pn.neighbors_to_triples(pnb)
+    assert pt_._fields == jt._fields
+    np.testing.assert_array_equal(pt_.mask.numpy(), np.asarray(jt.mask))
+    np.testing.assert_array_equal(
+        np.where(pt_.mask.numpy()[..., None], pt_.side_idx.numpy(), -1),
+        np.where(np.asarray(jt.mask)[..., None], np.asarray(jt.side_idx), -1),
+    )
+    np.testing.assert_allclose(pt_.side_dist.numpy(), np.asarray(jt.side_dist), atol=ATOL)
+    np.testing.assert_allclose(pt_.side_diff.numpy(), np.asarray(jt.side_diff), atol=ATOL)
+    assert int(pt_.mask.sum()) > 0
+
+
+def test_discard_inter_molecule_pairs(box_tables):
+    elem, coords, _, jnb, pnb = box_tables["box"]
+    mol = np.arange(elem.shape[1]) // 3  # the box's water molecules
+    jr = jn.discard_inter_molecule_pairs(jnb, jnp.asarray(mol))
+    pr = pn.discard_inter_molecule_pairs(pnb, torch.as_tensor(mol))
+    np.testing.assert_array_equal(pr.mask.numpy(), np.asarray(jr.mask))
+    np.testing.assert_allclose(pr.dist.numpy(), np.asarray(jr.dist), atol=ATOL)
+    # each atom keeps its two molecule partners
+    np.testing.assert_array_equal(pr.mask.numpy().sum(-1), 2)
+    # the flattened (A, K) form, with other groups
+    groups = np.random.RandomState(0).randint(0, 40, size=mol.shape[0])
+    flat = {f: (getattr(jnb, f)[0], getattr(pnb, f)[0]) for f in ("idx", "mask", "diff", "dist")}
+    jr2 = jn.discard_inter_molecule_pairs(jnb.replace(**{f: v[0] for f, v in flat.items()}),
+                                          jnp.asarray(groups))
+    pr2 = pn.discard_inter_molecule_pairs(pnb.replace(**{f: v[1] for f, v in flat.items()}),
+                                          torch.as_tensor(groups))
+    np.testing.assert_array_equal(pr2.mask.numpy(), np.asarray(jr2.mask))
+    assert 0 < int(pr2.mask.sum()) < int(pnb.mask.sum())
+
+
+def test_grid_helpers(box_tables):
+    _, coords, cell, _, _ = box_tables["box"]
+    for args in ((cell, 5.1), (cell, 5.1, 2), (np.diag([9.0, 20.0, 31.0]), 5.2, 1, 0.0)):
+        np.testing.assert_array_equal(pn.setup_grid(*args), jn.setup_grid(*args))
+    grid = pn.setup_grid(cell, 5.1)
+    xc, xj = torch.as_tensor(coords[0]), jnp.asarray(coords[0])
+    cc, cj = torch.as_tensor(cell), jnp.asarray(cell)
+    np.testing.assert_allclose(
+        pn.coords_to_fractional(xc, cc).numpy(), np.asarray(jn.coords_to_fractional(xj, cj)),
+        atol=ATOL,
+    )
+    pidx3 = pn.coords_to_grid_idx3(xc, cc, grid)
+    jidx3 = jn.coords_to_grid_idx3(xj, cj, grid)
+    np.testing.assert_array_equal(pidx3.numpy(), np.asarray(jidx3))
+    pflat = pn.flatten_idx3(pidx3, grid)
+    np.testing.assert_array_equal(pflat.numpy(), np.asarray(jn.flatten_idx3(jidx3, grid)))
+    for p, j in zip(pn.count_atoms_in_buckets(pflat, grid),
+                    jn.count_atoms_in_buckets(jnp.asarray(pflat.numpy()), grid)):
+        np.testing.assert_array_equal(p.numpy(), np.asarray(j))
+    for p, j in zip(pn.atom_image_converters(pflat),
+                    jn.atom_image_converters(jnp.asarray(pflat.numpy()))):
+        np.testing.assert_array_equal(p.numpy(), np.asarray(j))
+    # the cell list's own bucket ids are these
+    assert int(pflat.max()) < int(np.prod(grid))
+
+
+def test_image_pair_enumeration():
+    rng = np.random.RandomState(2)
+    count = rng.randint(0, 5, size=12)
+    cum = np.concatenate([[0], np.cumsum(count)[:-1]])
+    np.testing.assert_array_equal(
+        pn.image_pairs_within(torch.as_tensor(count), torch.as_tensor(cum), 4).numpy(),
+        np.asarray(jn.image_pairs_within(jnp.asarray(count), jnp.asarray(cum), 4)),
+    )
+    assert pn.image_pairs_within(torch.zeros(3, dtype=torch.int64),
+                                 torch.zeros(3, dtype=torch.int64), 4).shape == (2, 0)
+    sc = rng.randint(0, 4, size=(1, 5, 13))
+    scum = rng.randint(0, 20, size=(1, 5, 13))
+    shifts = rng.randint(-1, 2, size=(1, 5, 13, 3))
+    for p, j in zip(
+        pn.lower_image_pairs_between(torch.as_tensor(sc), torch.as_tensor(scum),
+                                     torch.as_tensor(shifts), 4),
+        jn.lower_image_pairs_between(jnp.asarray(sc), jnp.asarray(scum), jnp.asarray(shifts), 4),
+    ):
+        np.testing.assert_array_equal(p.numpy(), np.asarray(j))
+
+
+def test_verlet_cell_list_and_aliases(box_tables):
+    elem, coords, cell, _, pnb = box_tables["box"]
+    verlet = pn.parse_neighborlist("verlet_cell_list")
+    assert isinstance(verlet, pn.VerletCellList) and isinstance(verlet, pn.CellList)
+    assert verlet.skin == jn.parse_neighborlist("verlet_cell_list").skin == 1.0
+    assert pn.parse_neighborlist(verlet) is verlet
+    vnb = verlet(5.1, torch.as_tensor(elem), torch.as_tensor(coords), torch.as_tensor(cell),
+                 torch.ones(3, dtype=torch.bool))
+    for f in ("idx", "mask", "diff", "dist"):
+        assert torch.equal(getattr(vnb, f), getattr(pnb, f)), f
+    assert pn.FastCellList is pn.CellList
+    with pytest.raises(NotImplementedError):
+        pn.Neighborlist()(5.2, torch.zeros((1, 2), dtype=torch.int64), torch.zeros((1, 2, 3)))

@@ -83,18 +83,26 @@ from torchani_tpu_torch.md import (  # noqa: E402
     maxwell_boltzmann_velocities,
 )
 from torchani_tpu_torch.neb import NEBState, neb_path  # noqa: E402
-from torchani_tpu_torch.nn import AtomicNetworks, Ensemble, SpeciesConverter  # noqa: E402
+from torchani_tpu_torch.nn import (  # noqa: E402
+    ANIModel,
+    ANINetworks,
+    AtomicNetworks,
+    Ensemble,
+    SpeciesConverter,
+)
 from torchani_tpu_torch.optimize import (  # noqa: E402
     FireState,
     minimize_fire,
     minimize_fire_batched,
 )
 from torchani_tpu_torch.replica import ReplicaExchange, ReplicaState  # noqa: E402
-from torchani_tpu_torch.sae import SelfEnergy  # noqa: E402
+from torchani_tpu_torch.sae import EnergyShifter, SelfEnergy  # noqa: E402
 
 __all__ = [
     "AEVComputer",
     "ANI",
+    "ANIModel",
+    "ANINetworks",
     "ANIq",
     "Assembler",
     "AtomicNetworks",
@@ -108,6 +116,7 @@ __all__ = [
     "NEBState",
     "ReplicaExchange",
     "ReplicaState",
+    "EnergyShifter",
     "SelfEnergy",
     "SpeciesConverter",
     "energies_and_forces",

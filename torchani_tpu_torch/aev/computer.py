@@ -7,15 +7,21 @@ layout of the JAX package and of the reference.
 Angular strategies:
 - ``"plain"``: atom-blocked ``(M, Ka, Ka, Z)`` PyTorch computation through
   the angular term (`angular_grid`), the counterpart of ``_angular_xla``;
-  any cutoff;
+  any term (`ANIAngular` or a user `Angular`) and any cutoff.  With an
+  ``angular_split`` and a repacked table it runs the count-class split of
+  ``_angular_split_xla`` (`_angular_split_plain`);
 - ``"cuda"``: the fused kernel (`angular_aev`, K3) and its backward kernel
   (`angular_aev_bwd`, K3b), one launch each (`_AngularAEVFunction`; on CPU
   tensors their plain versions, the backward in atom blocks); a second
   derivative launches K3bb (`angular_aev_bwd_bwd`) once, a third raises.  The JAX
   package's ``_angular_pallas_op`` differentiates an XLA recompute instead.
-  The cosine cutoff and the default smooth one only (other cutoffs raise);
-- ``"auto"``: ``"cuda"`` for CUDA tensors with a cutoff the kernel
-  evaluates, ``"plain"`` otherwise.
+  `ANIAngular` with the cosine cutoff or the default smooth one only (any
+  other term or cutoff raises), as the JAX package's Pallas path; the
+  kernel runs once over the whole table and ``angular_split`` changes
+  nothing, as there;
+- ``"auto"``: ``"cuda"`` for CUDA tensors with a term and a cutoff the
+  kernel evaluates, ``"plain"`` otherwise (the routing of the JAX package,
+  whose Pallas path takes the same terms and cutoffs).
 """
 
 import math
@@ -33,14 +39,16 @@ from torchani_tpu_torch.aev.kernels import (
 )
 from torchani_tpu_torch.aev.terms import (
     ANIAngular,
-    ANIRadial,
     AngularArg,
+    BaseAngular,
+    BaseRadial,
     RadialArg,
     parse_angular_term,
     parse_radial_term,
 )
 from torchani_tpu_torch.annotations import DeviceArg, Tensor
 from torchani_tpu_torch.cutoffs import Cutoff, CutoffArg, CutoffCosine, CutoffSmooth
+from torchani_tpu_torch.utils import perm_gather
 from torchani_tpu_torch.neighbors import (
     NeighborlistArg,
     Neighbors,
@@ -83,7 +91,7 @@ def _blocks(n: int, block: int) -> tp.Iterator[slice]:
 
 
 def _angular_plain(
-    angular: ANIAngular,
+    angular: BaseAngular,
     num_species: int,
     atom_block: int,
     dist: Tensor,
@@ -199,17 +207,23 @@ class AEVComputer(torch.nn.Module):
             can come within the angular cutoff inside the prefix: `MolecularDynamics`
             sets it on its own copy of the computer and verifies the
             bound at every rebuild
+        angular_split: count-class split ``(k_small, n_dense)`` or
+            ``(k_small, n_dense, n_rows)`` of the plain angular path over a
+            repacked table (see `_angular_split_plain`); `MolecularDynamics`
+            measures and sets it on its own copy, as the JAX package's does.
+            The kernel path ignores it
     """
 
     def __init__(
         self,
-        radial: ANIRadial,
-        angular: ANIAngular,
+        radial: BaseRadial,
+        angular: BaseAngular,
         num_species: int,
         strategy: str = "auto",
         neighborlist: NeighborlistArg = "all_pairs",
         atom_block: tp.Optional[int] = None,
         angular_preslice: tp.Optional[int] = None,
+        angular_split: tp.Optional[tp.Tuple[int, ...]] = None,
     ) -> None:
         super().__init__()
         if not angular.cutoff_fn.is_same(radial.cutoff_fn):
@@ -228,6 +242,9 @@ class AEVComputer(torch.nn.Module):
         self.neighborlist = parse_neighborlist(neighborlist)
         self.atom_block = atom_block
         self.angular_preslice = angular_preslice
+        self.angular_split = (
+            None if angular_split is None else tuple(int(x) for x in angular_split)
+        )
         self._kernel_kwargs: tp.Optional[tp.Dict[str, tp.Any]] = None
         self._kernel_kwargs_key: tp.Optional[tp.Tuple] = None
 
@@ -315,7 +332,11 @@ class AEVComputer(torch.nn.Module):
         radial_nbrs, angular_nbrs, overflow = self.flat_tables(elem_idxs, neighbors)
         # silent truncation would give plausibly-wrong physics: poison instead
         poison = torch.where(overflow, math.nan, 1.0).to(neighbors.dist.dtype)
-        aev = self._aev_flat(elem_idxs.reshape(-1), radial_nbrs, angular_nbrs, present)
+        lanes = min(neighbors.capacity, self.angular_preslice or neighbors.capacity)
+        aev = self._aev_flat(
+            elem_idxs.reshape(-1), radial_nbrs, angular_nbrs, present,
+            packed_prefix=angular_nbrs.capacity < lanes,
+        )
         return aev.reshape(c, a, self.out_dim) * poison
 
     def flat_tables(
@@ -382,11 +403,6 @@ class AEVComputer(torch.nn.Module):
         key = tuple((t.data_ptr(), t._version) for t in buffers)
         if key != self._kernel_kwargs_key:
             kind = _cutoff_kind(ang.cutoff_fn)
-            if kind is None:
-                raise ValueError(
-                    f"The angular kernel evaluates the cosine and default smooth "
-                    f"cutoffs only, not {ang.cutoff_fn}"
-                )
             self._kernel_kwargs = dict(
                 eta=float(ang.eta[0]),
                 zeta=float(ang.zeta[0]),
@@ -421,12 +437,24 @@ class AEVComputer(torch.nn.Module):
         per_atom = _GRID_BYTES * ka * ka * self.angular.num_feats
         return max(1, _BLOCK_BYTES // max(per_atom, 1))
 
+    def _kernel_evaluates(self) -> bool:
+        """Whether K3 evaluates this computer's angular term: `ANIAngular`
+        (not a subclass) with the cosine or default smooth cutoff."""
+        ang = self.angular
+        return type(ang) is ANIAngular and _cutoff_kind(ang.cutoff_fn) is not None
+
     def _use_kernel(self, t: Tensor) -> bool:
         if self.strategy == "plain":
             return False
         if self.strategy == "cuda":
-            return True  # `kernel_kwargs` raises for a cutoff it lacks
-        return t.is_cuda and _cutoff_kind(self.angular.cutoff_fn) is not None
+            if not self._kernel_evaluates():
+                raise ValueError(
+                    f"The angular kernel evaluates ANIAngular with the cosine or default "
+                    f"smooth cutoff only, not {type(self.angular).__name__} with "
+                    f"{self.angular.cutoff_fn}"
+                )
+            return True
+        return t.is_cuda and self._kernel_evaluates()
 
     # ---- core ----
     def _aev_flat(
@@ -435,6 +463,7 @@ class AEVComputer(torch.nn.Module):
         radial_nbrs: Neighbors,  # (N, K)
         angular_nbrs: Neighbors,  # (N, Ka)
         present: tp.Tuple[int, ...],
+        packed_prefix: bool = False,
     ) -> Tensor:
         n = radial_nbrs.idx.shape[0]
         s = self.num_species
@@ -456,12 +485,74 @@ class AEVComputer(torch.nn.Module):
         # angular
         adist, adiff, amask, aoh = self.angular_inputs(elem_flat, angular_nbrs)
         block = self._atom_block(angular_nbrs.capacity)
+        split = self.angular_split if packed_prefix else None
         if self._use_kernel(adist):
             angular_aev_ = _AngularAEVFunction.apply(
                 adist, adiff, amask, aoh, self.kernel_kwargs(), block
             )
+        elif (
+            split is not None
+            and 0 < split[1] < n
+            and (split[0] < angular_nbrs.capacity or (len(split) > 2 and split[2] < n))
+        ):
+            angular_aev_ = self._angular_split_plain(adist, adiff, amask, aoh)
         else:
             angular_aev_ = _angular_plain(
                 self.angular, s, block, adist, adiff, amask, aoh
             )
         return torch.cat([radial_aev, angular_aev_], dim=-1)
+
+    def _angular_split_plain(
+        self,
+        adist: Tensor,  # (N, Ka), masked lanes 1.0
+        adiff: Tensor,  # (N, Ka, 3)
+        amask: Tensor,  # (N, Ka) bool, each row's valid lanes a prefix
+        aoh: Tensor,  # (N, Ka, S)
+    ) -> Tensor:
+        """The count-class angular split of the JAX package's
+        ``_angular_split_xla``, on the plain path.
+
+        Rows go in descending order of their valid-lane count (a stable
+        sort: ties keep row order, as ``top_k`` keeps them); the
+        ``n_dense`` densest run at the full capacity, the rest at their
+        first ``k_small`` lanes only (a repacked table holds each row's
+        valid lanes as a prefix), and the rows go back through the inverse
+        permutation.  Both permutations are `perm_gather`s.  With more than
+        ``n_dense`` rows over ``k_small`` lanes the split would truncate:
+        the result is NaN instead.  A third entry ``n_rows`` evaluates
+        only that many rows in count order; the rest (rows with no lane)
+        come out as zeros, and a row with lanes among them poisons too.
+        """
+        s = self.num_species
+        split = tp.cast(tp.Tuple[int, ...], self.angular_split)
+        n, ka = adist.shape
+        n_rows = min(split[2], n) if len(split) > 2 else n
+        k_small = min(split[0], ka)
+        n_dense = min(split[1], n_rows)
+        counts = amask.sum(dim=1)
+        order = torch.sort(counts, descending=True, stable=True).indices
+        inv = torch.empty_like(order)
+        inv[order] = torch.arange(n, device=order.device)
+        ok = torch.sum(counts > k_small) <= n_dense
+        if n_rows < n:
+            ok = ok & (torch.sum(counts > 0) <= n_rows)
+            order = order[:n_rows]
+            inv = torch.where(inv < n_rows, inv, n_rows)
+        adist, adiff, amask, aoh = (perm_gather(x, order, inv) for x in (adist, adiff, amask, aoh))
+        if k_small >= ka:
+            body = _angular_plain(
+                self.angular, s, self._atom_block(ka), adist, adiff, amask, aoh
+            )
+        else:
+            dense = _angular_plain(
+                self.angular, s, self._atom_block(ka),
+                adist[:n_dense], adiff[:n_dense], amask[:n_dense], aoh[:n_dense],
+            )
+            small = _angular_plain(
+                self.angular, s, self._atom_block(k_small),
+                adist[n_dense:, :k_small], adiff[n_dense:, :k_small],
+                amask[n_dense:, :k_small], aoh[n_dense:, :k_small],
+            )
+            body = torch.cat([dense, small], dim=0)
+        out = perm_gather(body, inv, order)
+        return out * torch.where(ok, 1.0, math.nan).to(out.dtype)

@@ -30,7 +30,7 @@ import typing as tp
 import numpy as np
 import torch
 
-from torchani_tpu_torch.aev.terms import ANIAngular
+from torchani_tpu_torch.aev.terms import ANIAngular, BaseAngular
 from torchani_tpu_torch.annotations import Tensor
 
 __all__ = [
@@ -91,7 +91,7 @@ def lane_species(mask: Tensor, oh: Tensor) -> Tensor:
 
 
 def angular_grid(
-    angular: ANIAngular,
+    angular: BaseAngular,
     num_species: int,
     dist: Tensor,  # (N, Ka), masked lanes hold 1.0
     diff: Tensor,  # (N, Ka, 3), masked lanes 0

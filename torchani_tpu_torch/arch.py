@@ -69,7 +69,10 @@ class ANI(torch.nn.Module):
 
     Inputs are atomic numbers, shape ``(molecules, atoms)`` with -1 padding,
     and coordinates in Angstrom ``(molecules, atoms, 3)``; outputs are
-    energies in Hartree.  Inputs are moved to the model's device.
+    energies in Hartree.  Inputs are moved to the model's device.  With
+    ``periodic_table_index=False`` the species are the model's 0-based
+    element indices instead (``species_converter(znums)``), at every entry
+    point that takes species.
     """
 
     #: whether the model takes charged molecules (an `ANIq` does)
@@ -81,12 +84,14 @@ class ANI(torch.nn.Module):
         energy_shifter: SelfEnergy,
         symbols: Symbols,
         neighborlist: NeighborlistArg = "adaptive",
+        periodic_table_index: bool = True,
     ) -> None:
         super().__init__()
         self.potentials = torch.nn.ModuleDict(potentials)
         self.energy_shifter = energy_shifter
         self.symbols = tuple(symbols)
         self.neighborlist = parse_neighborlist(neighborlist)
+        self.periodic_table_index = periodic_table_index
 
     # ---- properties ----
     @property
@@ -96,6 +101,10 @@ class ANI(torch.nn.Module):
     @property
     def species_converter(self) -> SpeciesConverter:
         return SpeciesConverter(self.symbols)
+
+    @property
+    def atomic_numbers(self) -> tp.Tuple[int, ...]:
+        return self.species_converter.atomic_numbers
 
     @property
     def cutoff(self) -> float:
@@ -116,8 +125,23 @@ class ANI(torch.nn.Module):
 
     # ---- core computation ----
     def _convert(self, species: Tensor) -> Tensor:
-        """Atomic numbers to element indices on the model's device."""
-        return self.species_converter(as_tensor(species, torch.int64, self.device))
+        """The species input as element indices on the model's device:
+        converted from atomic numbers, or taken as they are with
+        ``periodic_table_index=False``."""
+        species = as_tensor(species, torch.int64, self.device)
+        if not self.periodic_table_index:
+            return species
+        return self.species_converter(species)
+
+    def atomic_numbers_of(self, species: Tensor) -> Tensor:
+        """The atomic numbers of a species input, on the model's device (-1
+        padding kept): the input itself, or the model's elements at the
+        given indices with ``periodic_table_index=False``."""
+        species = as_tensor(species, torch.int64, self.device)
+        if self.periodic_table_index:
+            return species
+        znums = torch.as_tensor(self.atomic_numbers, device=self.device)
+        return torch.where(species < 0, -1, znums[species.clamp(min=0)])
 
     def forward(
         self,
@@ -307,15 +331,18 @@ def simple_aniq(
         energy_shifter=base.energy_shifter,
         symbols=base.symbols,
         neighborlist=base.neighborlist,
+        periodic_table_index=base.periodic_table_index,
     )
 
 
 class Assembler:
     """Declarative assembly of ANI-style models: set symbols, AEV terms, the
     atomic networks, self energies and extra potentials, then
-    ``assemble(ensemble_size)``."""
+    ``assemble(ensemble_size)``.  ``periodic_table_index`` is the assembled
+    model's (see `ANI`)."""
 
-    def __init__(self) -> None:
+    def __init__(self, periodic_table_index: bool = True) -> None:
+        self.periodic_table_index = periodic_table_index
         self.symbols: tp.Optional[Symbols] = None
         self._global_cutoff_fn = "smooth"
         self._aev_terms: tp.Tuple[tp.Any, tp.Any] = ("ani2x", "ani2x")
@@ -443,6 +470,7 @@ class Assembler:
             energy_shifter=shifter,
             symbols=self.symbols,
             neighborlist=self._neighborlist,
+            periodic_table_index=self.periodic_table_index,
         )
 
 

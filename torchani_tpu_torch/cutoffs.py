@@ -17,6 +17,9 @@ __all__ = [
     "CutoffDummy",
     "CutoffCosine",
     "CutoffSmooth",
+    "CutoffBiweight",
+    "CutoffTriweight",
+    "AltCutoffSmooth",
     "CutoffArg",
     "parse_cutoff_fn",
 ]
@@ -64,6 +67,32 @@ class CutoffSmooth(Cutoff):
         return torch.exp(e)
 
 
+@dataclasses.dataclass(frozen=True)
+class CutoffBiweight(Cutoff):
+    r"""Bi-weight cutoff: :math:`(1 - (r/r_c)^2)^2`."""
+
+    def __call__(self, distances: Tensor, cutoff: float) -> Tensor:
+        return (1 - (distances / cutoff) ** 2) ** 2
+
+
+@dataclasses.dataclass(frozen=True)
+class CutoffTriweight(Cutoff):
+    r"""Tri-weight cutoff: :math:`(1 - (r/r_c)^2)^3`."""
+
+    def __call__(self, distances: Tensor, cutoff: float) -> Tensor:
+        return (1 - (distances / cutoff) ** 2) ** 3
+
+
+@dataclasses.dataclass(frozen=True)
+class AltCutoffSmooth(Cutoff):
+    r"""The smooth cutoff variant of the r2SCAN models:
+    :math:`\exp(-1/(1 - \mathrm{clamp}(r/r_c)^2)) / e^{-1}`."""
+
+    def __call__(self, distances: Tensor, cutoff: float) -> Tensor:
+        x = torch.clamp(distances / cutoff, 0.0, 1.0 - 1e-4)
+        return torch.exp(-1.0 / (1.0 - x**2)) / 0.3678794411714423
+
+
 CutoffArg = tp.Union[str, Cutoff]
 
 
@@ -75,6 +104,10 @@ def parse_cutoff_fn(cutoff_fn: CutoffArg) -> Cutoff:
         return CutoffCosine()
     if cutoff_fn == "smooth":
         return CutoffSmooth()
+    if cutoff_fn == "biweight":
+        return CutoffBiweight()
+    if cutoff_fn == "triweight":
+        return CutoffTriweight()
     if not isinstance(cutoff_fn, Cutoff):
         raise ValueError(f"Unsupported cutoff fn: {cutoff_fn}")
     return cutoff_fn

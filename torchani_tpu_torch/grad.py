@@ -316,7 +316,7 @@ def single_point(
         h = globals()["hessians"](model, species, coords, cell, pbc)
         out["hessians"] = h
         if vibrational:
-            masses = get_atomic_masses(as_tensor(species, torch.int64, model.device))
+            masses = get_atomic_masses(model.atomic_numbers_of(species))
             vib = vibrational_analysis(masses, h)
             out["freqs"] = vib.freqs
             out["modes"] = vib.modes

@@ -18,6 +18,13 @@ never imports JAX: the caller flattens the JAX model, e.g.::
     arrays = {jax.tree_util.keystr(p): np.asarray(x)
               for p, x in jax.tree_util.tree_flatten_with_path(jax_model)[0]}
 
+The JAX package keeps some settings as static fields, which are no leaves:
+the count-class angular split and the networks' species partition.  A
+caller carries them by adding their paths with integer arrays, e.g.
+``arrays[".potentials['nnp'].aev_computer.angular_split"] = np.asarray(
+jax_model.potentials['nnp'].aev_computer.angular_split)`` (an empty array
+for None), and `load_jax_arrays` sets them.
+
 The JAX package's ``MDState`` flattens the same way (leaves ``.coords``,
 ``.nbr_idx``, ``.bucket.keys`` or ``.bucket.keys_flat``,
 ``.pair_aux['dispersion_d3']``, ...), and `load_jax_md_state` puts the
@@ -64,10 +71,34 @@ def _resolve(model: torch.nn.Module, path: str) -> torch.Tensor:
     return obj
 
 
+#: static fields of the JAX model that a caller may carry over (see the
+#: module docs), each a tuple of ints or None
+_STATIC_FIELDS = ("angular_split", "partition")
+_STATIC_PATH = re.compile(r"(.*)\.(" + "|".join(_STATIC_FIELDS) + r")")
+
+
+def _set_static(model: torch.nn.Module, path: str, value) -> None:
+    """Set the static field that ``path`` names from an integer array."""
+    m = _STATIC_PATH.fullmatch(path)
+    owner: tp.Any = model
+    for t in _TOKEN.finditer(m.group(1)):
+        attr, key, index = t.groups()
+        if attr is not None:
+            owner = getattr(owner, attr)
+        else:
+            owner = owner[key if key is not None else int(index)]
+    if not hasattr(owner, m.group(2)):
+        raise KeyError(f"path {path!r} names no field of the port's model")
+    value = np.asarray(value).reshape(-1)
+    setattr(owner, m.group(2), tuple(int(x) for x in value) if value.size else None)
+
+
 def load_jax_arrays(
     model: torch.nn.Module, arrays: tp.Mapping[str, np.ndarray]
 ) -> torch.nn.Module:
-    """Copy the JAX model's leaves into ``model`` (in place; returned).
+    """Copy the JAX model's leaves into ``model`` (in place; returned), and
+    the static fields that ``arrays`` carries (``angular_split``,
+    ``partition``).
 
     Every path must resolve to a tensor of the same shape, and every
     parameter and buffer of ``model`` must receive a value.
@@ -75,6 +106,9 @@ def load_jax_arrays(
     loaded = set()
     with torch.no_grad():
         for path, value in arrays.items():
+            if _STATIC_PATH.fullmatch(path):
+                _set_static(model, path, value)
+                continue
             target = _resolve(model, path)
             value = np.array(value)
             if tuple(target.shape) != value.shape:

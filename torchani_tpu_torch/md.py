@@ -233,13 +233,14 @@ def _shallow_copy(module: torch.nn.Module) -> torch.nn.Module:
     return new
 
 
-def _with_angular_preslice(model, prefix: int):
-    """A model copy whose AEV computer pre-slices the (sorted) table.  The
-    caller's model, and its AEV computer, stay as they were; weights and
-    buffers are shared."""
+def _with_aev_fields(model, **fields):
+    """A model copy whose AEV computer has ``fields`` set (the angular
+    preslice, the count-class split).  The caller's model, and its AEV
+    computer, stay as they were; weights and buffers are shared."""
     nnp = _shallow_copy(model.potentials["nnp"])
     aevc = _shallow_copy(nnp.aev_computer)
-    aevc.angular_preslice = prefix
+    for name, value in fields.items():
+        setattr(aevc, name, value)
     nnp.aev_computer = aevc
     potentials = _shallow_copy(model.potentials)
     potentials["nnp"] = nnp
@@ -343,6 +344,32 @@ def _refresh_neighbors(
     )
 
 
+def choose_angular_split(
+    counts: np.ndarray, cap: int
+) -> tp.Optional[tp.Tuple[int, int]]:
+    """The count-class split of the JAX package's `MolecularDynamics` for
+    per-atom angular counts ``(A,)`` at capacity ``cap``: over every even
+    ``k_small`` in ``[8, cap - 4]``, ``n_dense`` covers the rows over
+    ``k_small`` lanes with a 30% and 64-row margin (a multiple of 64), and
+    the pair with the least estimated pair-lane work wins; None where it
+    saves under 15%."""
+    a = int(counts.shape[0])
+    kp = lambda k: k * (k - 1) / 2.0  # noqa: E731
+    base = a * kp(cap)
+    best = None
+    for k_small in range(8, cap - 3, 2):
+        over = int((counts > k_small).sum())
+        n_dense = int(-(-int(over * 1.3 + 64) // 64) * 64)
+        if n_dense >= a:
+            continue
+        cost = n_dense * kp(cap) + (a - n_dense) * kp(k_small)
+        if best is None or cost < best[0]:
+            best = (cost, k_small, n_dense)
+    if best is None or best[0] > 0.85 * base:
+        return None
+    return best[1], best[2]
+
+
 class MolecularDynamics:
     """Molecular dynamics of a single (optionally periodic) system.
 
@@ -373,7 +400,7 @@ class MolecularDynamics:
     def __init__(
         self,
         model,
-        species,  # (1, A) atomic numbers
+        species,  # (1, A) atomic numbers, or element indices (periodic_table_index=False)
         cell=None,
         pbc: bool = False,
         skin: float = 0.75,
@@ -420,7 +447,7 @@ class MolecularDynamics:
         # then contiguous slices, known here once.  `elem_idxs` is INTERNAL
         # order from here on; user-facing tensors (coords, velocities,
         # forces, masses) stay in user order.
-        host_elem = model.species_converter(self.species)[0].cpu().numpy()
+        host_elem = model._convert(self.species)[0].cpu().numpy()
         order = np.argsort(host_elem, kind="stable")
         self._species_perm: tp.Optional[Tensor] = None
         if not (order == np.arange(order.shape[0])).all():
@@ -450,7 +477,7 @@ class MolecularDynamics:
         self._s_min = 1.0 - npt_compression
         self.build_radius = (self.cutoff + skin) / self._s_min
         self._volume0 = 0.0 if self._cell_np is None else float(abs(np.linalg.det(self._cell_np)))
-        masses = get_atomic_masses(self.species[0].clamp(min=0))
+        masses = get_atomic_masses(model.atomic_numbers_of(self.species[0]))
         # dummy (-1) padding atoms feel zero force; unit mass keeps the
         # integrator's 1/m finite so they simply never move
         self.masses = torch.where(self.species[0] < 0, 1.0, masses)
@@ -474,7 +501,7 @@ class MolecularDynamics:
             prefix = estimate_capacity(r_ang + skin, a, periodic=pbc)
             if prefix < self.capacity:
                 self._ang_prefix = prefix
-                self.model = _with_angular_preslice(model, prefix)
+                self.model = _with_aev_fields(model, angular_preslice=prefix)
         # Per-POTENTIAL static lane prefixes: where a long-cutoff potential
         # (D3 dispersion at 8 A) sets the build radius, the short-cutoff
         # potentials (the AEV at 5.2 A, the repulsion) must not pay for the
@@ -512,6 +539,7 @@ class MolecularDynamics:
         self.grid_shape: tp.Optional[tp.Tuple[int, int, int]] = None
         if self._cell_np is not None:
             self.grid_shape = _static_grid_shape(self._cell_np, self.build_radius)
+        self._angular_split_done = False
 
     # ---- static capacities, measured once ----
     def _ensure_grid(self, coords: Tensor) -> None:
@@ -591,6 +619,41 @@ class MolecularDynamics:
         self._wrapshift = torch.as_tensor(
             make_wrapshift(self.grid_shape, self._cell_np), device=self.device
         )
+
+    @torch.no_grad()
+    def _ensure_angular_split(self, state: MDState, coords: Tensor) -> None:
+        """Set the count-class angular split (`AEVComputer.angular_split`)
+        from the counts measured at the first `init`, by the JAX package's
+        rule.
+
+        In a liquid most atoms have far fewer neighbors within the angular
+        cutoff than the static capacity holds, and the plain angular path's
+        work grows as the square of the lanes it runs.  One host read of the
+        ``(A,)`` counts picks the ``(k_small, n_dense)`` of least estimated
+        pair-lane work, with a drift margin, or none when the saving is
+        under 15% (or for fewer than 2,048 atoms, a capacity under 16, or a
+        disabled network potential); the split goes on this instance's model
+        copy.  The plain path then NaN-poisons a step whose counts outgrow
+        it; on the card K3 runs over the whole table and ignores it.
+        """
+        if self._angular_split_done:
+            return
+        self._angular_split_done = True
+        if not self.model.potentials["nnp"].enabled:
+            return
+        a = int(coords.shape[0])
+        if a < 2048:
+            return  # the split's sort would cost more than it saves
+        aevc = self.model.aev_computer
+        r_ang = float(aevc.angular.cutoff)
+        cap = aevc._angular_capacity(self.capacity)
+        if cap < 16:
+            return
+        nb = narrow_to_cutoff(_refresh_neighbors(state, coords), r_ang)
+        counts = np.minimum(nb.mask.sum(dim=1).cpu().numpy(), cap)
+        split = choose_angular_split(counts, cap)
+        if split is not None:
+            self.model = _with_aev_fields(self.model, angular_split=split)
 
     def _to_internal(self, coords: Tensor) -> Tensor:
         if self._species_perm is None:
@@ -802,6 +865,7 @@ class MolecularDynamics:
             pair_aux=pair_aux,
             generator=noise_gen,
         )
+        self._ensure_angular_split(state, coords)
         e, f = self._energy_and_forces(state, coords)
         return state.replace(energy=e, forces=f)
 
@@ -1206,7 +1270,7 @@ class MultipleTimestepMD:
     def __init__(
         self,
         model,
-        species,  # (1, A) atomic numbers
+        species,  # (1, A) atomic numbers, or element indices (periodic_table_index=False)
         cell=None,
         pbc: bool = False,
         every: int = 4,
@@ -1326,7 +1390,7 @@ class CachedSinglePoint:
     def __init__(
         self,
         model,
-        species,  # (1, A) atomic numbers
+        species,  # (1, A) atomic numbers, or element indices (periodic_table_index=False)
         cell=None,
         pbc: bool = False,
         skin: float = 0.75,

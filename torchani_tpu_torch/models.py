@@ -177,7 +177,7 @@ def ANImbis(
     )
     model = ANIq(
         potentials=potentials, energy_shifter=base.energy_shifter, symbols=base.symbols,
-        neighborlist=base.neighborlist,
+        neighborlist=base.neighborlist, periodic_table_index=base.periodic_table_index,
     )
     return _finish(model, "animbis", pretrained, model_index)
 

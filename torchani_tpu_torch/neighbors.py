@@ -23,7 +23,7 @@ import numpy as np
 import torch
 
 from torchani_tpu_torch.annotations import Tensor
-from torchani_tpu_torch.utils import map_to_central
+from torchani_tpu_torch.utils import _host, map_to_central
 
 __all__ = [
     "Neighbors",
@@ -41,7 +41,24 @@ __all__ = [
     "AllPairs",
     "CellList",
     "AdaptiveList",
+    "VerletCellList",
+    "FastCellList",
+    "Neighborlist",
     "NeighborlistArg",
+    "Triples",
+    "neighbors_to_triples",
+    "discard_inter_molecule_pairs",
+    "discard_outside_cutoff",
+    "reconstruct_shifts",
+    "narrow_down",
+    "coords_to_fractional",
+    "setup_grid",
+    "coords_to_grid_idx3",
+    "flatten_idx3",
+    "count_atoms_in_buckets",
+    "atom_image_converters",
+    "image_pairs_within",
+    "lower_image_pairs_between",
 ]
 
 
@@ -516,7 +533,7 @@ def cell_list(
     # a non-finite coordinate converts to a huge negative integer: keep it
     # in range (its distances stay NaN, so nothing wrong is selected)
     idx3 = torch.minimum((frac * gdims.to(frac.dtype)).to(torch.int64), gdims - 1).clamp(min=0)
-    bucket_id = (idx3[:, 0] * gy + idx3[:, 1]) * gz + idx3[:, 2]
+    bucket_id = flatten_idx3(idx3, (gx, gy, gz))
     bucket_id = torch.where(real, bucket_id, g)  # dummies into a trash bucket
 
     pos = torch.arange(a, device=dev)
@@ -647,6 +664,37 @@ class AdaptiveList:
         )
 
 
+@dataclasses.dataclass(frozen=True)
+class VerletCellList(CellList):
+    """The reference's skin-cached cell list.  The skin cache lives in
+    `torchani_tpu_torch.md.MolecularDynamics` (its Verlet rebuild
+    criterion), as in the JAX package; called on its own this is a plain
+    `CellList`."""
+
+    skin: float = 1.0
+
+
+#: The reference's compiled twin of its cell list; here `CellList` is the
+#: one cell list, so the name is an alias
+FastCellList = CellList
+
+
+class Neighborlist:
+    """Base class of neighbor-list strategies, called as ``(cutoff,
+    elem_idxs, coords, cell, pbc) -> Neighbors``."""
+
+    def __call__(
+        self,
+        cutoff: float,
+        elem_idxs: Tensor,
+        coords: Tensor,
+        cell: tp.Optional[Tensor] = None,
+        pbc: tp.Optional[Tensor] = None,
+        **kwargs,
+    ) -> Neighbors:
+        raise NotImplementedError("Must be implemented by subclasses")
+
+
 NeighborlistArg = tp.Union[str, AllPairs, CellList, AdaptiveList]
 
 
@@ -656,8 +704,196 @@ def parse_neighborlist(neighborlist: NeighborlistArg):
         return AllPairs()
     if neighborlist == "cell_list":
         return CellList()
+    if neighborlist == "verlet_cell_list":
+        return VerletCellList()
     if neighborlist == "adaptive":
         return AdaptiveList()
     if isinstance(neighborlist, (AllPairs, CellList, AdaptiveList)):
         return neighborlist
     raise ValueError(f"Unsupported neighborlist: {neighborlist}")
+
+
+#: The reference's name of `narrow_to_cutoff`: lanes beyond the cutoff are
+#: masked (the reference removes them)
+discard_outside_cutoff = narrow_to_cutoff
+
+
+def discard_inter_molecule_pairs(neighbors: Neighbors, molecule_idxs: Tensor) -> Neighbors:
+    """Mask the pairs whose atoms belong to different molecules;
+    ``molecule_idxs`` gives each atom of the flattened system its molecule.
+    Neighbor indices are read as indices into the flattened system, as in
+    the JAX package."""
+    flat = molecule_idxs.reshape(-1)
+    nbr_ids = flat[torch.where(neighbors.mask, neighbors.idx, 0)]
+    if neighbors.idx.dim() == 3:
+        c, a, _ = neighbors.idx.shape
+        same = molecule_idxs.reshape(c, a)[:, :, None] == nbr_ids
+    else:
+        same = flat[:, None] == nbr_ids
+    mask = neighbors.mask & same
+    return neighbors.replace(
+        mask=mask,
+        diff=torch.where(mask[..., None], neighbors.diff, 0.0),
+        dist=torch.where(mask, neighbors.dist, 1.0),
+    )
+
+
+def reconstruct_shifts(coords: Tensor, neighbors: Neighbors) -> Tensor:
+    """The cartesian image shift of each lane, ``diff - (x_nbr - x_center)``
+    (0 in masked lanes); neighbor positions are read from the flattened
+    coordinates, as in the JAX package."""
+    flat = coords.reshape(-1, 3)
+    nbr_pos = flat[torch.where(neighbors.mask, neighbors.idx, 0)]
+    if neighbors.idx.dim() == 3:
+        c, a, _ = neighbors.idx.shape
+        center = coords.reshape(c, a, 3)[:, :, None, :]
+    else:
+        center = flat[:, None, :]
+    shift = neighbors.diff - (nbr_pos - center)
+    return torch.where(neighbors.mask[..., None], shift, 0.0)
+
+
+def narrow_down(
+    cutoff: float,
+    elem_idxs: Tensor,
+    coords: Tensor,
+    neighbors: Neighbors,
+    shifts: tp.Optional[Tensor] = None,
+) -> Neighbors:
+    """Screen a candidate table down to the true neighbors: ``diff`` and
+    ``dist`` recomputed (differentiably) from ``coords`` and the image
+    shifts (``shifts``, else `reconstruct_shifts`), and lanes of padding
+    atoms or beyond ``cutoff`` masked.  Neighbor positions are read from the
+    flattened coordinates, as in the JAX package."""
+    idx_safe = torch.where(neighbors.mask, neighbors.idx, 0)
+    nbr_pos = coords.reshape(-1, 3)[idx_safe]
+    shift = reconstruct_shifts(coords, neighbors) if shifts is None else shifts
+    diff = nbr_pos + shift - coords[..., :, None, :]
+    elem_flat = elem_idxs.reshape(-1)
+    mask = neighbors.mask & (elem_flat[..., :, None] >= 0) & (elem_flat[idx_safe] >= 0)
+    d2 = torch.sum(diff * diff, dim=-1)
+    mask = mask & (d2 <= cutoff * cutoff)
+    diff = torch.where(mask[..., None], diff, 0.0)
+    dist = torch.sqrt(torch.where(mask, d2, 1.0))
+    return neighbors.replace(idx=idx_safe, mask=mask, diff=diff, dist=dist)
+
+
+class Triples(tp.NamedTuple):
+    """Each center's pairs of neighbors, padded: the ``(Ka, Ka)`` grid of
+    lane pairs with the strict upper triangle of valid ones masked in."""
+
+    side_dist: Tensor  # (..., A, Ka, Ka, 2) distances (d_j, d_k)
+    side_diff: Tensor  # (..., A, Ka, Ka, 2, 3) center -> side vectors
+    side_idx: Tensor  # (..., A, Ka, Ka, 2) atom indices of the two sides
+    mask: Tensor  # (..., A, Ka, Ka) valid pairs j < k
+
+
+def neighbors_to_triples(neighbors: Neighbors) -> Triples:
+    """Expand a neighbor table into padded per-center triples."""
+    dist = torch.where(neighbors.mask, neighbors.dist, 1.0)
+    ka = neighbors.capacity
+    upper = torch.ones((ka, ka), dtype=torch.bool, device=dist.device).triu(1)
+    mask = neighbors.mask[..., :, None] & neighbors.mask[..., None, :] & upper
+    side_dist = torch.stack(
+        torch.broadcast_tensors(dist[..., :, None], dist[..., None, :]), dim=-1
+    )
+    diff = neighbors.diff
+    side_diff = torch.stack(
+        torch.broadcast_tensors(diff[..., :, None, :], diff[..., None, :, :]), dim=-2
+    )
+    idx = neighbors.idx
+    side_idx = torch.stack(torch.broadcast_tensors(idx[..., :, None], idx[..., None, :]), dim=-1)
+    return Triples(side_dist, side_diff, side_idx, mask)
+
+
+# ---- the reference's cell-list internals, as public functions ----
+
+
+def coords_to_fractional(coords: Tensor, cell: Tensor) -> Tensor:
+    """Fractional coordinates wrapped into [0, 1)."""
+    return torch.remainder(coords @ torch.linalg.inv(cell), 1.0)
+
+
+def setup_grid(
+    cell, cutoff: float, buckets_per_cutoff: int = 1, extra_space: float = 1e-5
+) -> np.ndarray:
+    """Bucket-grid shape ``(GX, GY, GZ)`` (int64, host) of a cell: the
+    distance between opposite faces over ``(cutoff + extra_space) /
+    buckets_per_cutoff``, at least 1."""
+    cell = _host(cell)
+    bucket_len = (cutoff + extra_space) / buckets_per_cutoff
+    vol = abs(float(np.linalg.det(cell)))
+    heights = [
+        vol / np.linalg.norm(np.cross(cell[(i + 1) % 3], cell[(i + 2) % 3])) for i in range(3)
+    ]
+    return np.maximum(np.floor(np.asarray(heights) / bucket_len), 1).astype(np.int64)
+
+
+def coords_to_grid_idx3(coords: Tensor, cell: Tensor, grid_shape) -> Tensor:
+    """Integer 3D bucket index of each atom (int64)."""
+    gs = torch.as_tensor(np.asarray(grid_shape), dtype=torch.int64, device=coords.device)
+    idx3 = torch.floor(coords_to_fractional(coords, cell) * gs).to(torch.int64)
+    return torch.minimum(idx3.clamp(min=0), gs - 1)
+
+
+def flatten_idx3(idx3: Tensor, grid_shape) -> Tensor:
+    """Row-major flat bucket index of 3D bucket indices."""
+    gy, gz = int(grid_shape[1]), int(grid_shape[2])
+    return (idx3[..., 0] * gy + idx3[..., 1]) * gz + idx3[..., 2]
+
+
+def count_atoms_in_buckets(atom_grid_idx: Tensor, grid_shape) -> tp.Tuple[Tensor, Tensor]:
+    """Atoms in each flat bucket, and their exclusive cumulative count."""
+    g = int(np.prod(np.asarray(grid_shape)))
+    count = torch.bincount(atom_grid_idx.reshape(-1), minlength=g)
+    return count, torch.cumsum(count, dim=0) - count
+
+
+def atom_image_converters(grid_idx: Tensor) -> tp.Tuple[Tensor, Tensor]:
+    """The permutations between atom order and bucket-sorted ("image")
+    order: ``(image_to_atom, atom_to_image)``."""
+    image_to_atom = torch.argsort(grid_idx.reshape(-1), stable=True)
+    return image_to_atom, torch.argsort(image_to_atom)
+
+
+def image_pairs_within(
+    count_in_grid: Tensor, cumcount_in_grid: Tensor, count_in_grid_max: int
+) -> Tensor:
+    """Every pair of image indices within one bucket, ``(2, W)``.  Its size
+    depends on the data: it is computed on the host (the cell list here
+    pairs buckets in padded tables instead)."""
+    count = _host(count_in_grid)
+    cum = _host(cumcount_in_grid)
+    tl = np.tril_indices(count_in_grid_max, -1)
+    pairs = []
+    for g in np.flatnonzero(count > 1):
+        keep = (tl[0] < count[g]) & (tl[1] < count[g])
+        pairs.append(np.stack([tl[0][keep], tl[1][keep]]) + cum[g])
+    out = np.concatenate(pairs, axis=1) if pairs else np.zeros((2, 0))
+    dev = count_in_grid.device if isinstance(count_in_grid, torch.Tensor) else None
+    return torch.as_tensor(out.astype(np.int64), device=dev)
+
+
+def lower_image_pairs_between(
+    count_in_atom_surround: Tensor,  # (C, A, 13)
+    cumcount_in_atom_surround: Tensor,  # (C, A, 13)
+    shift_idxs_between: Tensor,  # (C, A, 13, 3)
+    count_in_grid_max: int,
+) -> tp.Tuple[Tensor, Tensor]:
+    """The lower-side image indices of the candidate pairs between buckets,
+    and their shift indices.  Computed on the host, as
+    `image_pairs_within`."""
+    count = _host(count_in_atom_surround)
+    cum = _host(cumcount_in_atom_surround)
+    shifts = _host(shift_idxs_between)
+    lanes = np.broadcast_to(np.arange(count_in_grid_max), count.shape + (count_in_grid_max,))
+    mask = lanes < count[..., None]
+    padded = lanes + cum[..., None]
+    shifts_b = np.broadcast_to(shifts[..., None, :], count.shape + (count_in_grid_max, 3))
+    dev = (
+        count_in_atom_surround.device if isinstance(count_in_atom_surround, torch.Tensor) else None
+    )
+    return (
+        torch.as_tensor(padded[mask].astype(np.int64), device=dev),
+        torch.as_tensor(shifts_b[mask].astype(np.int64), device=dev),
+    )

@@ -1,5 +1,7 @@
-"""Atomic networks, ensembles and species conversion."""
+"""Atomic networks, ensembles, species conversion, the building blocks and
+the species-blocked evaluation."""
 
+from torchani_tpu_torch.nn import partition
 from torchani_tpu_torch.nn.containers import (
     AtomicNetworks,
     AtomicNetworksDiscardFirstScalar,
@@ -8,15 +10,44 @@ from torchani_tpu_torch.nn.containers import (
     SpeciesConverter,
     parse_activation,
 )
+from torchani_tpu_torch.nn.core import (
+    AtomicContainer,
+    AtomicEmbedding,
+    AtomicNetwork,
+    AtomicOneHot,
+    BmmAtomicNetwork,
+    BmmEnsemble,
+    BmmLinear,
+    MNPNetworks,
+    Sequential,
+    TightCELU,
+)
 from torchani_tpu_torch.nn.shared import ANISharedNetworks, SingleNN
 
+#: The reference's names of `AtomicNetworks`
+ANINetworks = AtomicNetworks
+ANIModel = AtomicNetworks
+
 __all__ = [
+    "ANIModel",
+    "ANINetworks",
     "ANISharedNetworks",
+    "AtomicContainer",
+    "AtomicEmbedding",
+    "AtomicNetwork",
     "AtomicNetworks",
     "AtomicNetworksDiscardFirstScalar",
+    "AtomicOneHot",
+    "BmmAtomicNetwork",
+    "BmmEnsemble",
+    "BmmLinear",
     "Ensemble",
     "GenericEnsemble",
+    "MNPNetworks",
+    "Sequential",
     "SingleNN",
     "SpeciesConverter",
+    "TightCELU",
     "parse_activation",
+    "partition",
 ]

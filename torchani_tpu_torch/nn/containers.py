@@ -6,16 +6,20 @@ per layer for `AtomicNetworks` and ``(E, S, in, out)`` for an `Ensemble`,
 the layout of the JAX package (so its arrays load as they are).  Each
 present species runs its own MLP at its true layer widths over the rows of
 its atoms, picked with real index tensors; the ensemble's member axis rides
-the batch dimension of one matmul per layer.
+the batch dimension of one matmul per layer.  With ``partition`` (static
+per-species row budgets, `torchani_tpu_torch.nn.partition`) the rows move
+into species blocks on the device instead, and nothing is read back.
 """
 
 import functools
+import math
 import typing as tp
 
 import torch
 
 from torchani_tpu_torch.annotations import DeviceArg, Symbols, Tensor
 from torchani_tpu_torch.constants import ATOMIC_NUMBER, PERIODIC_TABLE
+from torchani_tpu_torch.nn.partition import block_rows, species_blocks, unblock_rows
 from torchani_tpu_torch.utils import resolve_device
 
 __all__ = [
@@ -146,6 +150,15 @@ class Ensemble(torch.nn.Module):
 
     ``weights[l]`` is ``(E, S, in, out)`` and ``biases[l]`` ``(E, S, out)``,
     zero-padded past each species' true widths ``layer_dims[s]``.
+
+    ``partition``: static per-species row budgets (one per species, e.g.
+    from `torchani_tpu_torch.nn.partition.measure_caps`).  When set, an
+    evaluation without ``species_ranges`` permutes the atom rows into
+    species blocks of those sizes on the device (`nn.partition`), runs each
+    species' MLP over its own block and permutes back: no wait for the
+    device, where the default reads the present species and their rows.
+    A species with more atoms than its budget poisons the energies with
+    NaN.
     """
 
     def __init__(
@@ -155,6 +168,7 @@ class Ensemble(torch.nn.Module):
         layer_dims: LayerDims,
         symbols: Symbols,
         activation: str = "celu",
+        partition: tp.Optional[tp.Sequence[int]] = None,
     ) -> None:
         super().__init__()
         self.weights = torch.nn.ParameterList(
@@ -168,6 +182,21 @@ class Ensemble(torch.nn.Module):
         self.layer_dims = tuple(tuple(d) for d in layer_dims)
         self.symbols = tuple(symbols)
         self.activation = activation
+        self.partition = partition
+
+    @property
+    def partition(self) -> tp.Optional[tp.Tuple[int, ...]]:
+        return self._partition
+
+    @partition.setter
+    def partition(self, caps: tp.Optional[tp.Sequence[int]]) -> None:
+        if caps is not None:
+            caps = tuple(int(c) for c in caps)
+            if len(caps) != self.num_species:
+                raise ValueError(
+                    f"partition has {len(caps)} entries for {self.num_species} species"
+                )
+        self._partition = caps
 
     @property
     def num_species(self) -> int:
@@ -191,6 +220,7 @@ class Ensemble(torch.nn.Module):
         device: DeviceArg = None,
         activation: str = "celu",
         bias: bool = True,
+        partition: tp.Optional[tp.Sequence[int]] = None,
     ) -> "Ensemble":
         """Networks with random weights from ``generator`` (CELU with biases
         by default, as the JAX package's ``like_2x``)."""
@@ -198,7 +228,7 @@ class Ensemble(torch.nn.Module):
         weights, biases = _random_stacks(num_members, layer_dims, generator)
         return cls(
             [w.to(dev) for w in weights], [b.to(dev) for b in biases] if bias else None,
-            layer_dims, tuple(symbols), activation,
+            layer_dims, tuple(symbols), activation, partition,
         )
 
     def member(self, idx: int) -> "AtomicNetworks":
@@ -210,7 +240,7 @@ class Ensemble(torch.nn.Module):
         return AtomicNetworks(
             [w[idx].detach().clone() for w in weights],
             None if biases is None else [b[idx].detach().clone() for b in biases],
-            self.layer_dims, self.symbols, self.activation,
+            self.layer_dims, self.symbols, self.activation, self.partition,
         )
 
     def _species_mlp(self, s: int, x: Tensor) -> Tensor:
@@ -241,7 +271,8 @@ class Ensemble(torch.nn.Module):
         the rows are found from ``elem_idxs``, which waits for the device.
         A caller whose flattened element array is sorted by species passes
         its ``species_ranges``: the rows are then slices, and nothing is
-        read from the tensor.
+        read from the tensor.  Without them, ``partition`` moves the rows
+        into species blocks on the device (`_blocked_values`).
         """
         c, a = elem_idxs.shape
         # aevs ``(C, A, F)``, or ``(E, C, A, F)`` with a row per member (the
@@ -259,6 +290,8 @@ class Ensemble(torch.nn.Module):
                 pieces.append(x0.new_zeros((e, c * a - pos, self.out_dim)))
             return torch.cat(pieces, dim=1).reshape(e, c, a, self.out_dim)
         elem = elem_idxs.reshape(-1)
+        if self.partition is not None:
+            return self._blocked_values(elem, x0).reshape(e, c, a, self.out_dim)
         out = x0.new_zeros((e, c * a, self.out_dim))
         for s in torch.unique(elem).tolist():
             if not 0 <= s < self.num_species:
@@ -266,6 +299,22 @@ class Ensemble(torch.nn.Module):
             rows = torch.nonzero(elem == s).squeeze(1)
             out = out.index_copy(1, rows, self._species_mlp(s, x0.index_select(-2, rows)))
         return out.reshape(e, c, a, self.out_dim)
+
+    def _blocked_values(self, elem: Tensor, x0: Tensor) -> Tensor:
+        """Species-blocked evaluation over ``partition``: ``(E, N, out)``
+        for rows ``x0 (N, F)`` or ``(E, N, F)``; padding rows 0, NaN
+        everywhere if a species overflowed its budget.  A species whose
+        budget is 0 runs no network."""
+        blocks = species_blocks(elem, self.partition)
+        xb = block_rows(x0.movedim(-2, 0), blocks).movedim(0, -2)  # (..., P, F)
+        outs = [
+            self._species_mlp(s, xb[..., off:off + cap, :])
+            for s, (off, cap) in enumerate(zip(blocks.offsets, blocks.caps))
+            if cap > 0
+        ]
+        yb = torch.cat(outs, dim=1)  # (E, P, out)
+        y = unblock_rows(yb.movedim(1, 0), blocks).movedim(0, 1)  # (E, N, out)
+        return y * torch.where(blocks.ok, 1.0, math.nan).to(y.dtype)
 
     def forward(
         self,

@@ -38,7 +38,7 @@ def set_data_dir(path: tp.Union[str, Path, None]) -> None:
 
 
 def data_dir() -> Path:
-    """Root directory for user data (state dicts).
+    """Root directory for user data (state dicts, datasets, model files).
 
     Resolution order: the `set_data_dir` override, ``TORCHANI_TPU_DATA_DIR``,
     ``TORCHANI_DATA_DIR``, then ``~/.local/share/TorchaniTPU``.
@@ -52,9 +52,29 @@ def data_dir() -> Path:
     return d
 
 
+def _subdir(name: str) -> Path:
+    d = data_dir() / name
+    d.mkdir(parents=True, exist_ok=True)
+    return d
+
+
+def neurochem_dir() -> Path:
+    """Directory for NeuroChem-format model files."""
+    return _subdir("Neurochem")
+
+
+def datasets_dir() -> Path:
+    """Directory for datasets."""
+    return _subdir("Datasets")
+
+
+def custom_models_dir() -> Path:
+    """Directory for user-defined model factories, one ``<Name>/model.py``
+    each (the JAX package's layout)."""
+    return _subdir("CustomModels")
+
+
 def state_dicts_dir() -> Path:
     """Where ``models.*(pretrained=True)`` looks for ``{name}_state_dict.npz``
     or ``.pt``."""
-    d = data_dir() / "StateDicts"
-    d.mkdir(parents=True, exist_ok=True)
-    return d
+    return _subdir("StateDicts")

@@ -57,7 +57,9 @@ class ReplicaExchange:
         model: an ANI-family model (called as ``model(species, coords, cell,
             pbc)``)
         species: atomic numbers, ``(A,)`` or ``(1, A)`` (one molecule, the
-            same in every replica)
+            same in every replica); element indices for a model with
+            ``periodic_table_index=False`` (the masses then come through its
+            `atomic_numbers_of`)
         temperatures: the ladder, one per replica (ascending recommended)
         timestep_fs: Langevin timestep
         friction_per_fs: BAOAB friction
@@ -91,7 +93,9 @@ class ReplicaExchange:
         self.betas = 1.0 / (KB_HARTREE * self.temperatures)
         self.model = model
         self.species = torch.as_tensor(np.tile(znums, (self.n_replicas, 1)), device=dev)
-        self.masses = get_atomic_masses(self.species[0])
+        to_znums = getattr(model, "atomic_numbers_of", None)
+        znums_t = self.species[0] if to_znums is None else to_znums(self.species[0])
+        self.masses = get_atomic_masses(znums_t)
         self.dt = float(timestep_fs)
         self.friction = float(friction_per_fs)
         self.cell = None if cell is None else as_tensor(cell, torch.float32, dev)

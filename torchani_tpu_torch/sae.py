@@ -9,7 +9,7 @@ from torchani_tpu_torch.annotations import DeviceArg, Tensor
 from torchani_tpu_torch.constants import GSAES
 from torchani_tpu_torch.utils import resolve_device
 
-__all__ = ["SelfEnergy", "sorted_gsaes"]
+__all__ = ["EnergyShifter", "SelfEnergy", "sorted_gsaes"]
 
 
 def sorted_gsaes(
@@ -61,3 +61,7 @@ class SelfEnergy(torch.nn.Module):
         if atomic:
             return e
         return torch.sum(e, dim=-1)
+
+
+#: The reference's name of `SelfEnergy`
+EnergyShifter = SelfEnergy

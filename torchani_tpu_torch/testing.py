@@ -1,11 +1,39 @@
-"""Test and benchmark system factories (numpy; the same systems, from the
-same seeds, as ``torchani_tpu/testing.py``)."""
+"""Test and benchmark system factories (the same systems, from the same
+seeds, as ``torchani_tpu/testing.py``), and a unittest harness over the
+devices.
 
+Every random draw comes from ``numpy.random.RandomState(seed)`` in the JAX
+package's order, so both packages make the same molecules.  `make_molecs` and
+`make_water_box` give numpy arrays; the reference-style factories
+(`make_tensor`, `make_elem_idxs`, `make_molec`, `make_reference_molecs`,
+`make_neighbors`) give tensors on ``device``, CUDA unless the caller names
+another.
+"""
+
+import sys
 import typing as tp
+import unittest
 
 import numpy as np
+import torch
 
-__all__ = ["make_molecs", "make_water_box"]
+from torchani_tpu_torch.annotations import DeviceArg, Tensor
+from torchani_tpu_torch.constants import ATOMIC_NUMBER
+from torchani_tpu_torch.utils import resolve_device
+
+__all__ = [
+    "make_molecs",
+    "make_water_box",
+    "Molecs",
+    "make_tensor",
+    "make_elem_idxs",
+    "make_molec",
+    "make_reference_molecs",
+    "make_neighbors",
+    "expand",
+    "ANITestCase",
+    "TestCase",
+]
 
 
 def make_molecs(
@@ -81,3 +109,133 @@ def make_water_box(
     coords = np.concatenate(coords_list, axis=0).astype(np.float32)[None]
     cell = np.eye(3, dtype=np.float32) * box
     return species, coords, cell
+
+
+class Molecs(tp.NamedTuple):
+    """A group of molecules: coordinates ``(C, A, 3)``, atomic numbers
+    ``(C, A)``, and the cell and pbc (None without a box)."""
+
+    coords: Tensor
+    atomic_nums: Tensor
+    cell: tp.Optional[Tensor]
+    pbc: tp.Optional[Tensor]
+
+
+def make_tensor(
+    shape, low: float = 0.0, high: float = 1.0, seed: int = 0, device: DeviceArg = None
+) -> Tensor:
+    """Uniform f32 tensor in ``[low, high)``."""
+    rng = np.random.RandomState(seed)
+    values = (rng.rand(*shape) * (high - low) + low).astype(np.float32)
+    return torch.as_tensor(values, device=resolve_device(device))
+
+
+def make_elem_idxs(
+    molecs_num: int,
+    atoms_num: int,
+    symbols: tp.Sequence[str] = ("H", "C", "N", "O"),
+    seed: tp.Optional[int] = None,
+    device: DeviceArg = None,
+) -> Tensor:
+    """Random element indices ``(C, A)`` into ``symbols`` (int64)."""
+    rng = np.random.RandomState(seed)
+    idxs = rng.randint(0, len(symbols), size=(molecs_num, atoms_num))
+    return torch.as_tensor(idxs.astype(np.int64), device=resolve_device(device))
+
+
+def make_molec(
+    atoms: int,
+    cell_size: float = 10.0,
+    pbc: bool = False,
+    symbols: tp.Sequence[str] = ("H", "C", "N", "O"),
+    seed: tp.Optional[int] = None,
+    device: DeviceArg = None,
+) -> Molecs:
+    """One random molecule as a `Molecs`."""
+    return make_reference_molecs(1, atoms, cell_size, pbc, symbols, seed, device)
+
+
+def make_reference_molecs(
+    molecs_num: int,
+    atoms_num: int,
+    cell_size: float = 10.0,
+    pbc: bool = False,
+    symbols: tp.Sequence[str] = ("H", "C", "N", "O"),
+    seed: tp.Optional[int] = None,
+    device: DeviceArg = None,
+) -> Molecs:
+    """Random molecules in a cube of ``cell_size`` A (uniform positions,
+    elements from ``symbols``); with ``pbc`` a cubic cell slightly larger
+    than the cube, periodic along every axis."""
+    dev = resolve_device(device)
+    rng = np.random.RandomState(seed)
+    coords = (rng.rand(molecs_num, atoms_num, 3) * cell_size + 1e-3).astype(np.float32)
+    kinds = np.asarray([ATOMIC_NUMBER[s] for s in symbols], dtype=np.int64)
+    nums = kinds[rng.randint(0, len(symbols), size=(molecs_num, atoms_num))]
+    cell = pbc_t = None
+    if pbc:
+        cell = torch.eye(3, dtype=torch.float32, device=dev) * (cell_size + 2e-3)
+        pbc_t = torch.ones(3, dtype=torch.bool, device=dev)
+    return Molecs(
+        torch.as_tensor(coords, device=dev), torch.as_tensor(nums, device=dev), cell, pbc_t
+    )
+
+
+def make_neighbors(
+    atoms: int,
+    cutoff: float = 5.2,
+    symbols: tp.Sequence[str] = ("H", "C", "N", "O"),
+    seed: tp.Optional[int] = None,
+    device: DeviceArg = None,
+):
+    """The neighbor table (`neighbors.adaptive_list`) of one random
+    molecule."""
+    from torchani_tpu_torch.neighbors import adaptive_list
+    from torchani_tpu_torch.nn import SpeciesConverter
+
+    molec = make_molec(atoms, 10.0, False, symbols, seed, device)
+    elem = SpeciesConverter(tuple(symbols))(molec.atomic_nums)
+    return adaptive_list(cutoff, elem, molec.coords)
+
+
+def expand(device: tp.Optional[str] = None):
+    """Class decorator multiplying an `ANITestCase` over the devices: one
+    subclass per device, named ``<Class>_<device>``, in the class's module;
+    ``cpu``, and ``cuda`` where a CUDA device is present (or only
+    ``device``).  The original class is skipped."""
+    if device is not None:
+        devices: tp.Tuple[str, ...] = (device,)
+    else:
+        devices = ("cpu", "cuda") if torch.cuda.is_available() else ("cpu",)
+
+    def decorator(cls):
+        module = sys.modules[cls.__module__]
+        for dev in devices:
+            name = f"{cls.__name__}_{dev}"
+            # not skipped: `unittest.skip` below marks the original class,
+            # whose attributes the subclasses would inherit
+            attrs = {"_device": dev, "__unittest_skip__": False}
+            setattr(module, name, type(name, (cls,), attrs))
+        return unittest.skip("expanded into per-device variants")(cls)
+
+    return decorator
+
+
+TestCase = unittest.TestCase
+
+
+class ANITestCase(unittest.TestCase):
+    """`unittest.TestCase` with a device axis (see `expand`): ``self.device``
+    is the variant's device, and ``self._setup(x)`` moves a module or a
+    tensor there."""
+
+    _device: str = "cpu"
+
+    @property
+    def device(self) -> torch.device:
+        return torch.device(self._device)
+
+    def _setup(self, x):
+        if isinstance(x, (torch.nn.Module, torch.Tensor)):
+            return x.to(self.device)
+        return x

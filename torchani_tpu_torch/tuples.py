@@ -10,6 +10,33 @@ class SpeciesEnergies(tp.NamedTuple):
     energies: Tensor
 
 
+class SpeciesAEV(tp.NamedTuple):
+    species: Tensor
+    aevs: Tensor
+
+
+class SpeciesCoordinates(tp.NamedTuple):
+    species: Tensor
+    coordinates: Tensor
+
+
+class SpeciesEnergiesQBC(tp.NamedTuple):
+    species: Tensor
+    energies: Tensor
+    qbcs: Tensor
+
+
+class SpeciesForces(tp.NamedTuple):
+    species: Tensor
+    energies: Tensor
+    forces: Tensor
+
+
+class EnergiesForces(tp.NamedTuple):
+    energies: Tensor
+    forces: Tensor
+
+
 class EnergiesScalars(tp.NamedTuple):
     energies: Tensor
     scalars: tp.Optional[Tensor] = None
@@ -49,3 +76,21 @@ class SpeciesAtomicCharges(tp.NamedTuple):
     # despite the class name
     energies: Tensor
     atomic_charges: Tensor
+
+
+class AtomicStdev(tp.NamedTuple):
+    species: Tensor
+    energies: Tensor
+    stdev_atomic_energies: Tensor
+
+
+class ForceStdev(tp.NamedTuple):
+    species: Tensor
+    magnitudes: Tensor
+    relative_stdev: Tensor
+    relative_range: Tensor
+
+
+class ForceMagnitudes(tp.NamedTuple):
+    species: Tensor
+    magnitudes: Tensor

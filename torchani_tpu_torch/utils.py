@@ -1,5 +1,6 @@
-"""Misc utilities: symbol tables, AEV constant construction, cell mapping,
-device resolution, and the host-side padding of property batches."""
+"""Misc utilities: symbol tables and converters, AEV constant construction,
+cell mapping, device resolution, the host-side padding of property batches,
+and the permutation gather whose backward is the inverse gather."""
 
 import math
 import typing as tp
@@ -25,6 +26,19 @@ __all__ = [
     "get_atomic_masses",
     "pad_atomic_properties",
     "strip_redundant_padding",
+    "cumsum_from_zero",
+    "species_to_formula",
+    "sort_by_atomic_num",
+    "ChemicalSymbolsToInts",
+    "AtomicNumbersToMasses",
+    "ChemicalSymbolsToAtomicNumbers",
+    "AtomicNumbersToChemicalSymbols",
+    "IntsToChemicalSymbols",
+    "atomic_numbers_to_masses",
+    "download_and_extract",
+    "perm_gather",
+    "nonzero_in_chunks",
+    "fast_masked_select",
 ]
 
 #: Elements used in the ANI-1x and ANI-1ccx models, in model order
@@ -72,6 +86,33 @@ def linspace(start: float, stop: float, steps: int) -> tp.Tuple[float, ...]:
     return tuple(start + ((stop - start) / steps) * j for j in range(steps))
 
 
+def cumsum_from_zero(x: Tensor, dim: int = 0) -> Tensor:
+    """Exclusive cumulative sum along ``dim`` (first element 0)."""
+    return torch.cumsum(x, dim=dim) - x
+
+
+def species_to_formula(species: np.ndarray) -> tp.List[str]:
+    """Chemical symbols ``(A,)`` or ``(C, A)`` (``""`` padding) -> one
+    formula per molecule, elements in alphabetical order."""
+    species = np.asarray(species)
+    if species.ndim == 1:
+        species = species[None]
+    elif species.ndim != 2:
+        raise ValueError("Species needs to have two dims/axes")
+    formulas = []
+    for row in species:
+        symbols, counts = np.unique(row[row != ""], return_counts=True)
+        formulas.append(
+            "".join(f"{s}{c}" if c > 1 else str(s) for s, c in zip(symbols, counts))
+        )
+    return formulas
+
+
+def sort_by_atomic_num(symbols: tp.Sequence[str]) -> Symbols:
+    """Chemical symbols sorted by atomic number."""
+    return tuple(sorted(symbols, key=lambda s: ATOMIC_NUMBER[s]))
+
+
 def symbols_to_atomic_numbers(symbols: tp.Sequence[str]) -> tp.Tuple[int, ...]:
     return tuple(ATOMIC_NUMBER[s] for s in symbols)
 
@@ -88,6 +129,133 @@ def get_atomic_masses(atomic_numbers: Tensor) -> Tensor:
         dtype=torch.float32, device=atomic_numbers.device,
     )
     return table[atomic_numbers.clamp(min=0)]
+
+
+class ChemicalSymbolsToInts:
+    """Chemical symbols -> 0-based model element indices (int64 numpy).
+
+    ``ChemicalSymbolsToInts(("H", "C"))(["C", "H", "H"])`` is ``[1, 0, 0]``.
+    """
+
+    def __init__(self, symbols: tp.Sequence[str]) -> None:
+        self._symbols = tuple(symbols)
+        self._map = {s: i for i, s in enumerate(self._symbols)}
+
+    def __call__(self, symbols: tp.Sequence[str]) -> np.ndarray:
+        return np.array([self._map[s] for s in symbols], dtype=np.int64)
+
+    def __len__(self) -> int:
+        return len(self._symbols)
+
+
+class AtomicNumbersToMasses:
+    """Atomic numbers -> masses (AMU) on their device; -1 padding maps to 0."""
+
+    def __call__(self, atomic_numbers: Tensor) -> Tensor:
+        return get_atomic_masses(atomic_numbers)
+
+
+class ChemicalSymbolsToAtomicNumbers:
+    """Chemical symbols -> atomic numbers (int64 numpy)."""
+
+    def __call__(self, symbols: tp.Sequence[str]) -> np.ndarray:
+        return np.array(symbols_to_atomic_numbers(symbols), dtype=np.int64)
+
+
+class AtomicNumbersToChemicalSymbols:
+    """Atomic numbers -> chemical symbols; -1 padding is dropped."""
+
+    def __call__(self, atomic_numbers) -> tp.List[str]:
+        return list(atomic_numbers_to_symbols(
+            [int(z) for z in _host(atomic_numbers).reshape(-1) if int(z) >= 0]
+        ))
+
+
+class IntsToChemicalSymbols:
+    """0-based model element indices -> chemical symbols; -1 padding is
+    dropped."""
+
+    def __init__(self, symbols: tp.Sequence[str]) -> None:
+        self._symbols = tuple(symbols)
+
+    def __call__(self, idxs) -> tp.List[str]:
+        return [self._symbols[int(i)] for i in _host(idxs).reshape(-1) if int(i) >= 0]
+
+
+def _host(x) -> np.ndarray:
+    if isinstance(x, torch.Tensor):
+        return x.detach().cpu().numpy()
+    return np.asarray(x)
+
+
+def atomic_numbers_to_masses(atomic_numbers: Tensor) -> Tensor:
+    """Alias of `get_atomic_masses`."""
+    return get_atomic_masses(atomic_numbers)
+
+
+def download_and_extract(*args: tp.Any, **kwargs: tp.Any) -> None:
+    """Unavailable: the package fetches nothing over the network.  Place the
+    files under the data root (`torchani_tpu_torch.paths.data_dir`)."""
+    raise RuntimeError(
+        "download_and_extract is unavailable: this package fetches nothing over the "
+        "network. Place the archive under the torchani_tpu_torch data root instead."
+    )
+
+
+def _perm_gather_rows(x: Tensor, fwd_idx: Tensor) -> Tensor:
+    n = x.shape[0]
+    out = x.index_select(0, fwd_idx.clamp(max=max(n - 1, 0)))
+    keep = (fwd_idx < n).reshape((-1,) + (1,) * (x.dim() - 1))
+    return torch.where(keep, out, torch.zeros((), dtype=x.dtype, device=x.device))
+
+
+class _PermGather(torch.autograd.Function):
+    """`perm_gather` as an autograd function: its backward is itself, with
+    the indices swapped, so every order of differentiation stays a gather."""
+
+    @staticmethod
+    def forward(ctx, x, fwd_idx, bwd_idx):
+        ctx.save_for_backward(fwd_idx, bwd_idx)
+        return _perm_gather_rows(x, fwd_idx)
+
+    @staticmethod
+    def backward(ctx, grad):
+        fwd_idx, bwd_idx = ctx.saved_tensors
+        return _PermGather.apply(grad, bwd_idx, fwd_idx), None, None
+
+
+def perm_gather(x: Tensor, fwd_idx: Tensor, bwd_idx: Tensor) -> Tensor:
+    """Sentinel-padded permutation row gather whose backward is the inverse
+    gather, at every order of differentiation.
+
+    ``out[j] = x[fwd_idx[j]]`` for in-range indices, 0 for sentinel indices
+    (``>= len(x)``).  ``bwd_idx`` must be the inverse on the real entries
+    (``fwd_idx[bwd_idx[i]] == i`` whenever ``bwd_idx[i]`` is in range),
+    with sentinels ``>= len(fwd_idx)`` for dropped rows; the backward is
+    then ``perm_gather(grad, bwd_idx, fwd_idx)``, a gather where a plain
+    row gather's backward would add with atomics.  The counterpart of the
+    JAX package's primitive of the same name.
+    """
+    return _PermGather.apply(x, fwd_idx, bwd_idx)
+
+
+def nonzero_in_chunks(x: Tensor, chunk_size: int = 2**31 - 1) -> Tensor:
+    """Flat indices of the nonzero elements of ``x``, found ``chunk_size``
+    elements at a time (``torch.nonzero`` takes at most 2^31 - 1)."""
+    flat = x.reshape(-1)
+    chunks = [
+        torch.nonzero(flat[start:start + chunk_size]).reshape(-1) + start
+        for start in range(0, flat.numel(), chunk_size)
+    ]
+    if not chunks:
+        return torch.zeros((0,), dtype=torch.int64, device=x.device)
+    return torch.cat(chunks)
+
+
+def fast_masked_select(x: Tensor, mask: Tensor, idx: int = 0) -> Tensor:
+    """``x`` at the nonzero entries of the flat ``mask`` along axis ``idx``
+    (an ``index_select``; the result's size waits for the device)."""
+    return x.index_select(idx, nonzero_in_chunks(mask))
 
 
 def map_to_central(coords: Tensor, cell: Tensor, pbc: Tensor) -> Tensor:
@@ -176,3 +344,11 @@ def strip_redundant_padding(
         if k in properties:
             properties[k] = np.asarray(properties[k])[:, non_padding, ...]
     return properties
+
+
+def __getattr__(name: str):
+    if name == "EnergyShifter":  # imported lazily: sae imports this module
+        from torchani_tpu_torch.sae import SelfEnergy
+
+        return SelfEnergy
+    raise AttributeError(f"module 'torchani_tpu_torch.utils' has no attribute {name!r}")
