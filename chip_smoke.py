@@ -89,10 +89,28 @@ the 90-atom cluster (all pairs), card against CPU; Lennard-Jones, its
 repulsive and dispersive halves, fixed Coulomb and MNOK alone on the cluster
 and on the box at 8 A, card against CPU, and `pair_curves`; and 10 NVE steps
 of ANI-2x + Lennard-Jones (8 A, TIP3P's O-O parameters) through
-`Assembler.add_potential`, the networks on a lane prefix.  Every number it
-prints was measured or computed in the run.  It prints a ``kernels`` JSON line (all
-nine kernels) and, last, ``{"ok": true, "device": {...}}``.  Any failed
-check raises, and the script exits non-zero without that last line; so does
+`Assembler.add_potential`, the networks on a lane prefix.  Then the data
+and training path (phases 41-45, `training_phases`): a Zarr store of three
+TestData-style groups read back, regrouped by atom count, checksummed;
+`create_batched_dataset` with angular-capacity buckets read back, self
+energies fitted by `exact_saes` and subtracted, ``cli data ls|info|pack|
+verify`` in process, and a force-training epoch over the batches from
+pinned memory through `make_bucketed_train_step` (K3, K3b, K3bb once a
+batch); the repo's training configuration (tools/training_benchmark.py:
+ANI-1x-width `simple_ani`, a batch of 2,560 molecules of up to 26 atoms)
+with the force loss and with energies only (ms per step, samples/s, exact
+launches, host syncs, peak memory, device busy share and K3/K3b/K3bb's
+time inside the step), `tune_angular_capacity`'s pick timed beside the full
+table, K3, K3b and K3bb against their plain versions at that batch's
+tables; the weight gradients and three losses card against CPU on 64
+conformers; the 8-member ANI-2x ensemble trained with the force loss;
+and `EpochRunner` over teacher-labelled chain molecules (the validation
+RMSE must fall below 0.8 of its start in 5 epochs; one read of the loss an
+epoch), a checkpoint at epoch 2 resumed in a fresh runner against 4
+uninterrupted epochs, and the checkpoint loaded onto the CPU.  Every number
+it prints was measured or computed in the run.  It prints a ``kernels`` JSON
+line (all nine kernels; K3, K3b and K3bb also at the training batch) and,
+last, ``{"ok": true, "device": {...}}``.  Any failed check raises, and the script exits non-zero without that last line; so does
 a machine with no CUDA device, or a directory without the package.  A few
 minutes of command time on an H100.
 """
@@ -104,6 +122,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import typing as tp
 import warnings
 
 import numpy as np
@@ -193,6 +212,32 @@ PAIR_CUTOFF, PAIR_TOL = 8.0, 1e-5
 WATER_CHARGES = (0.417, 0.0, 0.0, -0.834, 0.0, 0.0, 0.0)
 TIP3P_EPS_KCAL = (0.0, 0.1, 0.1, 0.1521, 0.1, 0.1, 0.1)
 TIP3P_SIGMA = (1.5, 1.5, 1.5, 3.1507, 1.5, 1.5, 1.5)
+
+#: training (phases 41-45).  The repo's training configuration
+#: (tools/training_benchmark.py:64-77): ANI-1x-width `simple_ani` over HCNO
+#: without repulsion or self energies, a batch of `make_molecs(2560, 26)`;
+#: AdamW at TRAIN_LR; TRAIN_WARMUP steps, then TRAIN_STEPS timed ones
+TRAIN_BATCH, TRAIN_ATOMS, TRAIN_LR, TRAIN_WARMUP, TRAIN_STEPS = 2560, 26, 1e-3, 2, 10
+#: card against CPU on the first TRAIN_CPU conformers: the weight gradients
+#: of one force step at the tolerance of tests/test_torch_grad.py:299
+#: (|k - c| <= 1e-5 max|c| + 1e-4 |c|), and the losses of 3 steps at
+#: TRAIN_LOSS_RTOL, at the rate of tests/test_torch_training.py (3e-4: at
+#: 1e-3 Adam's first step also moves the weights whose gradients are ~eps
+#: by ~lr, and f32 sums taken in another order move those gradients)
+TRAIN_CPU, GRAD_ATOL, GRAD_RTOL, TRAIN_LOSS_RTOL, CMP_LR = 64, 1e-5, 1e-4, 1e-5, 3e-4
+#: ANI-2x (8 members, 7 elements) force training: molecules, atoms, steps
+X2_TRAIN_MOLECS, X2_TRAIN_STEPS = 256, 5
+#: epochs: a student (seed 3) on the labels of a teacher (seed 99), as
+#: tests/test_learning.py builds them, from LEARN_MOLECS chain molecules of
+#: 10 atoms (ten times that test's 48: 5 epochs of its 5 batches of 32 move
+#: the validation RMSE by a seed-dependent amount), each 4 times with a
+#: 0.05 A perturbation, in batches of 32; the last 2 batches validate.  The
+#: RMSE must fall below LEARN_DROP of its start in LEARN_EPOCHS epochs at
+#: the rate of that test (3e-4).  The resumed run (2 epochs, a checkpoint,
+#: a fresh runner, 2 more) must end within RESUME_RTOL of an uninterrupted
+#: run's loss and RMSE: on the card the networks' backward sums atoms with
+#: atomics in a run-dependent order, so two uninterrupted runs differ too
+LEARN_MOLECS, LEARN_EPOCHS, LEARN_DROP, RESUME_RTOL = 480, 5, 0.8, 1e-3
 
 
 def check(ok: bool, what: str) -> None:
@@ -476,6 +521,440 @@ def random_angular_inputs(n: int, ka: int, s: int, seed: int):
         torch.as_tensor(mask, device=dev),
         torch.as_tensor(oh, device=dev),
     )
+
+
+def step_kernel_ms(fn, reps: int) -> tuple:
+    """``torch.profiler`` over ``reps`` calls of ``fn()`` (after one): device
+    ms per call of K3, K3b and K3bb inside it, and of every kernel."""
+    fn()
+    torch.cuda.synchronize()
+    activities = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    symbols = {"angular_aev": "angular_aev_kernel", "angular_aev_bwd": "angular_aev_bwd_kernel",
+               "angular_aev_bwd_bwd": "angular_aev_bwd_bwd_kernel"}
+    with torch.profiler.profile(activities=activities) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    per, total = {k: 0.0 for k in symbols}, 0.0
+    for e in prof.key_averages():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            total += e.self_device_time_total
+            for k, sym in symbols.items():
+                if sym in e.key:
+                    per[k] += e.self_device_time_total
+    return {k: v / reps / 1e3 for k, v in per.items()}, total / reps / 1e3
+
+
+def blocked(fn, n: int, block: int = 8192):
+    """``fn(sl)`` over row slices of ``n`` rows, concatenated (a plain
+    version whose grid would not fit at once)."""
+    outs = [fn(slice(i, min(i + block, n))) for i in range(0, n, block)]
+    if isinstance(outs[0], tuple):
+        return tuple(torch.cat(parts) for parts in zip(*outs))
+    return torch.cat(outs)
+
+
+def training_phases(card: str, kernels_fn: dict, reset_counts, read_counts) -> dict:
+    """Phases 41-45: the data and training path on the card.  Returns the
+    launches of each training path and K3, K3b and K3bb at the training
+    batch's tables."""
+    import pathlib
+
+    from torchani_tpu_torch import cli
+    from torchani_tpu_torch.aev.kernels import (
+        angular_aev,
+        angular_aev_bwd,
+        angular_aev_bwd_bwd,
+        angular_aev_bwd_bwd_reference,
+        angular_aev_bwd_reference,
+        angular_aev_reference,
+        angular_grid,
+        lane_species,
+    )
+    from torchani_tpu_torch.arch import simple_ani
+    from torchani_tpu_torch.datasets import (
+        ANIBatchedDataset,
+        ANIBatchedInMemoryDataset,
+        ANIDataset,
+        create_batched_dataset,
+    )
+    from torchani_tpu_torch.models import ANI2x
+    from torchani_tpu_torch.profiling import peak_gib, wall_times_ms
+    from torchani_tpu_torch.sae_estimation import exact_saes
+    from torchani_tpu_torch.testing import make_chain_molecs, make_molecs
+    from torchani_tpu_torch.training import (
+        EpochRunner,
+        adamw_with_plateau,
+        load_checkpoint,
+        make_bucketed_train_step,
+        make_train_step,
+        save_checkpoint,
+        tune_angular_capacity,
+    )
+    from torchani_tpu_torch.training.loop import energy_force_loss
+    from torchani_tpu_torch.transforms import AtomicNumbersToIndices, SubtractSAE
+
+    t_train = time.perf_counter()
+    dev = torch.device("cuda")
+    symbols = ("H", "C", "N", "O")
+    paths = {}  # launches of each training path
+    force_want = {k_: int(k_.startswith("angular")) for k_ in kernels_fn}
+    energy_want = {k_: int(k_ == "angular_aev") for k_ in kernels_fn}
+
+    def train_model(seed=0, device=None):
+        """The training configuration's model (tools/training_benchmark.py)."""
+        m = simple_ani(symbols, ensemble_size=1, repulsion=False, cutoff_fn="cosine",
+                       radial_start=0.9, radial_cutoff=5.2, angular_start=0.9, activation="celu",
+                       bias=True, seed=seed, device=device)
+        m.energy_shifter.enabled = False
+        return m
+
+    adamw = adamw_with_plateau(TRAIN_LR)[0]
+
+    # ---- 41. data: a Zarr store, ANIDataset, batching, SAEs, cli data ----
+    gsaes = np.array([-0.500607632585, -37.8302333826, -54.5680045287, -75.0362229210])
+    rng = np.random.RandomState(1234)
+    with tempfile.TemporaryDirectory() as tmp:
+        root = pathlib.Path(tmp)
+        loc = root / "data.zarr"
+        ds = ANIDataset(loc)
+        written = {}
+        for gi, max_atoms in enumerate((6, 9, 12)):  # TestData's three groups
+            sp_g, co_g = make_chain_molecs(64, max_atoms, seed=20 + gi)
+            counts = np.stack([(sp_g == z).sum(1) for z in (1, 6, 7, 8)], 1)
+            written[f"group{gi}"] = {
+                "species": sp_g, "coordinates": co_g,
+                "energies": counts @ gsaes + rng.randn(64) * 1e-3,
+                "forces": (rng.randn(64, max_atoms, 3) * 0.01 * (sp_g >= 0)[..., None]
+                           ).astype(np.float32),
+            }
+            ds.append_conformers(f"group{gi}", written[f"group{gi}"])
+        back = ANIDataset(loc)
+        same = back.keys() == sorted(written) and all(
+            np.array_equal(back[g][k_], v) and back[g][k_].dtype == v.dtype
+            for g, grp in written.items() for k_, v in grp.items())
+        check(same, "the Zarr store reads back what was written, dtypes included")
+        regrouped = ANIDataset(loc).to_backend(root / "by_atoms.zarr").regroup_by_num_atoms()
+        sizes = regrouped.group_sizes()
+        check(sum(sizes.values()) == 192
+              and all(int((regrouped[g]["species"] >= 0).sum(1).min()) == int(g) for g in sizes),
+              "regroup_by_num_atoms keeps every conformer, each group one atom count")
+        sums = ds.record_checksums()
+        check(ds.verify_checksums()["ok"] and len(sums) == len(ds.store.files()),
+              "md5 manifest recorded and verified")
+        dest = create_batched_dataset(ds, root / "batched", batch_size=32, rng_seed=7,
+                                      density_cutoff=3.5)
+        train_div = ANIBatchedDataset(dest, "training")
+        caps = [int(b["angular_capacity"]) for b in train_div]
+        check(sum(b["species"].shape[0] for b in train_div)
+              + sum(b["species"].shape[0] for b in ANIBatchedDataset(dest, "validation")) == 192
+              and caps == sorted(caps), "batched dataset: every conformer once, capacities sorted")
+        to_idx = AtomicNumbersToIndices(symbols)
+        saes, _ = exact_saes((to_idx(b) for b in train_div), 4)
+        subtract = SubtractSAE(symbols, saes)
+        shifted = ANIBatchedInMemoryDataset([subtract(b) for b in train_div])
+        residual = np.concatenate([b["energies"] for b in shifted])
+        print(f"data: {len(ds)} groups, {ds.num_conformers} conformers in a Zarr store; by atom "
+              f"count {sorted(sizes.items(), key=lambda kv: int(kv[0]))}; {len(train_div)} "
+              f"training batches at capacities {caps}; exact SAEs {np.round(saes, 6).tolist()} "
+              f"(largest error {np.abs(saes - gsaes).max():.2e} Ha); residual RMS after "
+              f"SubtractSAE {np.sqrt(np.mean(residual ** 2)):.3e} Ha")
+        check(np.abs(saes - gsaes).max() < 1e-2 and np.sqrt(np.mean(residual ** 2)) < 5e-3,
+              "exact_saes recovers the energies' self energies")
+        cli_out = {}
+        for argv in (["ls", str(loc)], ["info", str(loc)],
+                     ["pack", str(loc), str(root / "packed"), "--batch-size", "32"],
+                     ["verify", str(loc)]):
+            text = io_mod.StringIO()
+            with contextlib.redirect_stdout(text):
+                cli.main(["data"] + argv)
+            cli_out[argv[0]] = text.getvalue()
+        check(cli_out["ls"] == "".join(f"group{g}\t64\n" for g in range(3))
+              and json.loads(cli_out["info"])["conformers"] == 192
+              and "integrity ok" in cli_out["verify"]
+              and len(ANIBatchedDataset(root / "packed", "training")) > 0,
+              "cli data ls, info, pack and verify")
+
+        # force training over the packed batches: pinned host memory, each
+        # batch at its capacity
+        pinned = shifted.cache(pin_memory=True)
+        check(all(t.is_pinned() for b in pinned for t in b.values()), "cached batches are pinned")
+        init, step = make_bucketed_train_step(train_model(), adamw, force_training=True)
+        state = init()
+        reset_counts()
+        losses = []
+        for b in pinned:
+            state, m = step(state, b)
+            losses.append(m["loss"])
+        torch.cuda.synchronize()
+        paths["train_bucketed_epoch"] = read_counts()
+        nb = len(pinned)
+        check(paths["train_bucketed_epoch"] == {k_: nb * v for k_, v in force_want.items()}
+              and angular_grid.calls == 0 and all(bool(torch.isfinite(x)) for x in losses),
+              "bucketed force training: K3, K3b and K3bb once a batch, finite losses")
+        print(f"bucketed force epoch over {nb} pinned batches: launches "
+              f"{paths['train_bucketed_epoch']}; losses {[round(float(x), 6) for x in losses]}")
+
+    # ---- 42. force training at the repo's training width ----
+    sp_t, co_t = make_molecs(TRAIN_BATCH, TRAIN_ATOMS, seed=0)
+    host_batch = {
+        "species": sp_t, "coordinates": co_t,
+        "energies": np.random.RandomState(1).randn(TRAIN_BATCH).astype(np.float32),
+        "forces": np.zeros(co_t.shape, np.float32),
+    }
+    batch = {k_: torch.as_tensor(v, device=dev) for k_, v in host_batch.items()}
+    model = train_model()
+    rows, real = sp_t.size, int((sp_t >= 0).sum())
+    step_ms, syncs, peaks, busy = {}, {}, {}, {}
+    states = {}
+    for kind, force in (("force", True), ("energy", False)):
+        init, step = make_train_step(model, adamw, force_training=force)
+        state = init()
+        for _ in range(TRAIN_WARMUP):
+            state, m = step(state, batch)
+        torch.cuda.synchronize()
+        reset_counts()
+        state, m = step(state, batch)
+        torch.cuda.synchronize()
+        paths[f"train_{kind}_step"] = read_counts()
+        want = force_want if force else energy_want
+        check(paths[f"train_{kind}_step"] == want and angular_grid.calls == 0,
+              f"one {kind} step launches {'K3, K3b and K3bb' if force else 'K3 alone'} once")
+        check(bool(torch.isfinite(m["loss"])), f"{kind} step: finite loss")
+        _, syncs[kind] = count_syncs(lambda step=step, state=state: step(state, batch))
+        times = []
+        for _ in range(TRAIN_STEPS):
+            t0 = time.perf_counter()
+            state, m = step(state, batch)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        step_ms[kind] = times
+        peaks[kind] = peak_gib(lambda step=step, state=state: step(state, batch))
+        busy[kind] = step_kernel_ms(lambda step=step, state=state: step(state, batch), reps=3)
+        states[kind] = state
+        ms = float(np.median(times))
+        print(f"{card}: {kind} training step, batch {TRAIN_BATCH} x {TRAIN_ATOMS} ({real} atoms, "
+              f"{rows} rows): median {ms:.3f} ms (min {min(times):.3f}, max {max(times):.3f}, "
+              f"{TRAIN_STEPS} steps after {TRAIN_WARMUP}), {TRAIN_BATCH / ms * 1e3:,.0f} samples/s; "
+              f"launches {paths[f'train_{kind}_step']}; {syncs[kind]} host syncs a step; peak "
+              f"memory {peaks[kind]:.3f} GiB ({held_gib():.3f} held); device "
+              f"{busy[kind][1]:.3f} ms a step ({busy[kind][1] / ms:.1%} busy), of it K3 "
+              f"{busy[kind][0]['angular_aev']:.4f}, K3b {busy[kind][0]['angular_aev_bwd']:.4f}, "
+              f"K3bb {busy[kind][0]['angular_aev_bwd_bwd']:.4f} ms")
+
+    # K3, K3b and K3bb at the training batch's own tables
+    aevc = model.aev_computer
+    elem = model._convert(batch["species"])
+    nbrs = model.neighborlist(model.cutoff, elem, batch["coordinates"], None, None)
+    _, ang, overflow = aevc.flat_tables(elem, nbrs)
+    check(not bool(overflow), "the training batch's tables do not overflow")
+    t_in = aevc.angular_inputs(elem.reshape(-1), ang)
+    kw = aevc.kernel_kwargs()
+    n, ka = t_in[0].shape
+    sh, se = len(kw["shifts"]), len(kw["sections"])
+    t_species = lane_species(t_in[2], t_in[3])
+    t_out = angular_aev(*t_in, species=t_species, **kw)
+    torch.cuda.synchronize()
+
+    def rows_of(sl, *ts):
+        return tuple(t[sl] for t in ts)
+
+    k = {"K3": {}, "K3b": {}, "K3bb": {}}
+    k["K3"]["err"] = kernel_errors(
+        t_out, blocked(lambda sl: angular_aev_reference(*rows_of(sl, *t_in), **kw), n),
+        "K3 training batch vs plain")
+    gen = torch.Generator(dev).manual_seed(15)
+    g = torch.randn(t_out.shape, device=dev, generator=gen)
+    u = (torch.randn(t_in[0].shape, device=dev, generator=gen),
+         torch.randn(t_in[1].shape, device=dev, generator=gen))
+    block = aevc._atom_block(ka)
+    k["K3b"]["err"] = bwd_errors(
+        angular_aev_bwd(g, *t_in, t_species, **kw),
+        angular_aev_bwd_reference(g, *t_in, atom_block=block, **kw), t_in[2],
+        "K3b training batch vs plain")
+    k["K3bb"]["err"] = bwd_bwd_errors(
+        angular_aev_bwd_bwd(g, *t_in, *u, t_species, **kw),
+        angular_aev_bwd_bwd_reference(g, *t_in, *u, atom_block=max(1, block // 4), **kw),
+        t_in[2], "K3bb training batch vs plain")
+    lanes = t_in[2].sum(1).to(torch.float64)
+    pairs, valid = float((lanes * (lanes - 1) / 2).sum()), float(lanes.sum())
+    lane_bytes = sum(t.numel() * t.element_size() for t in (t_in[0], t_in[1], t_species))
+    b3b = k3b_bytes(t_in, t_species, kw["num_species"], sh * se)
+    k["K3"].update(
+        ms=kernels_ms(lambda: angular_aev(*t_in, species=t_species, **kw), reps=20),
+        plain=kernels_ms(lambda: blocked(
+            lambda sl: angular_aev_reference(*rows_of(sl, *t_in), **kw), n), reps=1),
+        bound=angular_bound_ms(pairs, valid, sh, se, lane_bytes + t_out.numel() * 4, False))
+    k["K3b"].update(
+        ms=kernels_ms(lambda: angular_aev_bwd(g, *t_in, t_species, **kw), reps=20),
+        plain=kernels_ms(lambda: angular_aev_bwd_reference(
+            g, *t_in, atom_block=block, **kw), reps=1),
+        bound=angular_bound_ms(pairs, valid, sh, se, b3b, True),
+        grid=k3b_launch_shape("K3b at the training batch", t_in, kw))
+    k["K3bb"].update(
+        ms=kernels_ms(lambda: angular_aev_bwd_bwd(g, *t_in, *u, t_species, **kw), reps=20),
+        plain=kernels_ms(lambda: angular_aev_bwd_bwd_reference(
+            g, *t_in, *u, atom_block=max(1, block // 4), **kw), reps=1),
+        bound=k3bb_bound_ms(pairs, valid, sh, se,
+                            b3b + sum(t.numel() * 4 for t in u) + t_out.numel() * 4),
+        grid=k3b_launch_shape("K3bb at the training batch", t_in, kw, second_order=True))
+    k["K3"]["in_step"] = busy["force"][0]["angular_aev"]
+    k["K3b"]["in_step"] = busy["force"][0]["angular_aev_bwd"]
+    k["K3bb"]["in_step"] = busy["force"][0]["angular_aev_bwd_bwd"]
+    for name, v in k.items():
+        print(f"{card}: {name} at the training batch (N={n}, Ka={ka}, {sh} x {se}, "
+              f"{pairs:.0f} valid pairs): {v['ms']:.4f} ms alone, {v['in_step']:.4f} ms in the "
+              f"force step; plain {v['plain']:.3f} ms; bound {v['bound'][0]:.4f} ms by "
+              f"{v['bound'][1]} ({v['bound'][2] / 1e6:.1f} MB)")
+    del nbrs, ang, t_in, t_out, g, u, t_species, lanes
+    tuned = tune_angular_capacity(model, [host_batch])
+    cap = tuned.aev_computer.angular_capacity
+    init, step = make_train_step(tuned, adamw, force_training=True)
+    state = init()
+    for _ in range(TRAIN_WARMUP):
+        state, _ = step(state, batch)
+    tuned_ms = wall_times_ms(lambda: step(state, batch), reps=TRAIN_STEPS)
+    print(f"{card}: tune_angular_capacity picks {cap} (the table holds {ka} lanes): "
+          f"force step {np.median(tuned_ms):.3f} ms against {np.median(step_ms['force']):.3f} at "
+          f"the full table")
+    del states, state, tuned
+
+    # ---- 43. card against CPU on the first conformers ----
+    small = {k_: v[:TRAIN_CPU] for k_, v in host_batch.items()}
+    cmp_models = {"cuda": train_model(), "cpu": train_model(device="cpu")}
+    grads_by = {}
+    for where, m in cmp_models.items():
+        params = list(m.neural_networks.parameters())
+        loss = energy_force_loss(m, small["species"], small["coordinates"], small["energies"],
+                                 small["forces"])
+        grads_by[where] = [x.detach().cpu() for x in torch.autograd.grad(loss, params)]
+    grad_err = max(float(((a - b).abs() / (b.abs().max() + 1e-12)).max())
+                   for a, b in zip(grads_by["cuda"], grads_by["cpu"]))
+    check(all(bool(((a - b).abs() <= GRAD_ATOL * b.abs().max() + GRAD_RTOL * b.abs()).all())
+              for a, b in zip(grads_by["cuda"], grads_by["cpu"])),
+          "force-step weight gradients: card against CPU")
+    cmp_losses = {}
+    for where, m in cmp_models.items():
+        init, step = make_train_step(m, adamw_with_plateau(CMP_LR)[0], force_training=True)
+        state, out = init(), []
+        for _ in range(3):
+            state, met = step(state, small)
+            out.append(float(met["loss"]))
+        cmp_losses[where] = out
+    loss_gap = max(abs(a / b - 1) for a, b in zip(cmp_losses["cuda"], cmp_losses["cpu"]))
+    print(f"training card vs CPU, {TRAIN_CPU} conformers: weight gradients max |dg| / max|g| "
+          f"{grad_err:.3e}; losses of 3 steps {cmp_losses['cuda']} vs {cmp_losses['cpu']} "
+          f"(largest relative gap {loss_gap:.3e})")
+    check(loss_gap <= TRAIN_LOSS_RTOL, "3 training steps: card losses against the CPU's")
+    del cmp_models, grads_by
+
+    # ---- 44. ANI-2x at full width: the 8-member ensemble with the force loss ----
+    x2 = ANI2x(seed=0)
+    x2.energy_shifter.enabled = False
+    sp2, co2 = make_molecs(X2_TRAIN_MOLECS, TRAIN_ATOMS, seed=2, znums=(1, 6, 7, 8, 9, 16, 17))
+    x2_batch = {
+        "species": torch.as_tensor(sp2, device=dev), "coordinates": torch.as_tensor(co2, device=dev),
+        "energies": torch.as_tensor(np.random.RandomState(3).randn(X2_TRAIN_MOLECS)
+                                    .astype(np.float32) * 0.01, device=dev),
+        "forces": torch.zeros(co2.shape, device=dev),
+    }
+    init, step = make_train_step(x2, adamw, force_training=True)
+    state = init()
+    state, m = step(state, x2_batch)
+    torch.cuda.synchronize()
+    reset_counts()
+    state, m = step(state, x2_batch)
+    torch.cuda.synchronize()
+    paths["ani2x_force_step"] = read_counts()
+    check(paths["ani2x_force_step"] == force_want and bool(torch.isfinite(m["loss"])),
+          "ANI-2x force step: K3, K3b and K3bb once each, finite loss")
+    x2_ms = wall_times_ms(lambda: step(state, x2_batch), reps=X2_TRAIN_STEPS)
+    x2_peak = peak_gib(lambda: step(state, x2_batch))
+    print(f"{card}: ANI-2x (8 members) force training, {X2_TRAIN_MOLECS} x {TRAIN_ATOMS} "
+          f"({int((sp2 >= 0).sum())} atoms, 7 elements): median {np.median(x2_ms):.3f} ms a step "
+          f"({X2_TRAIN_MOLECS / np.median(x2_ms) * 1e3:,.0f} samples/s; min {min(x2_ms):.3f}, max "
+          f"{max(x2_ms):.3f}); launches {paths['ani2x_force_step']}; peak memory {x2_peak:.3f} GiB")
+    del x2, state, x2_batch
+
+    # ---- 45. epochs: a student on a teacher's labels, checkpoint and resume ----
+    teacher = simple_ani(symbols, seed=99)
+    teacher.energy_shifter.enabled = False
+    base_sp, base_co = make_chain_molecs(LEARN_MOLECS, 10, seed=11)
+    l_sp = np.repeat(base_sp, 4, axis=0)
+    l_co = np.repeat(base_co, 4, axis=0) + (
+        np.random.RandomState(5).randn(4 * LEARN_MOLECS, 10, 3).astype(np.float32) * 0.05)
+    with torch.no_grad():
+        l_e = teacher(l_sp, l_co).cpu().numpy()
+    l_batches = [{"species": l_sp[i:i + 32].astype(np.int32), "coordinates": l_co[i:i + 32],
+                  "energies": l_e[i:i + 32]} for i in range(0, l_sp.shape[0], 32)]
+    l_train, l_val = l_batches[:-2], l_batches[-2:]
+
+    def student(device=None):
+        s_ = simple_ani(symbols, ensemble_size=1, seed=3, device=device)
+        s_.energy_shifter.enabled = False
+        return s_
+
+    optimizer, plateau = adamw_with_plateau(3e-4)
+    runner = EpochRunner(student(), optimizer)
+    state = runner.init()
+    rmses = [runner.validate(state, l_val)]
+    epoch_s = []
+    for ep in range(LEARN_EPOCHS):
+        fetched = runner.fetches
+        t0 = time.perf_counter()
+        if ep == 0:
+            reset_counts()
+        state, met = runner.epoch(state, l_train)
+        if ep == 0:
+            torch.cuda.synchronize()
+            paths["train_epoch"] = read_counts()
+        epoch_s.append(time.perf_counter() - t0)
+        check(runner.fetches - fetched == 1 and np.isfinite(met["loss"]),
+              "an epoch reads its loss from the card once")
+        rmses.append(runner.validate(state, l_val))
+        plateau.update(rmses[-1], state.opt_state)
+    check(paths["train_epoch"] == {k_: len(l_train) * v for k_, v in energy_want.items()},
+          "an energy epoch launches K3 once a step, nothing else")
+    _, epoch_syncs = count_syncs(lambda: runner.epoch(state, l_train[:10]))
+    print(f"{card}: {LEARN_EPOCHS} epochs of {len(l_train)} steps (32 conformers of <= 10 atoms): "
+          f"{np.median(epoch_s):.3f} s an epoch (median); validation RMSE {rmses} Ha; one fetch "
+          f"of the loss an epoch; {epoch_syncs / 10:.1f} host syncs a step (the model's)")
+    check(rmses[-1] < LEARN_DROP * rmses[0], "the student's validation RMSE falls below 0.8 of "
+          "its start")
+
+    def run(interrupt: bool, tmp: tp.Optional[pathlib.Path]):
+        opt, plat = adamw_with_plateau(1e-3)
+        plat.patience = 1
+        r = EpochRunner(student(), opt)
+        st = r.init()
+        for _ in range(2):
+            st, _ = r.epoch(st, l_train)
+            plat.update(r.validate(st, l_val), st.opt_state)
+        if interrupt:
+            save_checkpoint(tmp, (st, plat.lr, plat.best, plat.bad_epochs), 2)
+            on_cpu = load_checkpoint(tmp, (EpochRunner(student("cpu"), opt).init(), 0.0, 0.0, 0))
+            check(all(torch.equal(a.cpu(), b) for a, b in zip(
+                st.networks.parameters(), on_cpu[0].networks.parameters()))
+                and on_cpu[0].step == st.step, "a card checkpoint loads onto the CPU bit for bit")
+            opt, plat = adamw_with_plateau(1e-3)
+            plat.patience = 1
+            r = EpochRunner(student(), opt)
+            st, plat.lr, plat.best, plat.bad_epochs = load_checkpoint(tmp, (r.init(), 0.0, 0.0, 0))
+        for _ in range(2):
+            st, met_ = r.epoch(st, l_train)
+            plat.update(r.validate(st, l_val), st.opt_state)
+        return met_["loss"], r.validate(st, l_val)
+
+    with tempfile.TemporaryDirectory() as tmp:
+        first, second = run(False, None), run(False, None)
+        resumed = run(True, pathlib.Path(tmp) / "ck")
+    gap_runs = max(abs(a / b - 1) for a, b in zip(second, first))
+    gap_resume = max(abs(a / b - 1) for a, b in zip(resumed, first))
+    print(f"resume: loss and RMSE after 4 epochs {first}; two uninterrupted runs differ by "
+          f"{gap_runs:.3e} (relative), the resumed run by {gap_resume:.3e}")
+    check(gap_resume <= RESUME_RTOL, "2 epochs + checkpoint + 2 epochs match 4 epochs")
+    print(f"new phases (data and training): {time.perf_counter() - t_train:.1f} s of wall time")
+    return {"launches": paths, "kernels": k, "step_ms": step_ms}
 
 
 def main() -> int:
@@ -2781,6 +3260,10 @@ def main() -> int:
     print(f"new phases (element indices to the neighbor helpers): "
           f"{time.perf_counter() - t_slice:.1f} s of wall time")
 
+    # ---- 41-45. data and training (`training_phases`) ----
+    torch.cuda.empty_cache()
+    train = training_phases(card, kernels_fn, reset_counts, read_counts)
+
     def entry(name, source, replaces, err, ms, plain, bound, by, library):
         return {
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
@@ -2798,6 +3281,7 @@ def main() -> int:
                 **{k_: v[name] for k_, v in tools.items()},
                 **{k_: v[name] for k_, v in zoo.items()},
                 **{k_: v[name] for k_, v in slice14.items()},
+                **{k_: v[name] for k_, v in train["launches"].items()},
             },
             "max_abs_err": err, "ms": ms, "plain_ms": plain, "bound_ms": bound,
             "bound_by": by, "library_ms": library,
@@ -2877,6 +3361,17 @@ def main() -> int:
          "split": k5_shape["split"], "threads": k5_shape["threads"],
          "bound_every_lane_ms": k5bb_all[0]},
     ]
+    # K3, K3b and K3bb at the training batch's tables (phase 42)
+    for short, name in (("K3", "angular_aev"), ("K3b", "angular_aev_bwd"),
+                        ("K3bb", "angular_aev_bwd_bwd")):
+        t_k = train["kernels"][short]
+        next(k_ for k_ in kernels if k_["name"] == name)["at_training"] = {
+            "max_abs_err": t_k["err"], "ms": t_k["ms"], "in_step_ms": t_k["in_step"],
+            "plain_ms": t_k["plain"], "bound_ms": t_k["bound"][0], "bound_by": t_k["bound"][1],
+            **({"grid": t_k["grid"]} if "grid" in t_k else {}),
+            "launches_force_step": train["launches"]["train_force_step"][name],
+            "launches_energy_step": train["launches"]["train_energy_step"][name],
+        }
     for p_, name in ((1, "vals_select_fwd"), (1, "vals_select_bwd")):
         side = "f" if name.endswith("fwd") else "b"
         next(k_ for k_ in kernels if k_["name"] == name)["at_p1"] = {

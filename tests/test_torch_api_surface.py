@@ -16,13 +16,7 @@ from test_api_parity import REFERENCE_SURFACE
 #: the names of REFERENCE_SURFACE the port does not have yet, by module
 #: (a module that the port lacks altogether lists all of its names)
 MISSING = {
-    "cli": "data_ls data_info data_pack data_rm data_clean data_pull",
     "neurochem": REFERENCE_SURFACE["neurochem"],
-    "sae_estimation": REFERENCE_SURFACE["sae_estimation"],
-    "transforms": REFERENCE_SURFACE["transforms"],
-    "utils": "merge_state_dicts",
-    "datasets": REFERENCE_SURFACE["datasets"],
-    "datasets.filters": REFERENCE_SURFACE["datasets.filters"],
     "legacy_data": REFERENCE_SURFACE["legacy_data"],
 }
 

@@ -32,6 +32,7 @@ from torchani_tpu_torch.potentials import (
 )
 from torchani_tpu_torch.sae import SelfEnergy
 from torchani_tpu_torch.testing import make_elem_idxs, make_molec, make_neighbors, make_tensor
+from torchani_tpu_torch.transforms import SubtractRepulsionXTB, SubtractSAE
 from torchani_tpu_torch.utils import resolve_device
 
 REPO = pathlib.Path(__file__).resolve().parent.parent
@@ -58,6 +59,10 @@ def test_new_modules_are_covered():
         "electro.py", "nn/shared.py", "potentials/nnp_charges.py", "potentials/lj.py",
         "potentials/fixed_coulomb.py", "potentials/utils.py", "nn/core.py", "nn/partition.py",
         "testing.py", "tuples.py", "utils.py", "cutoffs.py", "aev/terms.py", "neighbors.py",
+        "datasets/__init__.py", "datasets/backends.py", "datasets/anidataset.py",
+        "datasets/batching.py", "datasets/builtin.py", "datasets/filters.py",
+        "transforms.py", "sae_estimation.py", "training/__init__.py", "training/loop.py",
+        "training/checkpoints.py", "training/metrics.py", "training/schedules.py",
     ):
         assert f"torchani_tpu_torch/{module}" in names
 
@@ -107,6 +112,23 @@ def test_no_jax_imports(path):
     for name in _imported_modules(path):
         root = name.split(".")[0]
         assert root not in FORBIDDEN, f"{path.name} imports {name}"
+
+
+def test_data_and_training_load_no_jax():
+    """Importing the data and training stacks (in a fresh interpreter) loads
+    neither JAX nor any module of the JAX package."""
+    import subprocess
+    import sys
+
+    code = (
+        "import sys; import torchani_tpu_torch.datasets, torchani_tpu_torch.training, "
+        "torchani_tpu_torch.transforms, torchani_tpu_torch.sae_estimation, torchani_tpu_torch.cli; "
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+        "('jax', 'jaxlib', 'flax', 'optax', 'torchani_tpu')); print(bad)"
+    )
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
+                         text=True, check=True).stdout
+    assert out.strip() == "[]"
 
 
 @pytest.fixture
@@ -161,6 +183,8 @@ def no_cuda(monkeypatch):
         lambda: make_elem_idxs(1, 2),
         lambda: make_molec(3),
         lambda: make_neighbors(3),
+        lambda: SubtractSAE(("H",), [0.5]),
+        lambda: SubtractRepulsionXTB(("H", "O")),
     ],
     ids=[
         "ANI2x", "ANI2x-cuda", "ANI2dr", "ANI2xr", "ANI1x", "ANI1ccx", "simple_ani", "RepulsionXTB", "RepulsionZBL",
@@ -171,7 +195,8 @@ def no_cuda(monkeypatch):
         "ANIr2s_water", "SnnANI2xr", "simple_aniq", "simple_ani-shared", "SingleNN",
         "ANISharedNetworks", "ChargeNormalizer", "DipoleComputer", "LennardJones",
         "FixedCoulomb", "FixedMNOK", "Radial", "AtomicNetwork", "AtomicEmbedding",
-        "make_tensor", "make_elem_idxs", "make_molec", "make_neighbors",
+        "make_tensor", "make_elem_idxs", "make_molec", "make_neighbors", "SubtractSAE",
+        "SubtractRepulsionXTB",
     ],
 )
 def test_default_device_raises_without_cuda(no_cuda, entry):

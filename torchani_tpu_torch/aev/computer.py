@@ -212,6 +212,11 @@ class AEVComputer(torch.nn.Module):
             repacked table (see `_angular_split_plain`); `MolecularDynamics`
             measures and sets it on its own copy, as the JAX package's does.
             The kernel path ignores it
+        angular_capacity: lanes of the angular table: a table wider than
+            this is repacked to it, and a row with more angular neighbors
+            poisons the AEVs with NaN (the JAX package's field; training
+            sets it per batch).  None derives it from the radial table's
+            capacity (`_angular_capacity`)
     """
 
     def __init__(
@@ -224,6 +229,7 @@ class AEVComputer(torch.nn.Module):
         atom_block: tp.Optional[int] = None,
         angular_preslice: tp.Optional[int] = None,
         angular_split: tp.Optional[tp.Tuple[int, ...]] = None,
+        angular_capacity: tp.Optional[int] = None,
     ) -> None:
         super().__init__()
         if not angular.cutoff_fn.is_same(radial.cutoff_fn):
@@ -245,6 +251,7 @@ class AEVComputer(torch.nn.Module):
         self.angular_split = (
             None if angular_split is None else tuple(int(x) for x in angular_split)
         )
+        self.angular_capacity = None if angular_capacity is None else int(angular_capacity)
         self._kernel_kwargs: tp.Optional[tp.Dict[str, tp.Any]] = None
         self._kernel_kwargs_key: tp.Optional[tp.Tuple] = None
 
@@ -346,7 +353,7 @@ class AEVComputer(torch.nn.Module):
         atoms (``N = C * A``, neighbor indices offset per molecule), and the
         overflow flag of both.  The angular table is cut to
         ``angular_preslice`` lanes (if set), narrowed to the angular cutoff
-        and, for large tables, repacked to `_angular_capacity`."""
+        and, if wider than `_angular_capacity`, repacked to it."""
         c, a = elem_idxs.shape
         radial_nbrs = narrow_to_cutoff(neighbors, self.radial.cutoff)
         angular_src = neighbors
@@ -422,9 +429,12 @@ class AEVComputer(torch.nn.Module):
         )
 
     def _angular_capacity(self, radial_capacity: int) -> int:
-        """The JAX package's angular repack capacity: small tables keep
-        their capacity; large ones shrink to a liquid-density estimate at
-        the angular cutoff (15% margin, multiple of 4, at least 24)."""
+        """The JAX package's angular repack capacity: ``angular_capacity``
+        if set; else small tables keep their capacity and large ones shrink
+        to a liquid-density estimate at the angular cutoff (15% margin,
+        multiple of 4, at least 24)."""
+        if self.angular_capacity is not None:
+            return self.angular_capacity
         if radial_capacity <= 40:
             return radial_capacity
         est = int(math.ceil(4.0 / 3.0 * math.pi * self.angular.cutoff**3 * 0.12 * 1.15))

@@ -2,9 +2,11 @@
 ``torchani_tpu/cli.py``): ``sp`` single points from an xyz file with JSON
 output, ``md`` molecular dynamics (NVE, Langevin, Nose-Hoover, Berendsen NPT,
 RESPA multiple-timestep; trajectories through `MolecularDynamics.trajectory`)
-and ``opt`` FIRE geometry optimization, one conformer or a batch.  The same
-option names and printed lines as the JAX package's, and ``--device``
-(default ``cuda``).  The dataset subcommands are not part of the port yet.
+and ``opt`` FIRE geometry optimization, one conformer or a batch; ``data
+ls|info|convert|rm|clean|verify|pack`` dataset management (host-side, over
+`torchani_tpu_torch.datasets`).  The same option names and printed lines as
+the JAX package's, and ``--device`` (default ``cuda``) for the model
+commands.
 
 Run as ``ani-tpu-torch ...`` or ``python -m torchani_tpu_torch ...``.
 """
@@ -17,7 +19,10 @@ import typing as tp
 import numpy as np
 import torch
 
-__all__ = ["main", "sp", "opt"]
+__all__ = [
+    "main", "sp", "opt", "data_ls", "data_info", "data_pack", "data_rm", "data_clean",
+    "data_pull",
+]
 
 
 def _build_model(name: str, ensemble_member: tp.Optional[int], device: str):
@@ -204,6 +209,98 @@ def cmd_opt(args) -> None:
         write_xyz(species, out_coords, args.output, cell=cell)
 
 
+def cmd_data_ls(args) -> None:
+    from torchani_tpu_torch.datasets import ANIDataset
+
+    ds = ANIDataset(args.location)
+    for name, size in sorted(ds.group_sizes().items()):
+        print(f"{name}\t{size}")
+
+
+def cmd_data_info(args) -> None:
+    from torchani_tpu_torch.datasets import ANIDataset
+
+    ds = ANIDataset(args.location)
+    info = {
+        "groups": len(ds),
+        "conformers": ds.num_conformers,
+        "properties": sorted(ds.properties),
+        "metadata": ds.store.get_metadata(),
+    }
+    print(json.dumps(info, indent=1))
+
+
+def cmd_data_convert(args) -> None:
+    from torchani_tpu_torch.datasets import ANIDataset
+
+    ANIDataset(args.location).to_backend(args.dest)
+    print(f"wrote {args.dest}")
+
+
+def cmd_data_rm(args) -> None:
+    from torchani_tpu_torch.datasets import ANIDataset
+
+    ds = ANIDataset(args.location)
+    for name in args.groups:
+        if name not in ds:
+            raise SystemExit(f"error: no group named {name!r} in {args.location}")
+        ds.delete_conformers(name)
+        print(f"deleted group {name}")
+
+
+def cmd_data_clean(args) -> None:
+    """Drop conformers with non-finite floating values; refresh a recorded
+    md5 manifest after any removal."""
+    from torchani_tpu_torch.datasets import ANIDataset
+
+    ds = ANIDataset(args.location)
+    total = 0
+    for name in list(ds.keys()):
+        group = ds.get_conformers(name)
+        n = next(iter(group.values())).shape[0]
+        bad = np.zeros(n, dtype=bool)
+        for arr in group.values():
+            if np.issubdtype(arr.dtype, np.floating):
+                bad |= ~np.isfinite(arr.reshape(n, -1)).all(axis=1)
+        if bad.any():
+            total += int(bad.sum())
+            ds.delete_conformers(name, np.nonzero(bad)[0])
+            print(f"{name}: removed {int(bad.sum())}/{n}")
+    print(f"removed {total} non-finite conformers")
+    if total and ds.verify_checksums()["recorded"]:
+        ds.record_checksums()
+        print("refreshed md5 manifest")
+
+
+def cmd_data_verify(args) -> None:
+    """Record (``--record``) or verify the md5 manifest of a local dataset."""
+    from torchani_tpu_torch.datasets import ANIDataset
+
+    ds = ANIDataset(args.location)
+    if args.record:
+        sums = ds.record_checksums()
+        print(f"recorded md5 manifest for {len(sums)} file(s)")
+        return
+    report = ds.verify_checksums()
+    if not report["recorded"]:
+        raise SystemExit("error: no md5 manifest recorded; run with --record first")
+    for kind in ("missing", "mismatched", "untracked"):
+        for f in report[kind]:
+            print(f"{kind}: {f}")
+    if not report["ok"]:
+        raise SystemExit("error: integrity check FAILED")
+    print("integrity ok")
+
+
+def cmd_data_pack(args) -> None:
+    from torchani_tpu_torch.datasets import create_batched_dataset
+
+    dest = create_batched_dataset(
+        args.location, args.dest, batch_size=args.batch_size, rng_seed=args.seed
+    )
+    print(f"wrote batched dataset to {dest}")
+
+
 # ---- programmatic command functions (the reference's ``cli`` names) ----
 
 
@@ -251,6 +348,35 @@ def opt(
             steps=steps, fmax=fmax, output=None if output_path is None else str(output_path),
             device=device,
         ))
+
+
+def data_ls(location) -> None:
+    """List a dataset's groups and their sizes, as ``data ls``."""
+    cmd_data_ls(argparse.Namespace(location=str(location)))
+
+
+def data_info(location) -> None:
+    cmd_data_info(argparse.Namespace(location=str(location)))
+
+
+def data_pack(location, dest, batch_size: int = 2560, seed: int = 1234) -> None:
+    cmd_data_pack(argparse.Namespace(
+        location=str(location), dest=str(dest), batch_size=batch_size, seed=seed
+    ))
+
+
+def data_rm(location, groups: tp.Sequence[str]) -> None:
+    cmd_data_rm(argparse.Namespace(location=str(location), groups=list(groups)))
+
+
+def data_clean(location) -> None:
+    cmd_data_clean(argparse.Namespace(location=str(location)))
+
+
+def data_pull(*args, **kwargs) -> None:
+    """Unavailable: the package downloads nothing.  Place dataset files
+    locally and use the other data commands."""
+    raise RuntimeError("data_pull is unavailable: this package downloads nothing")
 
 
 def main(argv: tp.Optional[tp.Sequence[str]] = None) -> None:
@@ -310,6 +436,36 @@ def main(argv: tp.Optional[tp.Sequence[str]] = None) -> None:
     p.add_argument("--fmax", type=float, default=0.02)
     p.add_argument("-o", "--output", default=None)
     p.set_defaults(fn=cmd_opt)
+
+    data = sub.add_parser("data", help="dataset management")
+    dsub = data.add_subparsers(dest="data_command", required=True)
+    p = dsub.add_parser("ls", help="list groups and sizes")
+    p.add_argument("location")
+    p.set_defaults(fn=cmd_data_ls)
+    p = dsub.add_parser("info", help="dataset summary as JSON")
+    p.add_argument("location")
+    p.set_defaults(fn=cmd_data_info)
+    p = dsub.add_parser("convert", help="convert between storage backends")
+    p.add_argument("location")
+    p.add_argument("dest")
+    p.set_defaults(fn=cmd_data_convert)
+    p = dsub.add_parser("rm", help="delete conformer groups")
+    p.add_argument("location")
+    p.add_argument("groups", nargs="+")
+    p.set_defaults(fn=cmd_data_rm)
+    p = dsub.add_parser("clean", help="remove conformers with non-finite values")
+    p.add_argument("location")
+    p.set_defaults(fn=cmd_data_clean)
+    p = dsub.add_parser("verify", help="record/verify an md5 integrity manifest")
+    p.add_argument("location")
+    p.add_argument("--record", action="store_true", help="(re)write the manifest")
+    p.set_defaults(fn=cmd_data_verify)
+    p = dsub.add_parser("pack", help="create a batched dataset")
+    p.add_argument("location")
+    p.add_argument("dest")
+    p.add_argument("--batch-size", type=int, default=2560)
+    p.add_argument("--seed", type=int, default=1234)
+    p.set_defaults(fn=cmd_data_pack)
 
     args = parser.parse_args(argv)
     args.fn(args)

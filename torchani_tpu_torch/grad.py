@@ -40,6 +40,7 @@ __all__ = [
     "forces_and_hessians",
     "energies_forces_and_hessians",
     "forces_for_training",
+    "energies_and_forces_for_training",
     "hessian_rows",
     "hessians",
     "members_energies_and_forces",
@@ -91,14 +92,23 @@ def grads(model, species, coords, cell=None, pbc=None, **kwargs) -> Tensor:
     return -forces(model, species, coords, cell, pbc, **kwargs)
 
 
-def forces_for_training(model, species, coords, cell=None, pbc=None) -> Tensor:
-    """Forces whose graph is kept (``create_graph=True``), so that a loss on
-    them has gradients with respect to the model's weights; through the
-    kernel strategy that second backward launches K3bb."""
+def energies_and_forces_for_training(
+    model, species, coords, cell=None, pbc=None
+) -> tp.Tuple[Tensor, Tensor]:
+    """Energies and forces from one forward, both with their graph kept
+    (the forces by ``create_graph=True``), so that a loss on them has
+    gradients with respect to the model's weights; through the kernel
+    strategy the loss's backward launches K3bb once (and K3b not again
+    unless the coordinates' gradient is asked for too)."""
     coords, cell, pbc = _inputs(model, coords, cell, pbc)
     e = model(species, coords, cell, pbc)
     (g,) = torch.autograd.grad(e.sum(), coords, create_graph=True)
-    return -g
+    return e, -g
+
+
+def forces_for_training(model, species, coords, cell=None, pbc=None) -> Tensor:
+    """The forces of `energies_and_forces_for_training`."""
+    return energies_and_forces_for_training(model, species, coords, cell, pbc)[1]
 
 
 def forces_and_hessians(model, species, coords, cell=None, pbc=None) -> ForcesHessians:

@@ -19,8 +19,9 @@ never imports JAX: the caller flattens the JAX model, e.g.::
               for p, x in jax.tree_util.tree_flatten_with_path(jax_model)[0]}
 
 The JAX package keeps some settings as static fields, which are no leaves:
-the count-class angular split and the networks' species partition.  A
-caller carries them by adding their paths with integer arrays, e.g.
+the count-class angular split, the angular capacity and the networks'
+species partition.  A caller carries them by adding their paths with
+integer arrays, e.g.
 ``arrays[".potentials['nnp'].aev_computer.angular_split"] = np.asarray(
 jax_model.potentials['nnp'].aev_computer.angular_split)`` (an empty array
 for None), and `load_jax_arrays` sets them.
@@ -72,8 +73,9 @@ def _resolve(model: torch.nn.Module, path: str) -> torch.Tensor:
 
 
 #: static fields of the JAX model that a caller may carry over (see the
-#: module docs), each a tuple of ints or None
-_STATIC_FIELDS = ("angular_split", "partition")
+#: module docs), each a tuple of ints or None, but ``angular_capacity``, an
+#: int or None
+_STATIC_FIELDS = ("angular_split", "partition", "angular_capacity")
 _STATIC_PATH = re.compile(r"(.*)\.(" + "|".join(_STATIC_FIELDS) + r")")
 
 
@@ -90,7 +92,12 @@ def _set_static(model: torch.nn.Module, path: str, value) -> None:
     if not hasattr(owner, m.group(2)):
         raise KeyError(f"path {path!r} names no field of the port's model")
     value = np.asarray(value).reshape(-1)
-    setattr(owner, m.group(2), tuple(int(x) for x in value) if value.size else None)
+    if not value.size:
+        setattr(owner, m.group(2), None)
+    elif m.group(2) == "angular_capacity":
+        setattr(owner, m.group(2), int(value.item()))
+    else:
+        setattr(owner, m.group(2), tuple(int(x) for x in value))
 
 
 def load_jax_arrays(
@@ -98,7 +105,7 @@ def load_jax_arrays(
 ) -> torch.nn.Module:
     """Copy the JAX model's leaves into ``model`` (in place; returned), and
     the static fields that ``arrays`` carries (``angular_split``,
-    ``partition``).
+    ``partition``, ``angular_capacity``).
 
     Every path must resolve to a tensor of the same shape, and every
     parameter and buffer of ``model`` must receive a value.

@@ -206,9 +206,34 @@ class Ensemble(torch.nn.Module):
     def out_dim(self) -> int:
         return self.layer_dims[0][-1]
 
+    @property
+    def total_members_num(self) -> int:
+        return self._stacks()[0][0].shape[0]
+
     def _stacks(self) -> tp.Tuple[tp.List[Tensor], tp.Optional[tp.List[Tensor]]]:
         """Per-layer ``(E, S, in, out)`` weights and ``(E, S, out)`` biases."""
         return list(self.weights), None if self.biases is None else list(self.biases)
+
+    @classmethod
+    def from_members(cls, members: tp.Sequence["Ensemble"]) -> "Ensemble":
+        """An ensemble of the members' networks, stacked in order (copies
+        of their weights); every member must share the architecture."""
+        first = members[0]
+        for m in members[1:]:
+            if m.layer_dims != first.layer_dims or m.symbols != first.symbols:
+                raise ValueError("All ensemble members must share an architecture")
+        stacks = [m._stacks() for m in members]
+        weights = [
+            torch.cat([w[li] for w, _ in stacks]).detach().clone()
+            for li in range(len(stacks[0][0]))
+        ]
+        biases = None
+        if stacks[0][1] is not None:
+            biases = [
+                torch.cat([b[li] for _, b in stacks]).detach().clone()
+                for li in range(len(stacks[0][1]))
+            ]
+        return Ensemble(weights, biases, first.layer_dims, first.symbols, first.activation)
 
     @classmethod
     def random(

@@ -3,8 +3,8 @@ seeds, as ``torchani_tpu/testing.py``), and a unittest harness over the
 devices.
 
 Every random draw comes from ``numpy.random.RandomState(seed)`` in the JAX
-package's order, so both packages make the same molecules.  `make_molecs` and
-`make_water_box` give numpy arrays; the reference-style factories
+package's order, so both packages make the same molecules.  `make_molecs`,
+`make_chain_molecs` and `make_water_box` give numpy arrays; the reference-style factories
 (`make_tensor`, `make_elem_idxs`, `make_molec`, `make_reference_molecs`,
 `make_neighbors`) give tensors on ``device``, CUDA unless the caller names
 another.
@@ -23,6 +23,7 @@ from torchani_tpu_torch.utils import resolve_device
 
 __all__ = [
     "make_molecs",
+    "make_chain_molecs",
     "make_water_box",
     "Molecs",
     "make_tensor",
@@ -51,6 +52,48 @@ def make_molecs(
         n = rng.randint(3, max_atoms + 1)
         species[i, :n] = rng.choice(znums, size=n)
         coords[i, :n] = rng.rand(n, 3) * box
+    return species, coords
+
+
+def make_chain_molecs(
+    num: int,
+    max_atoms: int,
+    seed: int = 0,
+    znums: tp.Sequence[int] = (1, 6, 7, 8),
+) -> tp.Tuple[np.ndarray, np.ndarray]:
+    """Random tree-bonded (GDB-like) molecule batch: ``(species (C, A),
+    coords (C, A, 3))`` with -1 / zero padding.
+
+    Each molecule holds 3 to ``max_atoms`` atoms grown as a random tree
+    with ~1.4 A bonds and a 1.6 A non-bonded exclusion, so an atom has
+    O(10) neighbors within the 3.5 A angular cutoff (`make_molecs` puts
+    every atom within every cutoff of every other).
+    """
+    rng = np.random.RandomState(seed)
+    species = np.full((num, max_atoms), -1, dtype=np.int64)
+    coords = np.zeros((num, max_atoms, 3), dtype=np.float32)
+    for i in range(num):
+        n = rng.randint(3, max_atoms + 1)
+        species[i, :n] = rng.choice(znums, size=n)
+        pos = np.zeros((n, 3))
+        degree = np.zeros(n, dtype=np.int64)
+        for a in range(1, n):
+            for _attempt in range(20):
+                # attach to a random atom, favouring low degrees
+                weights = 1.0 / (1.0 + degree[:a]) ** 2
+                parent = rng.choice(a, p=weights / weights.sum())
+                direction = rng.randn(3)
+                direction /= np.linalg.norm(direction)
+                bond = 1.4 + rng.randn() * 0.08
+                cand = pos[parent] + direction * bond
+                d = np.linalg.norm(pos[:a] - cand, axis=1)
+                d[parent] = np.inf  # the bonded parent is exempt
+                if np.all(d > 1.6):
+                    break
+            pos[a] = cand
+            degree[parent] += 1
+            degree[a] += 1
+        coords[i, :n] = pos + rng.randn(1, 3) * 0.01
     return species, coords
 
 

@@ -347,8 +347,13 @@ def strip_redundant_padding(
 
 
 def __getattr__(name: str):
-    if name == "EnergyShifter":  # imported lazily: sae imports this module
+    # imported lazily: sae and the training modules import this module
+    if name == "EnergyShifter":
         from torchani_tpu_torch.sae import SelfEnergy
 
         return SelfEnergy
+    if name == "merge_state_dicts":
+        from torchani_tpu_torch.training.checkpoints import merge_state_dicts
+
+        return merge_state_dicts
     raise AttributeError(f"module 'torchani_tpu_torch.utils' has no attribute {name!r}")
