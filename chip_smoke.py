@@ -107,8 +107,23 @@ conformers; the 8-member ANI-2x ensemble trained with the force loss;
 and `EpochRunner` over teacher-labelled chain molecules (the validation
 RMSE must fall below 0.8 of its start in 5 epochs; one read of the loss an
 epoch), a checkpoint at epoch 2 resumed in a fresh runner against 4
-uninterrupted epochs, and the checkpoint loaded onto the CPU.  Every number
-it prints was measured or computed in the run.  It prints a ``kernels`` JSON
+uninterrupted epochs, and the checkpoint loaded onto the CPU.  Then phases
+46-49 (`loader_phases`): ANI-2x (8 members, seed 0) written as a NeuroChem
+model directory and loaded back by `neurochem.load_model_from_info` (every
+stack bit for bit, E+F on the box against the source model with one K3 and
+one K3b, load time, E+F beside the source's, peak memory; member 0 alone and
+through `load_atomic_networks`); an ANI-1x member through
+`modules_from_info_file` (K3 at 4 x 8); `make_molecs(2560, 26)` with a
+teacher's labels through the legacy chain (`species_to_indices`,
+`subtract_self_energies`, `shuffle`, `cache`, `collate`,
+`Transformations.pin_memory`; the same molecules through `datasets`), then
+force training steps in ``revrev`` and ``fwdrev`` modes (gradients and
+losses against each other, one K3, K3b and K3bb a step, ms, samples/s, host
+syncs, peak memory); and a chain solute solvated by
+`testing.make_solvated_system` from PDB files written here (E+F, 10 NVE
+steps with their launches, `profiling.Timer` beside CUDA events,
+`profiling.trace` naming a `scope` and K3, `utils.exact_matmul` against an
+f64 product).  Every number it prints was measured or computed in the run.  It prints a ``kernels`` JSON
 line (all nine kernels; K3, K3b and K3bb also at the training batch) and,
 last, ``{"ok": true, "device": {...}}``.  Any failed check raises, and the script exits non-zero without that last line; so does
 a machine with no CUDA device, or a directory without the package.  A few
@@ -238,6 +253,17 @@ X2_TRAIN_MOLECS, X2_TRAIN_STEPS = 256, 5
 #: run's loss and RMSE: on the card the networks' backward sums atoms with
 #: atomics in a run-dependent order, so two uninterrupted runs differ too
 LEARN_MOLECS, LEARN_EPOCHS, LEARN_DROP, RESUME_RTOL = 480, 5, 0.8, 1e-3
+#: NeuroChem models (phases 46-47) against their source models on the box:
+#: the same weights through the same kernels, whose sums (K3b's atomics)
+#: run in a run-dependent order: energies relative, forces Ha/A
+NC_E_RTOL, NC_F_ATOL = 1e-6, 1e-5
+#: the legacy batch (phase 48): fwdrev's loss against revrev's, relative (the
+#: same forces; the weight gradients at GRAD_ATOL, GRAD_RTOL)
+LEGACY_LOSS_RTOL = 1e-6
+#: the solvated system (phase 49): the water template's atoms (tiled 2 x 2 x
+#: 2, then cut to the box), the solute chain's most atoms, the box (A, the
+#: headline box's side) and the NVE steps
+SOLV_TEMPLATE_ATOMS, SOLV_SOLUTE_ATOMS, SOLV_BOX, SOLV_MD_STEPS = 1500, 160, 46.577, 10
 
 
 def check(ok: bool, what: str) -> None:
@@ -278,7 +304,9 @@ def kernels_ms(fn, reps: int) -> float:
     """Device time of the kernels that ``fn()`` launches, per call, summed
     by ``torch.profiler`` (no idle time of the stream in it).  A window in
     which the profiler recorded no device time at all is taken again, up to
-    three times; then the measurement fails."""
+    three times; after three such windows (the profiler's device tracing
+    drops a window now and then) the time between CUDA events stands in,
+    launch gaps included, and the line says so."""
     fn()
     torch.cuda.synchronize()
     activities = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
@@ -294,7 +322,10 @@ def kernels_ms(fn, reps: int) -> float:
         )
         if device_us > 0:
             return device_us / reps / 1e3
-    raise RuntimeError("torch.profiler recorded no device time in three windows")
+    ms = cuda_ms(fn, reps)
+    print(f"torch.profiler recorded no device time in three windows: {ms:.4f} ms between "
+          f"CUDA events instead")
+    return ms
 
 
 def kernel_errors(out: torch.Tensor, ref: torch.Tensor, what: str) -> float:
@@ -956,6 +987,433 @@ def training_phases(card: str, kernels_fn: dict, reset_counts, read_counts) -> d
     print(f"new phases (data and training): {time.perf_counter() - t_train:.1f} s of wall time")
     return {"launches": paths, "kernels": k, "step_ms": step_ms}
 
+
+
+def write_pdb(path, znums, coords, cell=None, resname: str = "HOH") -> None:
+    """ATOM records (element in columns 77-78; three atoms a residue) and,
+    with ``cell``, a cubic CRYST1 record: a PDB file for `io.read_pdb`."""
+    from torchani_tpu_torch.constants import PERIODIC_TABLE
+
+    lines = []
+    if cell is not None:
+        lines.append(f"CRYST1{cell:9.3f}{cell:9.3f}{cell:9.3f}{90:7.2f}{90:7.2f}{90:7.2f} P 1\n")
+    for i, (z, (x, y, w)) in enumerate(zip(znums, coords)):
+        sym = PERIODIC_TABLE[int(z)]
+        lines.append(f"ATOM  {(i + 1) % 100000:5d} {sym:<4s} {resname} A{(i // 3 + 1) % 10000:4d}    "
+                     f"{x:8.3f}{y:8.3f}{w:8.3f}{1.0:6.2f}{0.0:6.2f}          {sym:>2s}\n")
+    path.write_text("".join(lines) + "END\n")
+
+
+def write_neurochem_zoo(root, model, kind: str):
+    """``model`` (an `ANI` with one `NNPotential` over an `Ensemble`) as a
+    NeuroChem model directory: ``{kind}.info``, ``{kind}.params`` (the AEV
+    constants as f32-exact decimals), ``sae_linfit.dat`` and, per member,
+    ``train{e}/networks/ANN-{symbol}.nnf`` (a ``XX==`` header before the bz2
+    layer specs, activation 9 = CELU(0.1) on hidden layers, 6 on the output)
+    with raw f32 ``(out, in)`` ``.wparam`` and ``.bparam`` files.  Returns
+    the ``.info`` path."""
+    import bz2
+
+    def f32_list(t):
+        return "[" + ",".join(repr(float(v)) for v in t.detach().cpu().reshape(-1).tolist()) + "]"
+
+    aev = model.aev_computer
+    r, a = aev.radial, aev.angular
+    symbols = model.symbols
+    (root / f"{kind}.params").write_text("\n".join([
+        "TM = 1", f"Rcr = {float(r.cutoff)!r}", f"Rca = {float(a.cutoff)!r}",
+        f"EtaR = {f32_list(r.eta)}", f"ShfR = {f32_list(r.shifts)}",
+        f"Zeta = {f32_list(a.zeta)}", f"ShfZ = {f32_list(a.sections)}",
+        f"EtaA = {f32_list(a.eta)}", f"ShfA = {f32_list(a.shifts)}",
+        "Atyp = [" + ",".join(symbols) + "]"]) + "\n")
+    saes = model.energy_shifter.self_energies.cpu().tolist()
+    (root / "sae_linfit.dat").write_text(
+        "".join(f"{sym},{i}={e!r}\n" for i, (sym, e) in enumerate(zip(symbols, saes))))
+    nets = model.neural_networks
+    weights, biases = ([t.detach().cpu().numpy() for t in ts] for ts in nets._stacks())
+    members = weights[0].shape[0]
+    for e in range(members):
+        net_dir = root / f"train{e}" / "networks"
+        net_dir.mkdir(parents=True)
+        for si, sym in enumerate(symbols):
+            dims = nets.layer_dims[si]
+            blocks = []
+            for li in range(len(dims) - 1):
+                w = np.ascontiguousarray(weights[li][e, si, : dims[li], : dims[li + 1]].T)
+                b = np.ascontiguousarray(biases[li][e, si, : dims[li + 1]])
+                wname, bname = f"ANN-{sym}-l{li}.wparam", f"ANN-{sym}-l{li}.bparam"
+                (net_dir / wname).write_bytes(w.astype(np.float32).tobytes())
+                (net_dir / bname).write_bytes(b.astype(np.float32).tobytes())
+                act = 9 if li < len(dims) - 2 else 6
+                blocks.append(f"layer [ nodes={dims[li + 1]}; activation={act}; "
+                              f"weights=FILE: {wname}[{w.size}]; biases=FILE: {bname}[{b.size}]; ]")
+            text = ("\n".join(blocks) + "\n$\n").encode("ascii") + b"\n"
+            (net_dir / f"ANN-{sym}.nnf").write_bytes(b"XX==" + bz2.compress(text))
+    info = root / f"{kind}.info"
+    info.write_text(f"{kind}.params\nsae_linfit.dat\ntrain\n{members}\n")
+    return info
+
+
+def loader_phases(card: str, kernels_fn: dict, reset_counts, read_counts,
+                  revrev_ms: tp.Sequence[float]) -> dict:
+    """Phases 46-49: the NeuroChem loaders at full width, the legacy data
+    pipeline feeding force training in both gradient modes,
+    `make_solvated_system` under E+F and MD, and the profiling API.
+    ``revrev_ms`` is phase 42's force step.  Returns the launches of each
+    path."""
+    import pathlib
+
+    from torchani_tpu_torch import profiling
+    from torchani_tpu_torch.arch import ANI, simple_ani
+    from torchani_tpu_torch.datasets import ANIDataset
+    from torchani_tpu_torch.grad import energies_and_forces
+    from torchani_tpu_torch.legacy_data import (
+        TransformableIterable,
+        Transformations,
+        _Regenerable,
+        _split_conformers,
+    )
+    from torchani_tpu_torch.md import MolecularDynamics
+    from torchani_tpu_torch.models import ANI1x, ANI2x
+    from torchani_tpu_torch.neighbors import CellList, narrow_to_cutoff
+    from torchani_tpu_torch.neurochem import (
+        load_atomic_networks,
+        load_model_from_info,
+        modules_from_info_file,
+    )
+    from torchani_tpu_torch.potentials import NNPotential
+    from torchani_tpu_torch.profiling import peak_gib, wall_times_ms
+    from torchani_tpu_torch.testing import (
+        make_chain_molecs,
+        make_molecs,
+        make_solvated_system,
+        make_water_box,
+    )
+    from torchani_tpu_torch.training import adamw_with_plateau, make_train_step
+    from torchani_tpu_torch.training.loop import (
+        _device_batch,
+        _force_loss_fwdrev,
+        energy_force_loss,
+    )
+    from torchani_tpu_torch.transforms import AtomicNumbersToIndices, SubtractSAE
+    from torchani_tpu_torch.utils import exact_matmul, strip_redundant_padding
+
+    t_phases = time.perf_counter()
+    dev = torch.device("cuda")
+    paths = {}
+    ef_want = {k_: int(k_ in ("angular_aev", "angular_aev_bwd")) for k_ in kernels_fn}
+    force_want = {k_: int(k_.startswith("angular")) for k_ in kernels_fn}
+    sp_np, co_np, cell_np = make_water_box(10002)
+    box = tuple(torch.as_tensor(x, device=dev) for x in (sp_np, co_np, cell_np))
+    pbc = torch.ones(3, dtype=torch.bool, device=dev)
+
+    def ef(m):
+        return energies_and_forces(m, box[0], box[1], box[2], pbc)
+
+    def ef_counted(m, what):
+        torch.cuda.synchronize()
+        reset_counts()
+        out = ef(m)
+        torch.cuda.synchronize()
+        counts = read_counts()
+        check(counts == ef_want, f"{what}: one E+F launches K3 and K3b once each, nothing else")
+        check(all(bool(torch.isfinite(t).all()) for t in out), f"{what}: finite E+F")
+        return out, counts
+
+    def same_ef(out, ref, what):
+        e_rel = float(((out[0] - ref[0]).abs() / ref[0].abs()).max())
+        f_err = float((out[1] - ref[1]).abs().max())
+        print(f"{what}: energies {out[0].tolist()} against {ref[0].tolist()} (relative "
+              f"{e_rel:.3e}), forces max |dF| {f_err:.3e} Ha/A")
+        check(e_rel <= NC_E_RTOL and f_err <= NC_F_ATOL, f"{what}: E+F as the source model's")
+
+    def same_stacks(nets, ref, what):
+        got, want = nets._stacks(), ref._stacks()
+        check(nets.layer_dims == ref.layer_dims and nets.symbols == ref.symbols
+              and nets.activation == ref.activation
+              and all(torch.equal(a_, b_) for xs, ys in zip(got, want) for a_, b_ in zip(xs, ys)),
+              f"{what}: every weight and bias stack equals the source model's bit for bit")
+
+    with tempfile.TemporaryDirectory() as tmp:
+        root = pathlib.Path(tmp)
+
+        # ---- 46. a NeuroChem ANI-2x ensemble at full width ----
+        src = ANI2x(seed=0)
+        (root / "ani2x").mkdir()
+        t0 = time.perf_counter()
+        info = write_neurochem_zoo(root / "ani2x", src, "ani2x")
+        write_s = time.perf_counter() - t0
+        nbytes = sum(f.stat().st_size for f in (root / "ani2x").rglob("*") if f.is_file())
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        nc = load_model_from_info(info)
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+        check(nc.device.type == "cuda", "the NeuroChem model is on the card by default")
+        same_stacks(nc.neural_networks, src.neural_networks, "NeuroChem ANI-2x (8 members)")
+        aev_n, aev_s = nc.aev_computer, src.aev_computer
+        check(nc.symbols == src.symbols and aev_n.out_dim == aev_s.out_dim == 1008
+              and torch.equal(nc.energy_shifter.self_energies, src.energy_shifter.self_energies)
+              and all(torch.equal(x_, y_) for x_, y_ in zip(
+                  list(aev_n.radial.buffers()) + list(aev_n.angular.buffers()),
+                  list(aev_s.radial.buffers()) + list(aev_s.angular.buffers()))),
+              "NeuroChem ANI-2x: symbols, AEV constants and self energies as the source's")
+        kw = aev_n.kernel_kwargs()
+        check((len(kw["shifts"]), len(kw["sections"])) == (8, 4), "ANI-2x AEV at K3's 8 x 4")
+        for m in (nc, src):
+            m.neighborlist = CellList(capacity=96)
+        out_nc, paths["neurochem_ani2x_ef"] = ef_counted(nc, "NeuroChem ANI-2x")
+        same_ef(out_nc, ef(src), "NeuroChem ANI-2x vs models.ANI2x(seed=0) on the box")
+        times = {"neurochem": [], "source": []}
+        for _ in range(2):
+            for name, m in (("neurochem", nc), ("source", src)):
+                times[name] += wall_times_ms(lambda m=m: ef(m), reps=5)
+        peak = peak_gib(lambda: ef(nc))
+        print(f"{card}: NeuroChem ANI-2x (8 members, {nbytes / 1e6:.1f} MB of files written in "
+              f"{write_s:.2f} s): load {load_s:.3f} s; E+F on the {int(sp_np.shape[1])}-atom box "
+              f"median {np.median(times['neurochem']):.3f} ms (min {min(times['neurochem']):.3f}) "
+              f"against the source model's {np.median(times['source']):.3f} ms (min "
+              f"{min(times['source']):.3f}), alternating, 10 each; peak memory {peak:.3f} GiB; "
+              f"launches {paths['neurochem_ani2x_ef']}")
+        member0 = load_model_from_info(info, model_index=0)
+        nets0 = load_atomic_networks(root / "ani2x" / "train0" / "networks", nc.symbols, 1008)
+        src0 = ANI2x(model_index=0, seed=0)
+        same_stacks(member0.neural_networks, src0.neural_networks, "NeuroChem ANI-2x member 0")
+        same_stacks(nets0, src0.neural_networks, "load_atomic_networks of member 0")
+        for m in (member0, src0):
+            m.neighborlist = CellList(capacity=96)
+        out0, paths["neurochem_ani2x_member0_ef"] = ef_counted(member0, "NeuroChem member 0")
+        same_ef(out0, ef(src0), "NeuroChem ANI-2x member 0 vs models.ANI2x(model_index=0)")
+        del nc, src, member0, src0, nets0, out_nc, out0
+
+        # ---- 47. a NeuroChem ANI-1x member through modules_from_info_file ----
+        src1 = ANI1x(seed=0)
+        (root / "ani1x").mkdir()
+        info1 = write_neurochem_zoo(root / "ani1x", src1, "ani1x")
+        aev1, nets1, sae1, sym1 = modules_from_info_file(info1, model_index=0)
+        x1 = ANI({"nnp": NNPotential(sym1, aev1, nets1)}, sae1, sym1)
+        ref1 = ANI1x(model_index=0, seed=0)
+        same_stacks(nets1, ref1.neural_networks, "NeuroChem ANI-1x member 0")
+        kw1 = aev1.kernel_kwargs()
+        check(aev1.out_dim == 384 and (len(kw1["shifts"]), len(kw1["sections"])) == (4, 8),
+              "ANI-1x AEV: 384 wide, K3 at 4 x 8")
+        for m in (x1, ref1):
+            m.neighborlist = CellList(capacity=96)
+        out1, paths["neurochem_ani1x_ef"] = ef_counted(x1, "NeuroChem ANI-1x member 0")
+        same_ef(out1, ef(ref1), "NeuroChem ANI-1x member 0 vs models.ANI1x(model_index=0)")
+        x1_ms = wall_times_ms(lambda: ef(x1), reps=5)
+        print(f"{card}: NeuroChem ANI-1x member 0 E+F on the box: median {np.median(x1_ms):.3f} "
+              f"ms; launches {paths['neurochem_ani1x_ef']}")
+        del src1, x1, ref1, out1
+
+        # ---- 48. the legacy pipeline feeding force training, revrev and fwdrev ----
+        symbols = ("H", "C", "N", "O")
+        gsaes = (-0.500607632585, -37.8302333826, -54.5680045287, -75.0362229210)
+        teacher = simple_ani(symbols, repulsion=False, seed=99)
+        teacher.energy_shifter.enabled = False
+        sp_t, co_t = make_molecs(TRAIN_BATCH, TRAIN_ATOMS, seed=0)
+        t_e, t_f = energies_and_forces(teacher, sp_t, co_t)
+        table = np.zeros(9)
+        table[[1, 6, 7, 8]] = gsaes
+        labels_e = t_e.double().cpu().numpy() + np.where(sp_t >= 0, table[sp_t], 0.0).sum(1)
+        labels_f = t_f.cpu().numpy()
+        # pyanitools groups of 256 conformers, per-conformer atomic numbers.
+        # The card's machine has no h5py, so `datapacker` and `load` do not
+        # run here (the CPU tests hold them against the JAX package's); the
+        # chain starts from the same groups as `load` yields them
+        groups = [{"species": sp_t[i:i + 256], "coordinates": co_t[i:i + 256],
+                   "energies": labels_e[i:i + 256], "forces": labels_f[i:i + 256]}
+                  for i in range(0, TRAIN_BATCH, 256)]
+        t0 = time.perf_counter()
+        loaded = TransformableIterable(_Regenerable(
+            lambda: (c for g in groups for c in _split_conformers(g))))
+        chain = (loaded.species_to_indices(symbols).subtract_self_energies(gsaes)
+                 .shuffle(0).cache().collate(TRAIN_BATCH))
+        collated = list(chain)
+        chain_s = time.perf_counter() - t0
+        check(len(collated) == 1 and collated[0]["species"].shape == (TRAIN_BATCH, TRAIN_ATOMS),
+              "the chain collates the 2,560 conformers into one batch")
+        pinned = list(Transformations.pin_memory(collated))
+        batch = pinned[0]
+        check(all(isinstance(t, torch.Tensor) and t.is_pinned() for t in batch.values()),
+              "Transformations.pin_memory: every array of the batch is a pinned tensor")
+        # the same molecules through `datasets`: an in-memory ANIDataset of
+        # the groups, AtomicNumbersToIndices and SubtractSAE
+        ds = ANIDataset()
+        for gi, g in enumerate(groups):
+            ds.append_conformers(f"group{gi:02d}", g)
+        whole = {k_: np.concatenate([ds[g][k_] for g in ds.keys()]) for k_ in groups[0]}
+        whole = SubtractSAE(symbols, gsaes)(AtomicNumbersToIndices(symbols)(whole))
+        order = list(range(TRAIN_BATCH))
+        np.random.RandomState(0).shuffle(order)
+        ours = strip_redundant_padding({k_: v.numpy() for k_, v in batch.items()})
+        theirs = strip_redundant_padding({k_: v[order] for k_, v in whole.items()})
+        sae_sum = np.where(theirs["species"] >= 0, np.abs(np.asarray(gsaes))[
+            theirs["species"].clip(0)], 0.0).sum(1)
+        e_gap = float(np.abs(ours["energies"] - theirs["energies"]).max())
+        check(np.array_equal(ours["species"], theirs["species"])
+              and np.array_equal(ours["coordinates"], theirs["coordinates"])
+              and np.array_equal(ours["forces"], theirs["forces"])
+              and bool(np.all(np.abs(ours["energies"] - theirs["energies"])
+                              <= 4 * TRAIN_ATOMS * F32_EPS * sae_sum)),
+              "the chain's batch equals the same molecules through datasets and transforms "
+              "(energies within the f32 rounding of SubtractSAE's sums)")
+        model = simple_ani(symbols, ensemble_size=1, repulsion=False, cutoff_fn="cosine",
+                           radial_start=0.9, radial_cutoff=5.2, angular_start=0.9,
+                           activation="celu", bias=True, seed=0)
+        model.energy_shifter.enabled = False
+        model.periodic_table_index = False
+        b = _device_batch(batch, dev)
+        params = list(model.neural_networks.parameters())
+        loss_r = energy_force_loss(model, b["species"], b["coordinates"], b["energies"],
+                                   b["forces"])
+        g_r = torch.autograd.grad(loss_r, params)
+        loss_f, surrogate = _force_loss_fwdrev(model, b["species"], b["coordinates"],
+                                               b["energies"], b["forces"], 0.1)
+        g_f = torch.autograd.grad(surrogate, params)
+        loss_r, loss_f = float(loss_r.detach()), float(loss_f.detach())
+        loss_gap = abs(loss_f / loss_r - 1)
+        grad_err = max(float(((x_ - y_).abs() / y_.abs().max()).max()) for x_, y_ in zip(g_f, g_r))
+        print(f"legacy batch: revrev and fwdrev losses {loss_r:.9f} / {loss_f:.9f} "
+              f"(relative gap {loss_gap:.3e}); weight gradients max |dg| / max|g| {grad_err:.3e}")
+        check(loss_gap <= LEGACY_LOSS_RTOL, "fwdrev's loss as revrev's")
+        check(all(bool(((x_ - y_).abs() <= GRAD_ATOL * y_.abs().max() + GRAD_RTOL * y_.abs()).all())
+                  for x_, y_ in zip(g_f, g_r)), "fwdrev's weight gradients as revrev's")
+        del loss_r, loss_f, surrogate, g_r, g_f
+        adamw = adamw_with_plateau(TRAIN_LR)[0]
+        modes = {}
+        for mode in ("revrev", "fwdrev"):
+            init, step = make_train_step(model, adamw, force_training=True, force_grad_mode=mode)
+            state = init()
+            for _ in range(TRAIN_WARMUP):
+                state, m_ = step(state, batch)
+            torch.cuda.synchronize()
+            reset_counts()
+            state, m_ = step(state, batch)
+            torch.cuda.synchronize()
+            paths[f"legacy_train_{mode}_step"] = read_counts()
+            check(paths[f"legacy_train_{mode}_step"] == force_want and bool(torch.isfinite(m_["loss"])),
+                  f"legacy batch, {mode}: K3, K3b and K3bb once a step, finite loss")
+            _, syncs = count_syncs(lambda step=step, state=state: step(state, batch))
+            ms = wall_times_ms(lambda step=step, state=state: step(state, batch), reps=TRAIN_STEPS)
+            modes[mode] = {"ms": ms, "syncs": syncs,
+                           "peak": peak_gib(lambda step=step, state=state: step(state, batch))}
+        for mode, v in modes.items():
+            med = float(np.median(v["ms"]))
+            print(f"{card}: legacy batch force step, {mode}: median {med:.3f} ms (min "
+                  f"{min(v['ms']):.3f}, max {max(v['ms']):.3f}, {TRAIN_STEPS} steps after "
+                  f"{TRAIN_WARMUP + 1}), {TRAIN_BATCH / med * 1e3:,.0f} samples/s; launches "
+                  f"{paths[f'legacy_train_{mode}_step']}; {v['syncs']} host syncs a step; peak "
+                  f"memory {v['peak']:.3f} GiB")
+        print(f"{card}: fwdrev / revrev {np.median(modes['fwdrev']['ms']) / np.median(modes['revrev']['ms']):.3f}; "
+              f"phase 42's revrev step in this call median {np.median(revrev_ms):.3f} ms; one "
+              f"pass of the legacy chain over {TRAIN_BATCH} conformers {chain_s:.3f} s of host time")
+        del model, teacher, batch, pinned, b, state
+
+        # ---- 49. make_solvated_system and the profiling API on the card ----
+        wz, wc, wcell = make_water_box(SOLV_TEMPLATE_ATOMS, seed=4)
+        write_pdb(root / "water.pdb", wz[0], wc[0], float(wcell[0, 0]))
+        ssp, sco = make_chain_molecs(1, SOLV_SOLUTE_ATOMS, seed=6)
+        real = ssp[0] >= 0
+        write_pdb(root / "solute.pdb", ssp[0][real], sco[0][real], resname="LIG")
+        s_species, s_coords, s_cell = make_solvated_system(
+            root / "solute.pdb", root / "water.pdb", SOLV_BOX)
+        n_sol = int(real.sum())
+        d = s_coords[n_sol:, None, :] - s_coords[None, :n_sol, :]
+        d -= np.round(d / SOLV_BOX) * SOLV_BOX
+        min_d = float(np.sqrt((d ** 2).sum(-1)).min())
+        check(min_d > 1.7 and (s_species[n_sol:].reshape(-1, 3) == [8, 1, 1]).all()
+              and float(s_cell[0, 0]) == np.float32(SOLV_BOX),
+              "solvated system: whole waters, none within 1.7 A of the solute")
+        solv = ANI2x(seed=0)
+        solv.neighborlist = CellList(capacity=96)
+        s_sp = torch.as_tensor(s_species[None], device=dev)
+        s_co = torch.as_tensor(s_coords[None], device=dev)
+        s_ce = torch.as_tensor(s_cell, device=dev)
+
+        def s_ef():
+            return energies_and_forces(solv, s_sp, s_co, s_ce, pbc)
+
+        # the chain solute is denser than the liquid that the AEV's default
+        # angular table is sized for (its generator keeps non-bonded atoms
+        # 1.6 A apart): past that table's lanes the AEV poisons the energies
+        # with NaN, as designed in both packages.  The model takes the JAX
+        # rule's capacity for the densest atom (15% margin, a multiple of 4)
+        aevc = solv.aev_computer
+        nb_s = solv.neighborlist(solv.cutoff, solv._convert(s_sp), s_co, s_ce, pbc)
+        ang_max = int(narrow_to_cutoff(nb_s, float(aevc.angular.cutoff)).mask.sum(-1).max())
+        default_cap = aevc._angular_capacity(nb_s.capacity)
+        solv_cap = 4 * int(np.ceil(ang_max * 1.15 / 4))
+        e_default = s_ef()[0]
+        check(ang_max <= default_cap or bool(torch.isnan(e_default).all()),
+              "solvated system: an atom past the default angular table gives NaN energies")
+        aevc.angular_capacity = solv_cap
+        del nb_s
+        torch.cuda.synchronize()
+        reset_counts()
+        e_s, f_s = s_ef()
+        torch.cuda.synchronize()
+        paths["solvated_ef"] = read_counts()
+        check(bool(torch.isfinite(e_s).all()) and bool(torch.isfinite(f_s).all()),
+              "solvated E+F: finite energies and forces")
+        check(paths["solvated_ef"] == ef_want, "solvated E+F: K3 and K3b once each")
+        timer = profiling.Timer()
+        out = timer.time_fn("ef", s_ef, iters=10)
+        check(profiling.sync(out) is out, "profiling.sync returns its tree")
+        ev_ms = cuda_ms(s_ef, reps=10)
+        # a window whose trace holds no kernel (the profiler's device
+        # tracing drops one now and then, see `kernels_ms`) is taken again,
+        # up to three times, each into a directory of its own
+        for attempt in range(3):
+            with profiling.trace(str(root / f"trace{attempt}")) as log_dir:
+                with profiling.scope("aev"):
+                    s_ef()
+                torch.cuda.synchronize()
+            trace_files = sorted(pathlib.Path(log_dir).glob("*.json"))
+            trace_text = trace_files[0].read_text() if trace_files else ""
+            if "angular_aev_kernel" in trace_text:
+                break
+        check(len(trace_files) == 1 and '"aev"' in trace_text and "angular_aev_kernel" in trace_text,
+              f"profiling.trace wrote one trace naming the scope and K3 ({attempt + 1} windows)")
+        md = MolecularDynamics(solv, s_sp, cell=s_ce, pbc=True)
+        st = md.init(s_co, temperature=300.0, generator=torch.Generator().manual_seed(0))
+        torch.cuda.synchronize()
+        reset_counts()
+        t0 = time.perf_counter()
+        st = md.run_nve(st, SOLV_MD_STEPS)
+        torch.cuda.synchronize()
+        md_ms = (time.perf_counter() - t0) * 1e3 / SOLV_MD_STEPS
+        paths["solvated_md"] = read_counts()
+        check(st.step == SOLV_MD_STEPS and not bool(st.overflow)
+              and bool(torch.isfinite(st.forces).all()), "solvated NVE: finite, no overflow")
+        check(paths["solvated_md"]["angular_aev"] == paths["solvated_md"]["angular_aev_bwd"]
+              == paths["solvated_md"]["bucket_select_bwd"] == SOLV_MD_STEPS
+              and paths["solvated_md"]["bucket_select_fwd"] >= SOLV_MD_STEPS,
+              "solvated NVE: K2, K3 and K3b once a step, K1 at least once")
+        rng = np.random.RandomState(8)
+        xm = torch.as_tensor((rng.randn(s_coords.shape[0], 3) * 20).astype(np.float32), device=dev)
+        mm = torch.as_tensor(rng.randn(3, 3).astype(np.float32), device=dev)
+        got = exact_matmul(xm, mm).double()
+        exact = xm.double() @ mm.double()
+        bound = 4 * F32_EPS * (xm.double().abs() @ mm.double().abs())
+        check(torch.backends.cuda.matmul.allow_tf32 is False
+              and bool(((got - exact).abs() <= bound).all()),
+              "exact_matmul on the card: an f64 product within f32 rounding (no TF32)")
+        print(f"{card}: solvated system: {n_sol}-atom solute in {SOLV_BOX} A of water tiled from "
+              f"a {int(wz.shape[1])}-atom template: {s_species.shape[0]} atoms, closest water "
+              f"atom {min_d:.3f} A; the densest atom has {ang_max} angular neighbours (the "
+              f"default table {default_cap} lanes, energies then {e_default.tolist()}), so the "
+              f"angular table takes {solv_cap}; E+F launches {paths['solvated_ef']}; Timer.time_fn "
+              f"{timer.totals['ef'] / timer.counts['ef'] * 1e3:.3f} ms a call (10 after one, one "
+              f"sync) against cuda_ms {ev_ms:.3f} ms; {SOLV_MD_STEPS} NVE steps at 300 K "
+              f"{md_ms:.3f} ms a step, {st.rebuilds} rebuilds, launches {paths['solvated_md']}; "
+              f"trace {trace_files[0].name} ({len(trace_text) / 1e6:.1f} MB, window "
+              f"{attempt + 1}) names 'aev' and angular_aev_kernel; exact_matmul max |d| {float((got - exact).abs().max()):.3e}")
+        print(timer.report())
+        del solv, md, st, out
+    print(f"new phases (NeuroChem, legacy data, solvation, profiling): "
+          f"{time.perf_counter() - t_phases:.1f} s of wall time")
+    return {"launches": paths}
 
 def main() -> int:
     if not torch.cuda.is_available():
@@ -3264,6 +3722,10 @@ def main() -> int:
     torch.cuda.empty_cache()
     train = training_phases(card, kernels_fn, reset_counts, read_counts)
 
+    # ---- 46-49. NeuroChem, legacy data, solvation, profiling (`loader_phases`) ----
+    torch.cuda.empty_cache()
+    loaders = loader_phases(card, kernels_fn, reset_counts, read_counts, train["step_ms"]["force"])
+
     def entry(name, source, replaces, err, ms, plain, bound, by, library):
         return {
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
@@ -3282,6 +3744,7 @@ def main() -> int:
                 **{k_: v[name] for k_, v in zoo.items()},
                 **{k_: v[name] for k_, v in slice14.items()},
                 **{k_: v[name] for k_, v in train["launches"].items()},
+                **{k_: v[name] for k_, v in loaders["launches"].items()},
             },
             "max_abs_err": err, "ms": ms, "plain_ms": plain, "bound_ms": bound,
             "bound_by": by, "library_ms": library,

@@ -1,24 +1,46 @@
 """PyTorch port: the public names of the JAX package's reference surface
 (`tests/test_api_parity.py:REFERENCE_SURFACE`) that the port has, and an
-explicit list of those it still lacks.
+explicit list of those it still lacks; then every module of the JAX package
+against the port's module of the same name: each name of its ``__all__``
+(or, without one, each public function and class it defines) must be in
+the port, but for an explicit list of names left out, each with its reason.
 
-Each module's test fails when a listed name is missing from the port, and
-also when a name on the list of missing ones appears: it then leaves the
-list, so the list can only shrink as the port grows.
+Each test fails when a listed name is missing from the port, and also when
+a name on a list of missing or left-out ones appears: it then leaves the
+list, so the lists can only shrink as the port grows.
 """
 
 import importlib
+import inspect
+import pkgutil
 
 import pytest
 
+import torchani_tpu
 from test_api_parity import REFERENCE_SURFACE
 
 #: the names of REFERENCE_SURFACE the port does not have yet, by module
 #: (a module that the port lacks altogether lists all of its names)
-MISSING = {
-    "neurochem": REFERENCE_SURFACE["neurochem"],
-    "legacy_data": REFERENCE_SURFACE["legacy_data"],
+MISSING: dict = {}
+
+_PARALLEL = "multi-GPU (DDP, atom-sharded MD) is the next slice of the port"
+#: the JAX package's public names that the port leaves out, by module
+#: (relative to the package), with the reason
+LEFT_OUT = {
+    "parallel": ("ShardedMolecularDynamics make_mesh shard_batch shard_ensemble", _PARALLEL),
+    "parallel.md": ("ShardedMolecularDynamics", _PARALLEL),
+    "parallel.sharding": ("make_mesh shard_batch shard_ensemble", _PARALLEL),
+    "aev.pallas_kernels": (
+        "angular_aev_pallas",
+        "the TPU kernel; its port is K3, `torchani_tpu_torch.aev.kernels.angular_aev`",
+    ),
+    "csrc": (
+        "XYZPARSE_IS_AVAILABLE load_xyzparse",
+        "the native xyz parser is not ported: `io.read_xyz` is the pure-Python parser",
+    ),
 }
+#: modules of the JAX package that are not Python (compiled extensions)
+NATIVE = {"csrc.xyzparse": "the native xyz parser's extension module"}
 
 #: the names that the charge models, the remaining pair potentials and the
 #: rest of the model zoo brought
@@ -68,3 +90,39 @@ def test_charges_and_zoo_names_resolve():
             assert hasattr(m, n), f"{mod}.{n}"
             count += 1
     assert count == 25
+
+
+def _jax_modules():
+    return sorted(
+        info.name[len("torchani_tpu."):]
+        for info in pkgutil.walk_packages(torchani_tpu.__path__, "torchani_tpu.")
+        if info.name[len("torchani_tpu."):] not in NATIVE
+    )
+
+
+def _public_names(module) -> set:
+    if hasattr(module, "__all__"):
+        return set(module.__all__)
+    return {
+        n for n, o in vars(module).items()
+        if not n.startswith("_") and (inspect.isfunction(o) or inspect.isclass(o))
+        and getattr(o, "__module__", None) == module.__name__
+    }
+
+
+def test_left_out_lists_name_jax_modules():
+    modules = set(_jax_modules())
+    assert set(LEFT_OUT) <= modules and set(NATIVE).isdisjoint(modules)
+    assert all(reason for _, reason in LEFT_OUT.values())
+
+
+@pytest.mark.parametrize("mod", _jax_modules())
+def test_every_jax_module_surface(mod):
+    names = _public_names(importlib.import_module("torchani_tpu." + mod))
+    port = _port_module(mod)
+    absent = {n for n in names if port is None or not hasattr(port, n)}
+    left_out = set(LEFT_OUT.get(mod, ("", ""))[0].split())
+    assert absent == left_out, (
+        f"torchani_tpu_torch.{mod}: lacks {sorted(absent - left_out)} that LEFT_OUT does not "
+        f"name; has {sorted(left_out - absent)} that LEFT_OUT still names"
+    )

@@ -18,6 +18,13 @@ from torchani_tpu_torch.electro import ChargeNormalizer, DipoleComputer
 from torchani_tpu_torch.interop import load_jax_md_state
 from torchani_tpu_torch.md import CachedSinglePoint, MolecularDynamics, MultipleTimestepMD
 from torchani_tpu_torch.neb import neb_path
+from torchani_tpu_torch.neurochem import (
+    load_atomic_network,
+    load_ensemble,
+    load_model_from_info,
+    load_sae,
+    modules_from_info_file,
+)
 from torchani_tpu_torch.observables import mean_squared_displacement, radial_distribution
 from torchani_tpu_torch.optimize import minimize_fire, minimize_fire_batched
 from torchani_tpu_torch.replica import ReplicaExchange
@@ -63,6 +70,7 @@ def test_new_modules_are_covered():
         "datasets/batching.py", "datasets/builtin.py", "datasets/filters.py",
         "transforms.py", "sae_estimation.py", "training/__init__.py", "training/loop.py",
         "training/checkpoints.py", "training/metrics.py", "training/schedules.py",
+        "neurochem.py", "legacy_data.py",
     ):
         assert f"torchani_tpu_torch/{module}" in names
 
@@ -115,14 +123,16 @@ def test_no_jax_imports(path):
 
 
 def test_data_and_training_load_no_jax():
-    """Importing the data and training stacks (in a fresh interpreter) loads
-    neither JAX nor any module of the JAX package."""
+    """Importing the data and training stacks, the NeuroChem loaders, the
+    legacy data pipeline and the profiling module (in a fresh interpreter)
+    loads neither JAX nor any module of the JAX package."""
     import subprocess
     import sys
 
     code = (
         "import sys; import torchani_tpu_torch.datasets, torchani_tpu_torch.training, "
-        "torchani_tpu_torch.transforms, torchani_tpu_torch.sae_estimation, torchani_tpu_torch.cli; "
+        "torchani_tpu_torch.transforms, torchani_tpu_torch.sae_estimation, torchani_tpu_torch.cli, "
+        "torchani_tpu_torch.neurochem, torchani_tpu_torch.legacy_data, torchani_tpu_torch.profiling; "
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'flax', 'optax', 'torchani_tpu')); print(bad)"
     )
@@ -185,6 +195,11 @@ def no_cuda(monkeypatch):
         lambda: make_neighbors(3),
         lambda: SubtractSAE(("H",), [0.5]),
         lambda: SubtractRepulsionXTB(("H", "O")),
+        lambda: load_sae(__file__),
+        lambda: load_atomic_network(__file__),
+        lambda: load_model_from_info(__file__),
+        lambda: modules_from_info_file(__file__),
+        lambda: load_ensemble(("H",), "train", 1),
     ],
     ids=[
         "ANI2x", "ANI2x-cuda", "ANI2dr", "ANI2xr", "ANI1x", "ANI1ccx", "simple_ani", "RepulsionXTB", "RepulsionZBL",
@@ -196,7 +211,8 @@ def no_cuda(monkeypatch):
         "ANISharedNetworks", "ChargeNormalizer", "DipoleComputer", "LennardJones",
         "FixedCoulomb", "FixedMNOK", "Radial", "AtomicNetwork", "AtomicEmbedding",
         "make_tensor", "make_elem_idxs", "make_molec", "make_neighbors", "SubtractSAE",
-        "SubtractRepulsionXTB",
+        "SubtractRepulsionXTB", "load_sae", "load_atomic_network", "load_model_from_info",
+        "modules_from_info_file", "load_ensemble",
     ],
 )
 def test_default_device_raises_without_cuda(no_cuda, entry):

@@ -428,3 +428,18 @@ def test_verlet_cell_list_and_aliases(box_tables):
     assert pn.FastCellList is pn.CellList
     with pytest.raises(NotImplementedError):
         pn.Neighborlist()(5.2, torch.zeros((1, 2), dtype=torch.int64), torch.zeros((1, 2, 3)))
+
+
+def test_neighbor_distances():
+    """Distances inside the mask, inf outside: the same per-row sets as
+    JAX's (lanes compared as sorted sets, atol 1e-6)."""
+    elem, coords = _molecs(4)
+    jnb, pnb = _both("all_pairs", 5.2, elem, coords)
+    jd = np.asarray(jn.neighbor_distances(jnb))
+    pd = pn.neighbor_distances(pnb).numpy()
+    mask = pnb.mask.numpy()
+    assert np.isinf(pd[~mask]).all() and np.array_equal(pd[mask], pnb.dist.numpy()[mask])
+    assert np.isinf(jd).sum() == np.isinf(pd).sum()
+    for jrow, prow in zip(jd.reshape(-1, jd.shape[-1]), pd.reshape(-1, pd.shape[-1])):
+        np.testing.assert_allclose(np.sort(prow[np.isfinite(prow)]),
+                                   np.sort(jrow[np.isfinite(jrow)]), atol=ATOL)

@@ -18,12 +18,14 @@ import pytest
 import torch
 
 import torchani_tpu.aev as jaev
+import torchani_tpu.constants as jconst
 import torchani_tpu.cutoffs as jcut
 import torchani_tpu.paths as jpaths
 import torchani_tpu.testing as jtesting
 import torchani_tpu.tuples as jtuples
 import torchani_tpu.utils as jutils
 import torchani_tpu_torch.aev as paev
+import torchani_tpu_torch.constants as pconst
 import torchani_tpu_torch.cutoffs as pcut
 import torchani_tpu_torch.paths as ppaths
 import torchani_tpu_torch.testing as ptesting
@@ -151,7 +153,7 @@ def test_perm_gather_to_second_order(n, p):
 def test_tuples():
     names = (
         "SpeciesAEV SpeciesCoordinates SpeciesEnergiesQBC SpeciesForces EnergiesForces "
-        "AtomicStdev ForceStdev ForceMagnitudes"
+        "AtomicStdev ForceStdev ForceMagnitudes ForceStress"
     )
     for name in names.split():
         assert getattr(ptuples, name)._fields == getattr(jtuples, name)._fields, name
@@ -351,3 +353,92 @@ def test_ani_terms_route_to_the_kernel():
     for kind in ("cosine", "smooth"):
         assert paev.AEVComputer.like_2x(cutoff_fn=kind, device=CPU)._kernel_evaluates()
     assert not paev.AEVComputer.like_2x(cutoff_fn="biweight", device=CPU)._kernel_evaluates()
+
+
+def test_constants_tables_and_mappings():
+    """The per-element tables equal JAX's, and so do the mappings between
+    {symbol: value} and atomic-number-indexed sequences (NaN at index 0)."""
+    for name in ("ATOMIC_COVALENT_RADIUS", "ATOMIC_SQRT_EMPIRICAL_CHARGE",
+                 "ATOMIC_XTB_REPULSION_ALPHA", "ATOMIC_XTB_REPULSION_YEFF",
+                 "ATOMIC_HARDNESS", "ATOMIC_ELECTRONEGATIVITY", "ATOMIC_MASS"):
+        assert getattr(pconst, name) == getattr(jconst, name), name
+        assert len(getattr(pconst, name)) > 80, name
+    for table in (pconst.ATOMIC_COVALENT_RADIUS, {"H": 1.0, "He": 2.5, "Li": -3.0}):
+        ours = pconst.mapping_to_znumber_indexed_seq(table)
+        theirs = jconst.mapping_to_znumber_indexed_seq(table)
+        np.testing.assert_array_equal(ours, theirs)
+        assert math.isnan(ours[0])
+        assert pconst.znumber_indexed_seq_to_mapping(ours) == jconst.znumber_indexed_seq_to_mapping(
+            theirs) == table
+    np.testing.assert_array_equal(
+        pconst.mapping_to_znumber_indexed_seq(pconst.ATOMIC_COVALENT_RADIUS)[:87],
+        pconst.COVALENT_RADIUS[:87])
+    for bad in ({"He": 1.0, "U": 2.0},):
+        with pytest.raises(ValueError, match="missing elements"):
+            pconst.mapping_to_znumber_indexed_seq(bad)
+        with pytest.raises(ValueError, match="missing elements"):
+            jconst.mapping_to_znumber_indexed_seq(bad)
+    with pytest.raises(ValueError, match="NaN"):
+        pconst.znumber_indexed_seq_to_mapping((0.0, 1.0))
+
+
+def test_exact_matmul():
+    """Strict f32 on the CPU: JAX's HIGHEST-precision product to f32
+    rounding, and the f64 product within the rounding of a 3-term f32 sum."""
+    rng = np.random.RandomState(0)
+    x = (rng.randn(50, 3) * 20).astype(np.float32)
+    m = rng.randn(3, 3).astype(np.float32)
+    ours = putils.exact_matmul(torch.as_tensor(x), torch.as_tensor(m)).numpy()
+    np.testing.assert_allclose(ours, np.asarray(jutils.exact_matmul(jnp.asarray(x), jnp.asarray(m))),
+                               rtol=0, atol=1e-5)
+    exact = x.astype(np.float64) @ m.astype(np.float64)
+    bound = 4 * 2.0**-24 * (np.abs(x).astype(np.float64) @ np.abs(m).astype(np.float64))
+    assert np.all(np.abs(ours - exact) <= bound)
+
+
+def _write_pdb(path, znums, coords, cell=None, resname="HOH"):
+    """ATOM records (element in columns 77-78) and an optional CRYST1."""
+    lines = []
+    if cell is not None:
+        lines.append(f"CRYST1{cell:9.3f}{cell:9.3f}{cell:9.3f}{90:7.2f}{90:7.2f}{90:7.2f} P 1\n")
+    for i, (z, (x, y, w)) in enumerate(zip(znums, coords)):
+        sym = pconst.PERIODIC_TABLE[int(z)]
+        lines.append(f"ATOM  {i + 1:5d} {sym:<4s} {resname} A{i // 3 + 1:4d}    "
+                     f"{x:8.3f}{y:8.3f}{w:8.3f}{1.0:6.2f}{0.0:6.2f}          {sym:>2s}\n")
+    path.write_text("".join(lines) + "END\n")
+    return path
+
+
+@pytest.mark.parametrize("box,solute", [(19.0, True), (19.0, False), (6.0, True)],
+                         ids=["solvated", "water_only", "small_box_warns"])
+def test_make_solvated_system_matches_jax(tmp_path, box, solute):
+    """PDB files written here: a 150-atom water template with its CRYST1
+    cell and a 12-atom HCNO solute; species, coordinates and cell equal
+    JAX's exactly, with waters within the clash distance gone."""
+    wz, wc, wcell = ptesting.make_water_box(150, seed=2)
+    water = _write_pdb(tmp_path / "water.pdb", wz[0], wc[0], float(wcell[0, 0]))
+    sz, sc = ptesting.make_molecs(1, 12, seed=5, znums=(1, 6, 7, 8))
+    real = sz[0] >= 0
+    sol = _write_pdb(tmp_path / "sol.pdb", sz[0][real], sc[0][real], resname="LIG") if solute else None
+    if box < 10.0:
+        with pytest.warns(UserWarning, match="periodic self-overlap"):
+            ours = ptesting.make_solvated_system(sol, water, box)
+        with pytest.warns(UserWarning, match="periodic self-overlap"):
+            theirs = jtesting.make_solvated_system(sol, water, box)
+    else:
+        ours = ptesting.make_solvated_system(sol, water, box)
+        theirs = jtesting.make_solvated_system(sol, water, box)
+    for a, b in zip(ours, theirs):
+        np.testing.assert_array_equal(a, b)
+        assert a.dtype == b.dtype
+    species, coords, cell = ours
+    assert cell.shape == (3, 3) and float(cell[0, 0]) == box
+    if solute:
+        n = int(real.sum())
+        np.testing.assert_array_equal(species[:n], sz[0][real])
+        d = coords[n:, None, :] - coords[None, :n, :]
+        d -= np.round(d / box) * box
+        assert np.sqrt((d**2).sum(-1)).min() > 1.7
+        assert (species[n:].reshape(-1, 3) == [8, 1, 1]).all()
+    else:
+        assert len(species) % 3 == 0 and (species.reshape(-1, 3) == [8, 1, 1]).all()

@@ -45,10 +45,12 @@ from torchani_tpu_torch import (  # noqa: E402
     grad,
     interop,
     io,
+    legacy_data,
     md,
     models,
     neb,
     neighbors,
+    neurochem,
     nn,
     observables,
     optimize,
@@ -146,10 +148,12 @@ __all__ = [
     "grad",
     "interop",
     "io",
+    "legacy_data",
     "md",
     "models",
     "neb",
     "neighbors",
+    "neurochem",
     "nn",
     "observables",
     "optimize",

@@ -22,6 +22,10 @@ __all__ = [
     "ATOMIC_MASS",
     "ATOMIC_HARDNESS",
     "ATOMIC_ELECTRONEGATIVITY",
+    "ATOMIC_COVALENT_RADIUS",
+    "ATOMIC_SQRT_EMPIRICAL_CHARGE",
+    "ATOMIC_XTB_REPULSION_ALPHA",
+    "ATOMIC_XTB_REPULSION_YEFF",
     "MASS",
     "HARDNESS",
     "ELECTRONEGATIVITY",
@@ -33,6 +37,8 @@ __all__ = [
     "XTB_REPULSION_ALPHA",
     "XTB_REPULSION_YEFF",
     "load_c6_constants",
+    "mapping_to_znumber_indexed_seq",
+    "znumber_indexed_seq_to_mapping",
 ]
 
 
@@ -68,25 +74,51 @@ PERIODIC_TABLE: tp.Tuple[str, ...] = ("",) + tuple(
     s for s, _ in sorted(ATOMIC_NUMBER.items(), key=lambda kv: kv[1])
 )
 
-#: symbol -> atomic mass (AMU)
-ATOMIC_MASS: tp.Dict[str, float] = {
-    s: float(v["mass"])
-    for s, v in ATOMIC_CONSTANTS.items()
-    if s and v.get("mass") is not None
-}
 
+def _symbol_map(key: str) -> tp.Dict[str, float]:
+    """symbol -> property ``key``, for the elements the table gives it."""
+    return {
+        s: float(v[key]) for s, v in ATOMIC_CONSTANTS.items() if s and v.get(key) is not None
+    }
+
+
+#: symbol -> atomic mass (AMU)
+ATOMIC_MASS: tp.Dict[str, float] = _symbol_map("mass")
 #: symbol -> chemical hardness and electronegativity (eV), the charge
 #: normalizer's weights
-ATOMIC_HARDNESS: tp.Dict[str, float] = {
-    s: float(v["hardness"])
-    for s, v in ATOMIC_CONSTANTS.items()
-    if s and v.get("hardness") is not None
-}
-ATOMIC_ELECTRONEGATIVITY: tp.Dict[str, float] = {
-    s: float(v["electronegativity"])
-    for s, v in ATOMIC_CONSTANTS.items()
-    if s and v.get("electronegativity") is not None
-}
+ATOMIC_HARDNESS: tp.Dict[str, float] = _symbol_map("hardness")
+ATOMIC_ELECTRONEGATIVITY: tp.Dict[str, float] = _symbol_map("electronegativity")
+#: symbol -> covalent radius (Angstrom), square root of the empirical
+#: charge, and the GFN2-xTB repulsion parameters
+ATOMIC_COVALENT_RADIUS: tp.Dict[str, float] = _symbol_map("covalent_radius")
+ATOMIC_SQRT_EMPIRICAL_CHARGE: tp.Dict[str, float] = _symbol_map("sqrt_empirical_charge")
+ATOMIC_XTB_REPULSION_ALPHA: tp.Dict[str, float] = _symbol_map("xtb_repulsion_alpha")
+ATOMIC_XTB_REPULSION_YEFF: tp.Dict[str, float] = _symbol_map("xtb_repulsion_yeff")
+
+
+def mapping_to_znumber_indexed_seq(
+    symbols_map: tp.Mapping[str, float],
+) -> tp.Tuple[float, ...]:
+    """The values of a {symbol: value} map in atomic-number order.
+
+    Index 0 (no element) is NaN.  The map must cover every atomic number up
+    to the highest it holds, else `ValueError`.
+    """
+    seq = [math.nan] * (len(symbols_map) + 1)
+    try:
+        for k, v in symbols_map.items():
+            seq[ATOMIC_NUMBER[k]] = v
+    except IndexError:
+        raise ValueError(f"There are missing elements in {symbols_map}") from None
+    return tuple(seq)
+
+
+def znumber_indexed_seq_to_mapping(seq: tp.Sequence[float]) -> tp.Dict[str, float]:
+    """Inverse of `mapping_to_znumber_indexed_seq`; ``seq[0]`` must be NaN."""
+    if not math.isnan(seq[0]):
+        raise ValueError("The first element of the input iterable must be NaN")
+    return {PERIODIC_TABLE[j]: v for j, v in enumerate(seq) if j != 0}
+
 
 #: ``MASS[z]`` is the mass (AMU) of atomic number ``z`` (index 0 is NaN, as
 #: are elements the table has no mass for)

@@ -31,6 +31,7 @@ __all__ = [
     "cell_list",
     "adaptive_list",
     "narrow_to_cutoff",
+    "neighbor_distances",
     "lane_permute",
     "repack_to_capacity",
     "estimate_capacity",
@@ -321,6 +322,11 @@ def all_pairs(
     shift = shifts_cart[pos % ns]
     elem = torch.where(mask, _gather_atoms(elem_idxs[..., None], idx)[..., 0], -1)
     return _finalize(coords, idx, mask, shift, overflow, elem)
+
+
+def neighbor_distances(neighbors: Neighbors) -> Tensor:
+    """The table's distances, ``inf`` outside the mask (for screening)."""
+    return torch.where(neighbors.mask, neighbors.dist, torch.full_like(neighbors.dist, math.inf))
 
 
 def narrow_to_cutoff(neighbors: Neighbors, cutoff: float) -> Neighbors:

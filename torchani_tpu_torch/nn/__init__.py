@@ -3,6 +3,7 @@ the species-blocked evaluation."""
 
 from torchani_tpu_torch.nn import partition
 from torchani_tpu_torch.nn.containers import (
+    ANINetworks,
     AtomicNetworks,
     AtomicNetworksDiscardFirstScalar,
     Ensemble,
@@ -24,8 +25,7 @@ from torchani_tpu_torch.nn.core import (
 )
 from torchani_tpu_torch.nn.shared import ANISharedNetworks, SingleNN
 
-#: The reference's names of `AtomicNetworks`
-ANINetworks = AtomicNetworks
+#: The reference's other name of `AtomicNetworks`
 ANIModel = AtomicNetworks
 
 __all__ = [

@@ -24,6 +24,7 @@ from torchani_tpu_torch.utils import resolve_device
 
 __all__ = [
     "AtomicNetworks",
+    "ANINetworks",
     "AtomicNetworksDiscardFirstScalar",
     "Ensemble",
     "GenericEnsemble",
@@ -457,6 +458,10 @@ class AtomicNetworks(Ensemble):
         species_ranges: tp.Optional[SpeciesRanges] = None,
     ) -> Tensor:
         return super().forward(elem_idxs, aevs, atomic=atomic, species_ranges=species_ranges)
+
+
+#: The reference's name of `AtomicNetworks`
+ANINetworks = AtomicNetworks
 
 
 class AtomicNetworksDiscardFirstScalar(AtomicNetworks):

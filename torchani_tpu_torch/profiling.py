@@ -28,11 +28,21 @@ lane prefix (the networks with their AEV, the repulsion, D3 with its K4
 launches) and of the refresh, and the profiled window's launches, host waits
 and top kernels.  ``python3 -m torchani_tpu_torch.profiling ani2dr`` prints
 that last part alone.
+
+The module also holds the JAX package's tracing and timing API for use in
+code: `scope` (a label that shows in ``torch.profiler`` traces and, on the
+card, as an NVTX range), `sync`, `Timer` and `trace`.
+``TORCHANI_TPU_PRINT_AEV_BRANCH=1`` sets `PRINT_AEV_BRANCH`, which, as in the
+JAX package, is exported and read by nothing.
 """
 
+import contextlib
+import os
 import sys
+import tempfile
 import time
 import typing as tp
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -49,6 +59,109 @@ from torchani_tpu_torch.md import (
 from torchani_tpu_torch.models import ANI2dr, ANI2x
 from torchani_tpu_torch.neighbors import CellList, narrow_to_cutoff
 from torchani_tpu_torch.testing import make_water_box
+
+__all__ = [
+    "scope", "Timer", "trace", "sync", "PRINT_AEV_BRANCH", "wall_times_ms", "peak_gib",
+    "main", "md_report", "heating_report", "dr_report",
+]
+
+PRINT_AEV_BRANCH = os.getenv("TORCHANI_TPU_PRINT_AEV_BRANCH") == "1"
+
+
+@contextlib.contextmanager
+def scope(name: str):
+    """A named range: a ``torch.profiler.record_function`` label, and on a
+    machine with CUDA also an NVTX range inside it (for Nsight)."""
+    with torch.profiler.record_function(name):
+        if torch.cuda.is_available():
+            with torch.cuda.nvtx.range(name):
+                yield
+        else:
+            yield
+
+
+def _tensors(tree: tp.Any) -> tp.Iterator[torch.Tensor]:
+    if isinstance(tree, torch.Tensor):
+        yield tree
+    elif isinstance(tree, dict):
+        for v in tree.values():
+            yield from _tensors(v)
+    elif isinstance(tree, (list, tuple)):  # NamedTuples too
+        for v in tree:
+            yield from _tensors(v)
+
+
+def sync(tree: tp.Any) -> tp.Any:
+    """Wait for the current stream of every CUDA device that holds a tensor
+    of ``tree`` (a tensor, or dicts, lists, tuples and NamedTuples of them);
+    returns ``tree``."""
+    for dev in {t.device for t in _tensors(tree) if t.device.type == "cuda"}:
+        torch.cuda.current_stream(dev).synchronize()
+    return tree
+
+
+class Timer:
+    """Wall-clock section timer with device synchronization.
+
+    .. code-block:: python
+
+        timer = Timer()
+        with timer.section("aev"):
+            out = sync(aev_fn(x))
+        print(timer.report())
+    """
+
+    def __init__(self) -> None:
+        self.totals: tp.Dict[str, float] = {}
+        self.counts: tp.Dict[str, int] = {}
+
+    @contextlib.contextmanager
+    def section(self, name: str):
+        t0 = time.perf_counter()
+        try:
+            yield
+        finally:
+            dt = time.perf_counter() - t0
+            self.totals[name] = self.totals.get(name, 0.0) + dt
+            self.counts[name] = self.counts.get(name, 0) + 1
+
+    def time_fn(self, name: str, fn, *args, iters: int = 10, **kwargs):
+        """Time ``fn``: one warm-up call, then ``iters`` calls and one sync."""
+        out = sync(fn(*args, **kwargs))
+        with self.section(name):
+            for _ in range(iters):
+                out = fn(*args, **kwargs)
+            sync(out)
+        self.counts[name] = iters
+        return out
+
+    def report(self) -> str:
+        lines = []
+        width = max((len(k) for k in self.totals), default=10)
+        for name, total in sorted(self.totals.items(), key=lambda kv: -kv[1]):
+            n = self.counts.get(name, 1)
+            lines.append(
+                f"{name:<{width}}  total {total * 1e3:10.2f} ms  "
+                f"x{n}  avg {total / max(n, 1) * 1e3:10.3f} ms"
+            )
+        return "\n".join(lines)
+
+
+@contextlib.contextmanager
+def trace(log_dir: tp.Optional[str] = None):
+    """Profile the block with ``torch.profiler`` (the CPU, and CUDA where
+    there is a device) and write a Chrome/Perfetto trace into ``log_dir``
+    (by default ``torchani-tpu-torch-trace`` in the temporary directory).
+    Yields the directory; the file is ``trace-<time>-<pid>.json``."""
+    out_dir = Path(log_dir or Path(tempfile.gettempdir()) / "torchani-tpu-torch-trace")
+    out_dir.mkdir(parents=True, exist_ok=True)
+    activities = [torch.profiler.ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(torch.profiler.ProfilerActivity.CUDA)
+    with torch.profiler.profile(activities=activities) as prof:
+        yield str(out_dir)
+    prof.export_chrome_trace(str(out_dir / f"trace-{time.time_ns()}-{os.getpid()}.json"))
+
 
 #: the headline box (``bench.py``'s) and the box for memory past many blocks
 ATOMS, LARGE_ATOMS = 10002, 30000

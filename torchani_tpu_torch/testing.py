@@ -4,7 +4,7 @@ devices.
 
 Every random draw comes from ``numpy.random.RandomState(seed)`` in the JAX
 package's order, so both packages make the same molecules.  `make_molecs`,
-`make_chain_molecs` and `make_water_box` give numpy arrays; the reference-style factories
+`make_chain_molecs`, `make_water_box` and `make_solvated_system` give numpy arrays; the reference-style factories
 (`make_tensor`, `make_elem_idxs`, `make_molec`, `make_reference_molecs`,
 `make_neighbors`) give tensors on ``device``, CUDA unless the caller names
 another.
@@ -25,6 +25,7 @@ __all__ = [
     "make_molecs",
     "make_chain_molecs",
     "make_water_box",
+    "make_solvated_system",
     "Molecs",
     "make_tensor",
     "make_elem_idxs",
@@ -152,6 +153,74 @@ def make_water_box(
     coords = np.concatenate(coords_list, axis=0).astype(np.float32)[None]
     cell = np.eye(3, dtype=np.float32) * box
     return species, coords, cell
+
+
+def make_solvated_system(
+    solute_pdb,
+    water_pdb,
+    box: float,
+    clash: float = 1.7,
+) -> tp.Tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """Solvate a PDB solute in tiled PDB water: ``(species (A,), coords
+    (A, 3), cell (3, 3))``, species as atomic numbers.
+
+    The water template's ``CRYST1`` cell is tiled to fill an orthorhombic
+    ``box`` (A), each molecule (consecutive O, H, H records) wrapped into
+    the template cell by its centroid first; molecules whose centroid falls
+    outside the box go.  The solute is centered in the box, and every water
+    with an atom within ``clash`` A of a solute atom (minimum image) is
+    removed.  A box smaller than the solute's extent plus twice ``clash``
+    warns: the solute then overlaps its own periodic image.  Without a
+    solute (None) the result is the tiled water.
+    """
+    from torchani_tpu_torch.io import read_pdb
+
+    wz, wc, wcell = read_pdb(water_pdb)
+    if wcell is None:
+        raise ValueError("water template must have a CRYST1 cell")
+    side = float(wcell[0, 0])
+    n_rep = int(np.ceil(box / side))
+    cell = np.diag([box, box, box]).astype(np.float32)
+    mols = wc.reshape(-1, 3, 3)
+    centroid = mols.mean(axis=1, keepdims=True)
+    mols = mols - np.floor(centroid / side) * side
+    offsets = np.stack(
+        np.meshgrid(*[np.arange(n_rep) * side] * 3, indexing="ij"), axis=-1
+    ).reshape(-1, 3)
+    tiled = (mols[None] + offsets[:, None, None, :]).reshape(-1, 3, 3)
+    tiled_z = np.tile(wz.reshape(-1, 3), (len(offsets), 1))
+    inside = (tiled.mean(axis=1) < box).all(axis=-1)
+    waters_xyz = tiled[inside]
+    waters_z = tiled_z[inside]
+
+    if solute_pdb is None:
+        return (
+            waters_z.reshape(-1).astype(np.int64),
+            waters_xyz.reshape(-1, 3).astype(np.float32),
+            cell,
+        )
+    sz, sc, _ = read_pdb(solute_pdb)
+    extent = float((sc.max(axis=0) - sc.min(axis=0)).max())
+    if box < extent + 2.0 * clash:
+        import warnings
+
+        warnings.warn(
+            f"box {box} A smaller than solute extent {extent:.1f} A "
+            f"(+ {clash} A clash margin): periodic self-overlap",
+            stacklevel=2,
+        )
+    sc = sc - sc.mean(axis=0) + box / 2.0
+    # minimum-image distance of each water atom to the solute, in chunks
+    flat = waters_xyz.reshape(-1, 3)
+    mind = np.empty(len(flat), dtype=np.float64)
+    for i0 in range(0, len(flat), 4096):
+        d = flat[i0 : i0 + 4096, None, :] - sc[None, :, :]
+        d -= np.round(d / box) * box
+        mind[i0 : i0 + 4096] = np.sqrt((d**2).sum(-1)).min(axis=1)
+    keep = (mind.reshape(-1, 3) > clash).all(axis=1)
+    species = np.concatenate([sz, waters_z[keep].reshape(-1)])
+    coords = np.concatenate([sc, waters_xyz[keep].reshape(-1, 3)], axis=0)
+    return species.astype(np.int64), coords.astype(np.float32), cell
 
 
 class Molecs(tp.NamedTuple):

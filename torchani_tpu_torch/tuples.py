@@ -32,6 +32,12 @@ class SpeciesForces(tp.NamedTuple):
     forces: Tensor
 
 
+class ForceStress(tp.NamedTuple):
+    energies: Tensor
+    forces: Tensor
+    stress: Tensor
+
+
 class EnergiesForces(tp.NamedTuple):
     energies: Tensor
     forces: Tensor

@@ -19,6 +19,7 @@ __all__ = [
     "SYMBOLS_2X_ZNUM_ORDER",
     "linspace",
     "map_to_central",
+    "exact_matmul",
     "resolve_device",
     "tensor_on",
     "symbols_to_atomic_numbers",
@@ -256,6 +257,18 @@ def fast_masked_select(x: Tensor, mask: Tensor, idx: int = 0) -> Tensor:
     """``x`` at the nonzero entries of the flat ``mask`` along axis ``idx``
     (an ``index_select``; the result's size waits for the device)."""
     return x.index_select(idx, nonzero_in_chunks(mask))
+
+
+def exact_matmul(x: Tensor, m: Tensor) -> Tensor:
+    """``x @ m`` in strict f32.
+
+    The JAX package pins position-carrying products to
+    ``Precision.HIGHEST`` because a TPU rounds f32 matmul inputs to bf16 by
+    default.  On the card the only such rounding is TF32, which the package
+    switches off at import (``torch.backends.cuda.matmul.allow_tf32 =
+    False``), so a plain ``torch.matmul`` is already strict f32.
+    """
+    return torch.matmul(x, m)
 
 
 def map_to_central(coords: Tensor, cell: Tensor, pbc: Tensor) -> Tensor:
