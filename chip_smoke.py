@@ -123,8 +123,20 @@ syncs, peak memory); and a chain solute solvated by
 `testing.make_solvated_system` from PDB files written here (E+F, 10 NVE
 steps with their launches, `profiling.Timer` beside CUDA events,
 `profiling.trace` naming a `scope` and K3, `utils.exact_matmul` against an
-f64 product).  Every number it prints was measured or computed in the run.  It prints a ``kernels`` JSON
-line (all nine kernels; K3, K3b and K3bb also at the training batch) and,
+f64 product).  Then phases 50-52 (`parallel_phases`, ANI-2x seed 0 at full
+width): `parallel.ShardedMolecularDynamics` on the 10,002-atom box with the
+domain-decomposed refresh, on an NCCL group of this one process (50) and on
+a gloo group of two processes that it spawns on the one card (51): `init`
+and 10 NVE steps against `MolecularDynamics`, K1, K2, K3 and K3b once a
+step on each process, K1 and K2 at each process's block of buckets against
+their plain versions, the exchange capacity and the rows each process
+sends; and the sharded training step (`make_mesh`, `shard_batch`,
+`shard_ensemble`, the unchanged `make_train_step`, SGD, phase 42's batch)
+as 1 x 1 on NCCL and 1 data x 2 model on gloo against the unsharded step,
+K3, K3b and K3bb once a step on each process.  The card is one H100, so
+these phases time nothing as scaling.  Every number it prints was measured or computed in the run.  It prints a ``kernels`` JSON
+line (all nine kernels; K3, K3b and K3bb also at the training batch; K1 and
+K2 also at the shards' buckets) and,
 last, ``{"ok": true, "device": {...}}``.  Any failed check raises, and the script exits non-zero without that last line; so does
 a machine with no CUDA device, or a directory without the package.  A few
 minutes of command time on an H100.
@@ -133,6 +145,7 @@ minutes of command time on an H100.
 import contextlib
 import io as io_mod
 import json
+import os
 import subprocess
 import sys
 import tempfile
@@ -253,6 +266,18 @@ X2_TRAIN_MOLECS, X2_TRAIN_STEPS = 256, 5
 #: run's loss and RMSE: on the card the networks' backward sums atoms with
 #: atomics in a run-dependent order, so two uninterrupted runs differ too
 LEARN_MOLECS, LEARN_EPOCHS, LEARN_DROP, RESUME_RTOL = 480, 5, 0.8, 1e-3
+#: the parallel phases (50-52): NVE steps of the sharded MD (phase 23's rule:
+#: coordinates within PAR_COORD_ATOL of the single-device run; K2's atomics
+#: make longer runs drift), the sharded `init` against
+#: `MolecularDynamics`' (energy relative, forces Ha/A: the same kernels, K2's
+#: and K3b's sums in another order); the sharded training step against the
+#: unsharded one under SGD at TRAIN_LR (an update proportional to the
+#: gradient: loss relative, parameters rtol / atol as
+#: tests/test_torch_parallel_training.py); steps timed; the seconds a
+#: collective and the spawned ranks may take
+PAR_MD_STEPS, PAR_COORD_ATOL, PAR_E_RTOL, PAR_F_ATOL = 10, 1e-4, 1e-6, 1e-5
+PAR_LOSS_RTOL, PAR_P_RTOL, PAR_P_ATOL, PAR_TIMED = 1e-6, 2e-5, 2e-7, 5
+PAR_COLLECTIVE_S, PAR_JOIN_S = 120, 600
 #: NeuroChem models (phases 46-47) against their source models on the box:
 #: the same weights through the same kernels, whose sums (K3b's atomics)
 #: run in a run-dependent order: energies relative, forces Ha/A
@@ -1415,6 +1440,387 @@ def loader_phases(card: str, kernels_fn: dict, reset_counts, read_counts,
           f"{time.perf_counter() - t_phases:.1f} s of wall time")
     return {"launches": paths}
 
+def kernel_wrappers() -> dict:
+    """The nine kernels' wrappers by name; each counts its launches in
+    ``launches``."""
+    from torchani_tpu_torch.aev.kernels import angular_aev, angular_aev_bwd, angular_aev_bwd_bwd
+    from torchani_tpu_torch.bucket_refresh import (
+        bucket_select_bwd,
+        bucket_select_fwd,
+        vals_select_bwd,
+        vals_select_fwd,
+    )
+    from torchani_tpu_torch.bucket_refresh_packed import packed_select_bwd, packed_select_fwd
+
+    return {
+        "angular_aev": angular_aev,
+        "angular_aev_bwd": angular_aev_bwd,
+        "angular_aev_bwd_bwd": angular_aev_bwd_bwd,
+        "bucket_select_fwd": bucket_select_fwd,
+        "bucket_select_bwd": bucket_select_bwd,
+        "vals_select_fwd": vals_select_fwd,
+        "vals_select_bwd": vals_select_bwd,
+        "packed_select_fwd": packed_select_fwd,
+        "packed_select_bwd": packed_select_bwd,
+    }
+
+
+def launch_counts(kernels: dict) -> tuple:
+    """``(reset, read)``: set every wrapper's count to 0; read them all, by name."""
+    def reset():
+        for fn in kernels.values():
+            fn.launches = 0
+
+    def read():
+        return {name: fn.launches for name, fn in kernels.items()}
+
+    return reset, read
+
+
+def shard_select_errors(smd, state) -> tuple:
+    """K1 and K2 at a `ShardedMolecularDynamics`' own block of buckets (G' / D of them)
+    against their plain versions: K1's max error over the occupied lanes
+    (it leaves the others unwritten; 0 required), K2's max error (within
+    1e-5 (1 + |p|) required), and the block's G."""
+    from torchani_tpu_torch.bucket_refresh import (
+        bucket_select_bwd,
+        bucket_select_bwd_reference,
+        bucket_select_fwd,
+        bucket_select_reference,
+        cand_table_from_slots,
+        slot_positions,
+    )
+
+    b = state.bucket
+    grid = tuple(b.wrapshift.shape[:3])
+    g = grid[0] * grid[1] * grid[2]
+    c = b.atom_of_slot.shape[0] // g
+    gl = b.keys_pad.shape[0] // smd.num_shards
+    blk = slice(smd.shard * gl, (smd.shard + 1) * gl)
+    with torch.no_grad():
+        canon = smd._to_internal(state.coords) - b.wrap_offset
+        cand = cand_table_from_slots(slot_positions(canon, b.atom_of_slot, b.slot_of_atom),
+                                     b.wrapshift, grid, c)
+        cand = torch.nn.functional.pad(cand, (0, 0, 0, 0, 0, 0, 0, b.keys_pad.shape[0] - g))
+        cand_l, keys_l, nl_l = cand[blk].contiguous(), b.keys_pad[blk], b.nlanes[blk]
+        out = bucket_select_fwd(cand_l, keys_l, nl_l)
+        ref = bucket_select_reference(cand_l, keys_l, nl_l)
+        occupied = (torch.arange(keys_l.shape[1], device=out.device)[None, :] < nl_l[:, None])
+        k1_err = float(torch.where(occupied[..., None], (out - ref).abs(), 0.0).max())
+        gen = torch.Generator(out.device).manual_seed(50 + smd.shard)
+        g_out = torch.randn(out.shape, device=out.device, generator=gen)
+        d_k = bucket_select_bwd(g_out, keys_l, c, nl_l)
+        d_ref = bucket_select_bwd_reference(g_out, keys_l, c, nl_l)
+    check(k1_err == 0.0, f"K1 at the shard's {gl} buckets equals its plain version")
+    check(within(d_k, d_ref, 1e-5), f"K2 at the shard's {gl} buckets within 1e-5 of its plain version")
+    return k1_err, float((d_k - d_ref).abs().max()), gl
+
+
+def sharded_md_run(smd, state, steps: int, counts) -> tuple:
+    """``steps`` NVE steps of an MD runner, each timed to a synchronize,
+    with the kernels' launches counted over them: ``(state, ms a step,
+    launches, peak GiB)``."""
+    reset, read = counts
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset()
+    times = []
+    for _ in range(steps):
+        t0 = time.perf_counter()
+        state = smd.step_nve(state)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return state, times, read(), torch.cuda.max_memory_allocated() / 2**30
+
+
+def sharded_md_case(model, box, mesh, velocities, counts) -> tuple:
+    """Phases 50 and 51 on one process: `ShardedMolecularDynamics` on the
+    water box ``box`` over ``mesh``, `init`, K1 and K2 at this process's
+    block of buckets (`shard_select_errors`), then PAR_MD_STEPS NVE steps
+    from ``velocities`` (`sharded_md_run`).  Returns the results, the driver
+    and its last state."""
+    from torchani_tpu_torch.parallel import ShardedMolecularDynamics
+    from torchani_tpu_torch.parallel.md import ExchangeTables
+
+    species, coords, cell = box
+    smd = ShardedMolecularDynamics(model, species, mesh, cell=cell, pbc=True)
+    st = smd.init(coords)
+    out = {"exchange": isinstance(st.bucket, ExchangeTables), "init_energy": float(st.energy),
+           "init_forces": st.forces.cpu().numpy()}
+    st = st.replace(velocities=torch.as_tensor(velocities, device=st.coords.device))
+    out["k1_err"], out["k2_err"], out["g_block"] = shard_select_errors(smd, st)
+    st, out["md_ms"], out["md_launches"], out["md_peak"] = sharded_md_run(
+        smd, st, PAR_MD_STEPS, counts)
+    out.update(coords=st.coords.cpu().numpy(), overflow=bool(st.overflow), rebuilds=st.rebuilds,
+               t_cap=smd._exch_T)
+    return out, smd, st
+
+
+def training_batch(dev) -> dict:
+    """Phase 42's batch: `make_molecs(TRAIN_BATCH, TRAIN_ATOMS, seed=0)`."""
+    from torchani_tpu_torch.testing import make_molecs
+
+    sp_t, co_t = make_molecs(TRAIN_BATCH, TRAIN_ATOMS, seed=0)
+    return {
+        "species": torch.as_tensor(sp_t, device=dev), "coordinates": torch.as_tensor(co_t, device=dev),
+        "energies": torch.as_tensor(np.random.RandomState(1).randn(TRAIN_BATCH).astype(np.float32),
+                                    device=dev),
+        "forces": torch.zeros(co_t.shape, device=dev),
+    }
+
+
+def sharded_training(mesh, counts) -> dict:
+    """One SGD force step of the 8-member ANI-2x (seed 0, no self energies)
+    on phase 42's batch with the networks from `shard_ensemble` and the
+    batch from `shard_batch` (this process's members and molecules), its
+    launches, then PAR_TIMED more steps timed."""
+    import copy
+    import functools
+
+    from torchani_tpu_torch.models import ANI2x
+    from torchani_tpu_torch.parallel import shard_batch, shard_ensemble
+    from torchani_tpu_torch.training import make_train_step
+
+    reset, read = counts
+    model = ANI2x(seed=0)
+    model.energy_shifter.enabled = False
+    init, step = make_train_step(model, functools.partial(torch.optim.SGD, lr=TRAIN_LR),
+                                 force_training=True)
+    state = init(shard_ensemble(copy.deepcopy(model.neural_networks), mesh))
+    batch = shard_batch(training_batch(torch.device("cuda")), mesh)
+    torch.cuda.synchronize()
+    reset()
+    state, m = step(state, batch)
+    torch.cuda.synchronize()
+    launches = read()
+    params = {n: p.detach().cpu().numpy().copy() for n, p in state.networks.named_parameters()}
+    times = []
+    for _ in range(PAR_TIMED):
+        t0 = time.perf_counter()
+        state, _ = step(state, batch)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return {"loss": float(m["loss"]), "params": params, "launches": launches, "ms": times,
+            "model_rank": mesh.get_local_rank("model"), "members": state.networks.weights[0].shape[0]}
+
+
+def parallel_rank(rank: int, root: str) -> None:
+    """One of the two processes of phases 51 and 52 (gloo, both on the one
+    card): the sharded MD on the water box and the sharded training step;
+    results, or the traceback, into ``root``."""
+    import datetime
+    import pickle
+    import traceback
+
+    try:
+        torch.cuda.set_device(0)
+        with open(f"{root}/payload.pkl", "rb") as f:
+            p = pickle.load(f)
+        torch.distributed.init_process_group(
+            "gloo", init_method=f"file://{root}/rendezvous", world_size=2, rank=rank,
+            timeout=datetime.timedelta(seconds=PAR_COLLECTIVE_S))
+        from torch.distributed.device_mesh import init_device_mesh
+
+        from torchani_tpu_torch.models import ANI2x
+        from torchani_tpu_torch.parallel import make_mesh
+        from torchani_tpu_torch.testing import make_water_box
+
+        counts = launch_counts(kernel_wrappers())
+        out, smd, st = sharded_md_case(
+            ANI2x(seed=0), make_water_box(10002),
+            init_device_mesh("cuda", (2,), mesh_dim_names=("atoms",)), p["velocities"], counts)
+        b = st.bucket
+        per = b.aos_pad.shape[0] // 2
+        sent = (b.send_idx[rank] < per).reshape(2, -1).sum(dim=1).cpu().numpy()
+        out["rows_sent"] = {"to_self": int(sent[rank]), "to_other": int(sent[1 - rank])}
+        del smd, st, b
+        torch.cuda.empty_cache()
+        out["train"] = sharded_training(make_mesh(n_data=1, n_model=2), counts)
+        torch.distributed.destroy_process_group()
+        with open(f"{root}/rank{rank}.pkl", "wb") as f:
+            pickle.dump(out, f)
+    except BaseException:
+        with open(f"{root}/rank{rank}.err", "w") as f:
+            f.write(traceback.format_exc())
+        raise
+
+
+def gloo_ranks(root: str, velocities) -> list:
+    """Phases 51 and 52 b: `parallel_rank` in two spawned processes, joined
+    (or killed) within PAR_JOIN_S; their results, by rank."""
+    import multiprocessing
+    import pickle
+
+    with open(f"{root}/payload.pkl", "wb") as f:
+        pickle.dump({"velocities": velocities}, f)
+    ctx = multiprocessing.get_context("spawn")
+    procs = [ctx.Process(target=parallel_rank, args=(r, root)) for r in range(2)]
+    t0 = time.perf_counter()
+    for p_ in procs:
+        p_.start()
+    for p_ in procs:
+        p_.join(max(0.0, PAR_JOIN_S - (time.perf_counter() - t0)))
+    hung = [p_ for p_ in procs if p_.is_alive()]
+    for p_ in hung:
+        p_.kill()
+        p_.join()
+    errs = [open(f"{root}/{n}").read() for n in sorted(os.listdir(root)) if n.endswith(".err")]
+    check(not hung and all(p_.exitcode == 0 for p_ in procs),
+          f"phases 51-52: both gloo processes end within {PAR_JOIN_S} s\n" + "\n".join(errs))
+    ranks = []
+    for r in range(2):
+        with open(f"{root}/rank{r}.pkl", "rb") as f:
+            ranks.append(pickle.load(f))
+    return ranks
+
+
+def parallel_phases(card: str) -> dict:
+    """Phases 50-52: `parallel` on the card.  50: `ShardedMolecularDynamics`
+    on an NCCL group of one process; 51: on a gloo group of two processes
+    on the one card; 52: `make_mesh`, `shard_batch`, `shard_ensemble` and
+    the unchanged `make_train_step` as 1 x 1 on NCCL and 1 data x 2 model
+    on gloo.  The card is one H100: these phases prove results and launch
+    counts, not scaling.  Returns the launches of each path and K1's and
+    K2's errors at the shards' tables."""
+    import copy
+    import datetime
+    import functools
+
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from torchani_tpu_torch.md import MolecularDynamics
+    from torchani_tpu_torch.models import ANI2x
+    from torchani_tpu_torch.parallel import make_mesh
+    from torchani_tpu_torch.profiling import wall_times_ms
+    from torchani_tpu_torch.testing import make_water_box
+    from torchani_tpu_torch.training import make_train_step
+
+    t_phases = time.perf_counter()
+    kernels = kernel_wrappers()
+    counts = launch_counts(kernels)
+    md_want = {n: PAR_MD_STEPS if n in ("angular_aev", "angular_aev_bwd", "bucket_select_fwd",
+                                        "bucket_select_bwd") else 0 for n in kernels}
+    train_want = {n: int(n.startswith("angular")) for n in kernels}
+    paths, errors = {}, {}
+    box = make_water_box(10002)
+    species, coords, cell = box
+
+    # the single-device references on the card: init at 300 K (phase 5's
+    # start), PAR_MD_STEPS NVE steps; the unsharded SGD force step
+    model = ANI2x(seed=0)
+    md1 = MolecularDynamics(model, species, cell=cell, pbc=True)
+    start1 = md1.init(coords, temperature=300.0, generator=torch.Generator().manual_seed(0))
+    end1, ms1, _, peak1 = sharded_md_run(md1, start1, PAR_MD_STEPS, counts)
+    t_model = ANI2x(seed=0)
+    t_model.energy_shifter.enabled = False
+    init, step = make_train_step(t_model, functools.partial(torch.optim.SGD, lr=TRAIN_LR),
+                                 force_training=True)
+    t_batch = training_batch(torch.device("cuda"))
+    t_state, t_m = step(init(copy.deepcopy(t_model.neural_networks)), t_batch)
+    ref_params = {n: p.detach().cpu().numpy().copy() for n, p in t_state.networks.named_parameters()}
+    ref_loss = float(t_m["loss"])
+    t_ms = wall_times_ms(lambda: step(t_state, t_batch), reps=PAR_TIMED)
+    del t_state, t_model, t_batch
+
+    def check_md(tag, out):
+        check(out["exchange"], f"{tag}: the sharded refresh is engaged")
+        de = abs(out["init_energy"] - float(start1.energy)) / abs(float(start1.energy))
+        df = float(np.abs(out["init_forces"] - start1.forces.cpu().numpy()).max())
+        dx = float(np.abs(out["coords"] - end1.coords.cpu().numpy()).max())
+        check(de <= PAR_E_RTOL and df <= PAR_F_ATOL,
+              f"{tag}: init energy (rel {de:.2e}) and forces ({df:.2e}) equal MolecularDynamics'")
+        check(dx <= PAR_COORD_ATOL, f"{tag}: {PAR_MD_STEPS} NVE steps within {PAR_COORD_ATOL} A "
+              f"of the single-device run ({dx:.2e})")
+        check(out["md_launches"] == md_want,
+              f"{tag}: K1, K2, K3 and K3b once per step, no other kernel ({out['md_launches']})")
+        check(not out["overflow"], f"{tag}: no overflow")
+        return de, df, dx
+
+    def check_train(tag, tr):
+        rel = abs(tr["loss"] - ref_loss) / abs(ref_loss)
+        check(rel <= PAR_LOSS_RTOL, f"{tag}: the loss equals the unsharded step's (rel {rel:.2e})")
+        worst, m, r = 0.0, tr["members"], tr["model_rank"]
+        for n, v in tr["params"].items():
+            want = ref_params[n][r * m:(r + 1) * m]
+            check(bool(np.all(np.abs(v - want) <= PAR_P_ATOL + PAR_P_RTOL * np.abs(want))),
+                  f"{tag}: {n} equals the unsharded step's members")
+            worst = max(worst, float(np.abs(v - want).max()))
+        check(tr["launches"] == train_want,
+              f"{tag}: K3, K3b and K3bb once in the step, no other kernel ({tr['launches']})")
+        return rel, worst
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_parallel_") as root:
+        # ---- 50. ShardedMolecularDynamics on NCCL, a world of one ----
+        dist.init_process_group("nccl", init_method=f"file://{root}/nccl", world_size=1, rank=0,
+                                timeout=datetime.timedelta(seconds=PAR_COLLECTIVE_S))
+        try:
+            out, smd, st = sharded_md_case(
+                model, box, init_device_mesh("cuda", (1,), mesh_dim_names=("atoms",)),
+                start1.velocities, counts)
+            paths["sharded_md_nccl1"] = out["md_launches"]
+            errors["nccl1"] = {"k1": out["k1_err"], "k2": out["k2_err"], "g": out["g_block"]}
+            de, df, dx = check_md("phase 50 (NCCL, 1 process)", out)
+            # single-device and sharded steps alternately, for the times
+            alt = {"single": [end1, md1, []], "sharded": [st, smd, []]}
+            for _ in range(PAR_MD_STEPS):
+                for run in alt.values():
+                    t0 = time.perf_counter()
+                    run[0] = run[1].step_nve(run[0])
+                    torch.cuda.synchronize()
+                    run[2].append((time.perf_counter() - t0) * 1e3)
+            alt1, alt50 = alt["single"][2], alt["sharded"][2]
+            print(f"{card}: phase 50, ShardedMolecularDynamics on NCCL (1 process, 10,002 atoms, "
+                  f"exchange T = {out['t_cap']}, {out['g_block']} buckets): init |dE|/E {de:.2e}, "
+                  f"max |dF| {df:.2e} Ha/A, {PAR_MD_STEPS} steps max |dx| {dx:.2e} A against "
+                  f"MolecularDynamics; K1 at the shard's tables err {out['k1_err']:.1e}, K2 "
+                  f"{out['k2_err']:.2e}; launches {out['md_launches']}; ms a step: counted run "
+                  f"median {np.median(out['md_ms']):.3f} (single-device {np.median(ms1):.3f}), "
+                  f"alternating median {np.median(alt50):.3f} against {np.median(alt1):.3f}; "
+                  f"peak {out['md_peak']:.3f} GiB (single-device {peak1:.3f}), {held_gib():.3f} held")
+            del smd, st, alt
+
+            # ---- 52 a. sharded training on NCCL, 1 x 1 ----
+            tr = sharded_training(make_mesh(n_data=1, n_model=1), counts)
+            paths["train_sharded_nccl1"] = tr["launches"]
+            rel, worst = check_train("phase 52 (NCCL, 1 x 1)", tr)
+            print(f"{card}: phase 52, sharded SGD force step of the 8-member ANI-2x on NCCL, 1 x 1, "
+                  f"batch {TRAIN_BATCH} x {TRAIN_ATOMS}: loss rel {rel:.2e}, parameters max |d| "
+                  f"{worst:.2e} against the unsharded step; launches {tr['launches']}; median "
+                  f"{np.median(tr['ms']):.3f} ms a step against the unsharded {np.median(t_ms):.3f}")
+        finally:
+            dist.destroy_process_group()
+        torch.cuda.empty_cache()
+
+        # ---- 51 and 52 b. two processes on gloo, both on the one card ----
+        ranks = gloo_ranks(root, start1.velocities.cpu().numpy())
+    check(np.array_equal(ranks[0]["coords"], ranks[1]["coords"]),
+          "phase 51: both processes hold the same coordinates, to the bit")
+    for r, out in enumerate(ranks):
+        tag = f"phase 51 (gloo, rank {r} of 2)"
+        de, df, dx = check_md(tag, out)
+        paths[f"sharded_md_gloo2_rank{r}"] = out["md_launches"]
+        errors[f"gloo2_rank{r}"] = {"k1": out["k1_err"], "k2": out["k2_err"], "g": out["g_block"]}
+        print(f"{card}: {tag}: exchange T = {out['t_cap']}, slot rows sent {out['rows_sent']}, "
+              f"K1 at the shard's {out['g_block']} buckets err {out['k1_err']:.1e}, K2 "
+              f"{out['k2_err']:.2e}; init |dE|/E {de:.2e}, max |dF| {df:.2e} Ha/A, "
+              f"{PAR_MD_STEPS} steps max |dx| {dx:.2e} A, {out['rebuilds']} rebuilds; launches "
+              f"{out['md_launches']}; median {np.median(out['md_ms']):.3f} ms a step (gloo through "
+              f"host memory, two processes on one card: not a scaling number); peak "
+              f"{out['md_peak']:.3f} GiB")
+        tr = out["train"]
+        tag = f"phase 52 (gloo, 1 data x 2 model, rank {r})"
+        rel, worst = check_train(tag, tr)
+        check(tr["members"] == 4, f"{tag}: 4 members a process")
+        paths[f"train_sharded_gloo2_rank{r}"] = tr["launches"]
+        print(f"{card}: {tag}: {tr['members']} members, loss rel {rel:.2e}, parameters max |d| "
+              f"{worst:.2e} against the unsharded step; launches {tr['launches']}; median "
+              f"{np.median(tr['ms']):.3f} ms a step (gloo through host memory: not a scaling "
+              f"number)")
+    print(f"new phases (parallel): {time.perf_counter() - t_phases:.1f} s of wall time")
+    return {"launches": paths, "errors": errors}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
@@ -1705,29 +2111,16 @@ def main() -> int:
     check(dae <= ATOMIC_E_ATOL, "atomic energies agree with the CPU")
 
     # ---- 5. the MD main path: init at 300 K and 50 NVE steps ----
-    kernels_fn = {
-        "angular_aev": angular_aev,
-        "angular_aev_bwd": angular_aev_bwd,
-        "angular_aev_bwd_bwd": angular_aev_bwd_bwd,
-        "bucket_select_fwd": bucket_select_fwd,
-        "bucket_select_bwd": bucket_select_bwd,
-        "vals_select_fwd": vals_select_fwd,
-        "vals_select_bwd": vals_select_bwd,
-        "packed_select_fwd": packed_select_fwd,
-        "packed_select_bwd": packed_select_bwd,
-    }
+    kernels_fn = kernel_wrappers()
+    reset_launches, read_counts = launch_counts(kernels_fn)
 
     def reset_counts():
-        for fn in kernels_fn.values():
-            fn.launches = 0
+        reset_launches()
         angular_grid.calls = 0
 
     def k3b_once_per_evaluation(counts, what):
         check(counts["angular_aev_bwd"] == counts["angular_aev"] and angular_grid.calls == 0,
               f"{what}: K3b launched as often as K3 (once per evaluation), no plain angular grid")
-
-    def read_counts():
-        return {name: fn.launches for name, fn in kernels_fn.items()}
 
     reset_counts()
     md_model = ANI2x(pretrained=False, seed=0)
@@ -3726,6 +4119,10 @@ def main() -> int:
     torch.cuda.empty_cache()
     loaders = loader_phases(card, kernels_fn, reset_counts, read_counts, train["step_ms"]["force"])
 
+    # ---- 50-52. atom-sharded MD and sharded training (`parallel_phases`) ----
+    torch.cuda.empty_cache()
+    parallel = parallel_phases(card)
+
     def entry(name, source, replaces, err, ms, plain, bound, by, library):
         return {
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
@@ -3745,6 +4142,7 @@ def main() -> int:
                 **{k_: v[name] for k_, v in slice14.items()},
                 **{k_: v[name] for k_, v in train["launches"].items()},
                 **{k_: v[name] for k_, v in loaders["launches"].items()},
+                **{k_: v[name] for k_, v in parallel["launches"].items()},
             },
             "max_abs_err": err, "ms": ms, "plain_ms": plain, "bound_ms": bound,
             "bound_by": by, "library_ms": library,
@@ -3834,6 +4232,12 @@ def main() -> int:
             **({"grid": t_k["grid"]} if "grid" in t_k else {}),
             "launches_force_step": train["launches"]["train_force_step"][name],
             "launches_energy_step": train["launches"]["train_energy_step"][name],
+        }
+    # K1 and K2 at the sharded MD's blocks of buckets (phases 50-51)
+    for key, name in (("k1", "bucket_select_fwd"), ("k2", "bucket_select_bwd")):
+        next(k_ for k_ in kernels if k_["name"] == name)["at_shards"] = {
+            where: {"max_abs_err": e[key], "buckets": e["g"]}
+            for where, e in parallel["errors"].items()
         }
     for p_, name in ((1, "vals_select_fwd"), (1, "vals_select_bwd")):
         side = "f" if name.endswith("fwd") else "b"

@@ -23,13 +23,9 @@ from test_api_parity import REFERENCE_SURFACE
 #: (a module that the port lacks altogether lists all of its names)
 MISSING: dict = {}
 
-_PARALLEL = "multi-GPU (DDP, atom-sharded MD) is the next slice of the port"
 #: the JAX package's public names that the port leaves out, by module
 #: (relative to the package), with the reason
 LEFT_OUT = {
-    "parallel": ("ShardedMolecularDynamics make_mesh shard_batch shard_ensemble", _PARALLEL),
-    "parallel.md": ("ShardedMolecularDynamics", _PARALLEL),
-    "parallel.sharding": ("make_mesh shard_batch shard_ensemble", _PARALLEL),
     "aev.pallas_kernels": (
         "angular_aev_pallas",
         "the TPU kernel; its port is K3, `torchani_tpu_torch.aev.kernels.angular_aev`",

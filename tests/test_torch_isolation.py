@@ -27,6 +27,7 @@ from torchani_tpu_torch.neurochem import (
 )
 from torchani_tpu_torch.observables import mean_squared_displacement, radial_distribution
 from torchani_tpu_torch.optimize import minimize_fire, minimize_fire_batched
+from torchani_tpu_torch.parallel import ShardedMolecularDynamics
 from torchani_tpu_torch.replica import ReplicaExchange
 from torchani_tpu_torch.nn import ANISharedNetworks, AtomicEmbedding, AtomicNetwork, SingleNN
 from torchani_tpu_torch.potentials import (
@@ -70,7 +71,8 @@ def test_new_modules_are_covered():
         "datasets/batching.py", "datasets/builtin.py", "datasets/filters.py",
         "transforms.py", "sae_estimation.py", "training/__init__.py", "training/loop.py",
         "training/checkpoints.py", "training/metrics.py", "training/schedules.py",
-        "neurochem.py", "legacy_data.py",
+        "neurochem.py", "legacy_data.py", "parallel/__init__.py", "parallel/md.py",
+        "parallel/sharding.py",
     ):
         assert f"torchani_tpu_torch/{module}" in names
 
@@ -124,15 +126,16 @@ def test_no_jax_imports(path):
 
 def test_data_and_training_load_no_jax():
     """Importing the data and training stacks, the NeuroChem loaders, the
-    legacy data pipeline and the profiling module (in a fresh interpreter)
-    loads neither JAX nor any module of the JAX package."""
+    legacy data pipeline, the profiling module and `parallel` (in a fresh
+    interpreter) loads neither JAX nor any module of the JAX package."""
     import subprocess
     import sys
 
     code = (
         "import sys; import torchani_tpu_torch.datasets, torchani_tpu_torch.training, "
         "torchani_tpu_torch.transforms, torchani_tpu_torch.sae_estimation, torchani_tpu_torch.cli, "
-        "torchani_tpu_torch.neurochem, torchani_tpu_torch.legacy_data, torchani_tpu_torch.profiling; "
+        "torchani_tpu_torch.neurochem, torchani_tpu_torch.legacy_data, torchani_tpu_torch.profiling, "
+        "torchani_tpu_torch.parallel; "
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'flax', 'optax', 'torchani_tpu')); print(bad)"
     )
@@ -200,6 +203,7 @@ def no_cuda(monkeypatch):
         lambda: load_model_from_info(__file__),
         lambda: modules_from_info_file(__file__),
         lambda: load_ensemble(("H",), "train", 1),
+        lambda: ShardedMolecularDynamics(models.ANI2x(model_index=0, device="cpu"), WATER, None),
     ],
     ids=[
         "ANI2x", "ANI2x-cuda", "ANI2dr", "ANI2xr", "ANI1x", "ANI1ccx", "simple_ani", "RepulsionXTB", "RepulsionZBL",
@@ -212,7 +216,7 @@ def no_cuda(monkeypatch):
         "FixedCoulomb", "FixedMNOK", "Radial", "AtomicNetwork", "AtomicEmbedding",
         "make_tensor", "make_elem_idxs", "make_molec", "make_neighbors", "SubtractSAE",
         "SubtractRepulsionXTB", "load_sae", "load_atomic_network", "load_model_from_info",
-        "modules_from_info_file", "load_ensemble",
+        "modules_from_info_file", "load_ensemble", "ShardedMolecularDynamics",
     ],
 )
 def test_default_device_raises_without_cuda(no_cuda, entry):

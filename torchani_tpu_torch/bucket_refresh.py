@@ -50,6 +50,7 @@ from torch.autograd.function import once_differentiable
 
 from torchani_tpu_torch.annotations import Tensor
 from torchani_tpu_torch.neighbors import rank_in_bucket
+from torchani_tpu_torch.utils import perm_gather
 
 __all__ = [
     "BucketTables",
@@ -59,6 +60,9 @@ __all__ = [
     "bucket_select_bwd",
     "bucket_select_reference",
     "bucket_select_bwd_reference",
+    "select_slot_rows",
+    "slot_positions",
+    "cand_table_from_slots",
     "bucket_lane_values",
     "select_lane_values",
     "vals_select_fwd",
@@ -692,18 +696,24 @@ def _section_rows(grid: tp.Tuple[int, int, int], device: torch.device) -> tp.Tup
     )
 
 
+def _sections(slots: Tensor, grid, c: int) -> Tensor:
+    """(G, 27, C, P) sections of every bucket from a slot table ``(G * C,
+    P)``: section ``o`` of bucket ``b`` is the slot table of bucket
+    ``wrap(b3 + off_o)`` (what 27 rolls of the ``(gx, gy, gz, C, P)`` slot
+    table give), one row gather of G*27 slot tables."""
+    g = grid[0] * grid[1] * grid[2]
+    p = slots.shape[1]
+    cand = slots.reshape(g, c * p).index_select(0, _section_rows(grid, slots.device)[0])
+    return cand.reshape(g, 27, c, p)
+
+
 def _slot_sections(values: Tensor, atom_of_slot: Tensor, grid, c: int) -> Tensor:
     """(G, 27, C, P) candidate values of every bucket from per-atom ``values
-    (A, P)``: section ``o`` of bucket ``b`` is the slot table of bucket
-    ``wrap(b3 + off_o)`` (what 27 rolls of the ``(gx, gy, gz, C, P)`` slot
-    table give).  Two row gathers: G*C atoms, then G*27 slot tables."""
-    gx, gy, gz = grid
-    g = gx * gy * gz
+    (A, P)`` (`_sections` of their slot table).  Two row gathers: G*C atoms,
+    then G*27 slot tables."""
     a, p = values.shape
     vals_pad = torch.cat([values, values.new_zeros((1, p))])
-    valsb = vals_pad.index_select(0, atom_of_slot.clamp(max=a)).reshape(g, c * p)
-    cand = valsb.index_select(0, _section_rows(grid, values.device)[0])
-    return cand.reshape(g, 27, c, p)
+    return _sections(vals_pad.index_select(0, atom_of_slot.clamp(max=a)), grid, c)
 
 
 def _cand_table_transpose(d_cand: Tensor, grid, c: int) -> Tensor:
@@ -777,6 +787,69 @@ def bucket_nbr_pos(
     an exact selection; the forward launches K1 and the backward K2 (no
     per-atom scatter).  Masked lanes and atoms without a slot give 0."""
     return _BucketNbrPos.apply(canon, keys, atom_of_slot, slot_of_atom, wrapshift)
+
+
+# ---------------------------------------------------------------------------
+# the slot-row pieces of the refresh, for a caller that shards the buckets
+# ---------------------------------------------------------------------------
+
+
+class _SelectSlotRows(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, cand, keys, nlanes):
+        g, _, c, _ = cand.shape
+        ctx.c = c
+        ctx.save_for_backward(keys, nlanes)
+        # r = c * K + k: the slot-row table is a view of K1's output
+        return bucket_select_fwd(cand, keys, nlanes).reshape(g * c, -1)
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, g_rows):
+        keys, nlanes = ctx.saved_tensors
+        g_out = g_rows.contiguous().reshape(keys.shape[0], keys.shape[1], 3)
+        return bucket_select_bwd(g_out, keys, ctx.c, nlanes), None, None
+
+
+def select_slot_rows(cand: Tensor, keys: Tensor, nlanes: tp.Optional[Tensor]) -> Tensor:
+    """Per-slot-row neighbor positions from a prebuilt candidate table: the
+    core of `bucket_nbr_pos` for a block of buckets (one shard's, in
+    `torchani_tpu_torch.parallel.md`).
+
+    ``cand (G, 27, C, 3)`` f32 is the block's candidate table, ``keys (G,
+    C*K)`` int32 its lane keys and ``nlanes (G,)`` int32 each bucket's
+    occupied lanes.  Returns ``(G*C, K*3)`` slot rows; the forward launches
+    K1 and the backward K2.  Rows of empty slots are left unwritten by K1:
+    read only occupied slots' rows."""
+    return _SelectSlotRows.apply(cand, keys, nlanes)
+
+
+def slot_positions(canon: Tensor, atom_of_slot: Tensor, slot_of_atom: Tensor) -> Tensor:
+    """``canon[atom_of_slot]`` ``(G*C, 3)``, 0 in empty slots.  The slot and
+    atom maps are inverse on occupied slots, so the backward is the row
+    gather by ``slot_of_atom`` (`utils.perm_gather`), not an ``index_add``."""
+    gc = atom_of_slot.shape[0]
+    return perm_gather(canon, atom_of_slot, torch.where(slot_of_atom >= 0, slot_of_atom, gc))
+
+
+class _CandTable(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, posb, grid, c):
+        ctx.grid, ctx.c = grid, c
+        return _sections(posb, grid, c)
+
+    @staticmethod
+    def backward(ctx, d_cand):
+        return _cand_table_transpose(d_cand.contiguous(), ctx.grid, ctx.c), None, None
+
+
+def cand_table_from_slots(posb: Tensor, wrapshift: Tensor, grid, c: int) -> Tensor:
+    """(G, 27, C, 3) candidate table from a slot-position table ``posb (G*C,
+    3)`` (`slot_positions`): `_cand_table` with the slot table given, whose
+    backward sums each bucket's 27 sections by a gather
+    (`_cand_table_transpose`)."""
+    g = grid[0] * grid[1] * grid[2]
+    return _CandTable.apply(posb, tuple(grid), c) + wrapshift.reshape(g, 27, 1, 3)
 
 
 # ---------------------------------------------------------------------------

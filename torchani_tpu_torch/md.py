@@ -751,8 +751,11 @@ class MolecularDynamics:
         nb: Neighbors,
         cs: Tensor,
         pair_aux: tp.Optional[tp.Dict[str, Tensor]] = None,
+        model=None,
     ) -> Tensor:
-        """Total potential energy from a refreshed table (internal order).
+        """Total potential energy from a refreshed table (internal order), of
+        ``model`` (a copy of ``self.model`` with some terms disabled) or by
+        default of ``self.model``.
 
         Without lane prefixes and frozen channels this is
         ``model.compute_from_neighbors`` with the species known here.  With
@@ -760,15 +763,16 @@ class MolecularDynamics:
         distance-sorted lanes instead of the full K, and ``pair_aux`` (the
         state's frozen window channels) is attached per potential, cut to
         the same prefix."""
+        model = self.model if model is None else model
         if not self._lane_prefixes and not self._freeze_pair:
             nbn = narrow_to_cutoff(nb, self.cutoff)
-            out = self.model.compute_from_neighbors(
+            out = model.compute_from_neighbors(
                 self.elem_idxs, cs[None], _batch1(nbn), species_ranges=self._species_ranges
             )
             return torch.sum(out.energies)
         e = cs.new_zeros(())
-        for name in sorted(self.model.potentials):
-            pot = self.model.potentials[name]
+        for name in sorted(model.potentials):
+            pot = model.potentials[name]
             if not pot.enabled:
                 continue
             p = self._lane_prefixes.get(name)
@@ -783,8 +787,8 @@ class MolecularDynamics:
                     species_ranges=self._species_ranges,
                 )
             )
-        if self.model.energy_shifter.enabled:
-            e = e + torch.sum(self.model.energy_shifter(self.elem_idxs))
+        if model.energy_shifter.enabled:
+            e = e + torch.sum(model.energy_shifter(self.elem_idxs))
         return e
 
     def _energy_and_forces(self, state: MDState, coords: Tensor) -> tp.Tuple[Tensor, Tensor]:

@@ -23,6 +23,7 @@ import typing as tp
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from torchani_tpu_torch.annotations import Tensor
 from torchani_tpu_torch.arch import ANI, as_tensor
@@ -155,6 +156,31 @@ def _apply_grads(
     opt.step()
 
 
+def _data_parallel(
+    mesh, batch: Batch, loss: Tensor, n: int, params: tp.Sequence[Tensor],
+    grads: tp.Sequence[tp.Optional[Tensor]],
+) -> tp.Tuple[Tensor, tp.List[Tensor]]:
+    """The global loss and weight gradients of a step whose molecules are
+    split over the mesh's ``data`` group: the loss's numerator and molecule
+    count summed over the group, and each process's gradient weighted by
+    its share of the molecules and summed (one all-reduce of every
+    gradient).  ``n`` is this process's molecule count."""
+    group = mesh.get_group("data")
+    if dist.get_world_size(group) > 1 and getattr(batch, "mesh", None) is None:
+        raise ValueError(
+            "the networks are sharded over a data axis of more than one process: pass "
+            "this process's block of the batch (parallel.shard_batch)"
+        )
+    sums = torch.stack([loss.detach() * n, loss.new_tensor(float(n))])
+    dist.all_reduce(sums, group=group)
+    flat = torch.cat([
+        (torch.zeros_like(p) if g is None else g).reshape(-1) for p, g in zip(params, grads)
+    ]) * (n / sums[1])
+    dist.all_reduce(flat, group=group)
+    pieces = flat.split([p.numel() for p in params])
+    return sums[0] / sums[1], [g.reshape(p.shape) for g, p in zip(pieces, params)]
+
+
 def make_train_step(
     model_template: ANI,
     optimizer: OptimizerFactory,
@@ -175,6 +201,13 @@ def make_train_step(
     force loss through the forces' graph; ``"fwdrev"`` takes the same
     gradient by the JAX package's contraction (`_force_loss_fwdrev`).
     ``nn_precision`` changes nothing (module docs).
+
+    Sharded training (`torchani_tpu_torch.parallel`): where the networks
+    come from ``shard_ensemble`` or the batch from ``shard_batch``, each
+    process steps on its block of the batch and its members; the loss and
+    the gradients are then summed over the mesh's ``data`` group
+    (`_data_parallel`), so every process reports the global loss and takes
+    the same step.
     """
     if nn_precision not in _PRECISIONS:
         raise ValueError(f"nn_precision must be one of {_PRECISIONS}, got {nn_precision!r}")
@@ -200,6 +233,12 @@ def make_train_step(
                 b["forces"] if force_training else None, force_weight=force_weight,
             )
         grads = torch.autograd.grad(surrogate, params, allow_unused=True)
+        mesh = getattr(state.networks, "mesh", None)
+        if mesh is None:
+            mesh = getattr(batch, "mesh", None)
+        if mesh is not None:
+            n = b["species"].shape[0]
+            loss, grads = _data_parallel(mesh, batch, loss, n, params, grads)
         _apply_grads(state.opt_state, params, grads)
         state.step += 1
         return state, {"loss": loss.detach()}
