@@ -134,7 +134,14 @@ sends; and the sharded training step (`make_mesh`, `shard_batch`,
 `shard_ensemble`, the unchanged `make_train_step`, SGD, phase 42's batch)
 as 1 x 1 on NCCL and 1 data x 2 model on gloo against the unsharded step,
 K3, K3b and K3bb once a step on each process.  The card is one H100, so
-these phases time nothing as scaling.  Every number it prints was measured or computed in the run.  It prints a ``kernels`` JSON
+these phases time nothing as scaling.  Then phase 53 (`higher_order_phases`):
+third derivatives of ANI-2x on the 30-water cluster and the weight gradient
+of a Hessian-vector loss, card against CPU, with exact launches (the third
+pass differentiates a plain recompute, one `angular_grid` call a block),
+then a third derivative of the 10,002-atom box (blocks, time, memory);
+and phase 54 (`xyz_phases`): the native xyz parser must build, and 20
+frames of the box go through `write_xyz` and both `read_xyz` routes, bit
+for bit, with E+F of a frame read back.  Every number it prints was measured or computed in the run.  It prints a ``kernels`` JSON
 line (all nine kernels; K3, K3b and K3bb also at the training batch; K1 and
 K2 also at the shards' buckets) and,
 last, ``{"ok": true, "device": {...}}``.  Any failed check raises, and the script exits non-zero without that last line; so does
@@ -289,6 +296,18 @@ LEGACY_LOSS_RTOL = 1e-6
 #: 2, then cut to the box), the solute chain's most atoms, the box (A, the
 #: headline box's side) and the NVE steps
 SOLV_TEMPLATE_ATOMS, SOLV_SOLUTE_ATOMS, SOLV_BOX, SOLV_MD_STEPS = 1500, 160, 46.577, 10
+#: third derivatives (phase 53) of ANI-2x on phase 20's 30-water cluster:
+#: seeded (u, v) pairs of grad <grad <grad E, u>, v>; card against CPU
+#: |k - c| <= THIRD_ATOL max|c| + THIRD_RTOL |c| (three f32 backward passes
+#: over 8 members, K3b's and K3bb's sums in another order than the CPU's
+#: plain path), for the weight gradient of sum (H w)^2 too, tensor by tensor
+THIRD_PAIRS, THIRD_ATOL, THIRD_RTOL = 2, 1e-4, 1e-3
+#: then one third derivative of the water box on the card alone (blocks,
+#: time, peak memory)
+THIRD_BOX_ATOMS = 10002
+#: the xyz round trip (phase 54): frames of the 10,002-atom box written with
+#: `write_xyz` and read back by both routes
+XYZ_FRAMES = 20
 
 
 def check(ok: bool, what: str) -> None:
@@ -1819,6 +1838,246 @@ def parallel_phases(card: str) -> dict:
               f"number)")
     print(f"new phases (parallel): {time.perf_counter() - t_phases:.1f} s of wall time")
     return {"launches": paths, "errors": errors}
+
+
+def higher_order_phases(card: str, kernels_fn: dict, reset_counts, read_counts) -> dict:
+    """Phase 53: third derivatives of ANI-2x (8 members, seed 0) on phase
+    20's 30-water cluster, card against CPU.  For THIRD_PAIRS seeded (u, v),
+    grad <grad <grad E, u>, v>; then the weight gradient of sum (H w)^2 for
+    one Hessian-vector product H w.  On the card the third pass runs K3bb's
+    backward, `_bwd_bwd_vjp`, a plain recompute in atom blocks (one
+    `angular_grid` call a block); every other angular step is a kernel.
+    Exact launches a third derivative: K3 once, K3b and K3bb three times
+    (the third pass reaches K3b's first node through the lanes' second
+    derivative as well as K3b's second node); the weight gradient: K3 once,
+    K3b twice, K3bb three times (nothing below the AEV leads to a weight).
+    Then one third derivative of the THIRD_BOX_ATOMS-atom box (a cell list,
+    periodic): the same launches, the recompute's blocks, its time and peak
+    memory, and the bytes the recompute holds per element of a block's grid
+    (against `_THIRD_ORDER_GRID_BYTES`, measured on the CPU).  Returns the
+    launches of each path and the numbers printed."""
+    from torchani_tpu_torch.aev import computer as aev_computer
+    from torchani_tpu_torch.aev.computer import _GRID_BYTES, _THIRD_ORDER_GRID_BYTES
+    from torchani_tpu_torch.aev.kernels import angular_grid
+    from torchani_tpu_torch.models import ANI2x
+    from torchani_tpu_torch.neighbors import CellList
+    from torchani_tpu_torch.profiling import peak_gib, wall_times_ms
+    from torchani_tpu_torch.testing import make_water_box
+
+    t_phase = time.perf_counter()
+    sp, co, _ = make_water_box(90)
+    rng = np.random.RandomState(53)
+    uv = [tuple(rng.randn(*co.shape).astype(np.float32) for _ in range(2))
+          for _ in range(THIRD_PAIRS)]
+    w = rng.randn(*co.shape).astype(np.float32)
+    models = {where: ANI2x(pretrained=False, seed=0, device=where) for where in ("cuda", "cpu")}
+
+    def grad_e(m, x, species=sp, box=()):
+        (f,) = torch.autograd.grad(m(species, x, *box).sum(), x, create_graph=True)
+        return f
+
+    def hvp(m, x, d, **system):
+        d = torch.as_tensor(d, device=x.device)
+        (h,) = torch.autograd.grad((grad_e(m, x, **system) * d).sum(), x, create_graph=True)
+        return h
+
+    def third(m, u, v, coords=co, **system):
+        x = torch.as_tensor(coords, device=m.device).clone().requires_grad_(True)
+        (t,) = torch.autograd.grad(
+            (hvp(m, x, u, **system) * torch.as_tensor(v, device=x.device)).sum(), x)
+        return t
+
+    def recompute_blocks(m, species, coords, box=()):
+        """Rows, lanes, rows a block and blocks of `_bwd_bwd_vjp`'s recompute."""
+        aevc = m.aev_computer
+        elem = m._convert(torch.as_tensor(species, device="cuda"))
+        x = torch.as_tensor(coords, device="cuda")
+        nbrs = m.neighborlist(m.cutoff, elem, x, *(box or (None, None)))
+        _, ang, _ = aevc.flat_tables(elem, nbrs)
+        ka, rows_n = ang.capacity, ang.idx.shape[0]
+        block = max(1, aevc._atom_block(ka) * _GRID_BYTES // _THIRD_ORDER_GRID_BYTES)
+        return rows_n, ka, block, -(-rows_n // block)
+
+    def weight_grads(m):
+        x = torch.as_tensor(co, device=m.device).clone().requires_grad_(True)
+        params = list(m.parameters())
+        grads = torch.autograd.grad((hvp(m, x, w) ** 2).sum(), params, allow_unused=True)
+        return [torch.zeros_like(p) if g is None else g for p, g in zip(params, grads)]
+
+    def close(out, ref) -> float:
+        ref = ref.detach().cpu()
+        diff = (out.detach().cpu() - ref).abs()
+        check(bool(torch.isfinite(out).all()), "phase 53: finite")
+        check(bool((diff <= THIRD_ATOL * ref.abs().max() + THIRD_RTOL * ref.abs()).all()),
+              "phase 53: card against CPU")
+        return float(diff.max() / ref.abs().max().clamp(min=1e-30))
+
+    card_model = models["cuda"]
+    rows_n, ka, block, blocks = recompute_blocks(card_model, sp, co)
+    launches, errs = {}, []
+    want_third = {"angular_aev": 1, "angular_aev_bwd": 3, "angular_aev_bwd_bwd": 3}
+    for i, (u, v) in enumerate(uv):
+        reset_counts()
+        t_card = third(card_model, u, v)
+        torch.cuda.synchronize()
+        launches[f"third_derivative_{i}"] = counts = read_counts()
+        grid = angular_grid.calls
+        print(f"phase 53: third derivative {i}: launches {counts}, angular_grid calls {grid} "
+              f"(predicted {blocks}: {rows_n} rows, Ka = {ka}, blocks of {block})")
+        check(counts == {k_: want_third.get(k_, 0) for k_ in kernels_fn} and grid == blocks,
+              "phase 53: a third derivative launches K3 once, K3b and K3bb three times, "
+              "and calls angular_grid once a recompute block")
+        errs.append(close(t_card, third(models["cpu"], u, v)))
+    reset_counts()
+    g_card = weight_grads(card_model)
+    torch.cuda.synchronize()
+    launches["hessian_loss_weight_grad"] = counts = read_counts()
+    grid = angular_grid.calls
+    print(f"phase 53: weight gradient of sum (H w)^2: launches {counts}, angular_grid calls {grid}")
+    check(counts == {k_: {"angular_aev": 1, "angular_aev_bwd": 2,
+                          "angular_aev_bwd_bwd": 3}.get(k_, 0) for k_ in kernels_fn}
+          and grid == blocks,
+          "phase 53: the Hessian-loss weight gradient launches K3 once, K3b twice, K3bb three "
+          "times, and calls angular_grid once a recompute block")
+    g_cpu = weight_grads(models["cpu"])
+    g_err = max(close(a, b) for a, b in zip(g_card, g_cpu))
+    check(any(float(g.abs().max()) > 0 for g in g_card), "phase 53: some weight gradient is nonzero")
+    u, v = uv[0]
+    third_ms = wall_times_ms(lambda: third(card_model, u, v), reps=3)
+    held = held_gib()
+    third_peak = peak_gib(lambda: third(card_model, u, v))
+    wg_ms = wall_times_ms(lambda: weight_grads(card_model), reps=3)
+    wg_peak = peak_gib(lambda: weight_grads(card_model))
+    print(f"{card}: phase 53: third derivative of {co.shape[1]} atoms: max |dt| / max|t| card vs "
+          f"CPU {max(errs):.2e}; median {np.median(third_ms):.3f} ms ({third_ms}); peak device "
+          f"memory {third_peak:.3f} GiB ({held:.3f} held before the call); Hessian-loss weight "
+          f"gradient max |dg| / max|g| {g_err:.2e}, median {np.median(wg_ms):.3f} ms, peak "
+          f"{wg_peak:.3f} GiB")
+
+    # the box: the recompute in many blocks, on the card alone
+    del models["cpu"]
+    b_sp, b_co, b_cell = make_water_box(THIRD_BOX_ATOMS)
+    box_model = ANI2x(pretrained=False, seed=0)
+    box_model.neighborlist = CellList(capacity=96)
+    box = (torch.as_tensor(b_cell, dtype=torch.float32, device="cuda"),
+           torch.ones(3, dtype=torch.bool, device="cuda"))
+    b_rows, b_ka, b_block, b_blocks = recompute_blocks(box_model, b_sp, b_co, box)
+    b_u, b_v = (rng.randn(*b_co.shape).astype(np.float32) for _ in range(2))
+
+    def third_box():
+        return third(box_model, b_u, b_v, coords=b_co, species=b_sp, box=box)
+
+    # the recompute's own peak: each call of `_bwd_bwd_vjp` measured alone
+    real_vjp, vjp_peaks = aev_computer._bwd_bwd_vjp, []
+
+    def measured_vjp(*args):
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        out = real_vjp(*args)
+        torch.cuda.synchronize()
+        vjp_peaks.append(torch.cuda.max_memory_allocated() - base)
+        return out
+
+    reset_counts()
+    aev_computer._bwd_bwd_vjp = measured_vjp
+    try:
+        t_box = third_box()
+        torch.cuda.synchronize()
+    finally:
+        aev_computer._bwd_bwd_vjp = real_vjp
+    launches["third_derivative_box"] = counts = read_counts()
+    grid = angular_grid.calls
+    print(f"phase 53: third derivative of the {b_co.shape[1]}-atom box: launches {counts}, "
+          f"angular_grid calls {grid} (predicted {b_blocks}: {b_rows} rows, Ka = {b_ka}, "
+          f"blocks of {b_block})")
+    check(counts == {k_: want_third.get(k_, 0) for k_ in kernels_fn} and grid == b_blocks,
+          "phase 53: the box's third derivative launches K3 once, K3b and K3bb three times, "
+          "and calls angular_grid once a recompute block")
+    check(bool(torch.isfinite(t_box).all()) and float(t_box.abs().max()) > 0,
+          "phase 53: the box's third derivative is finite and nonzero")
+    box_ms = wall_times_ms(third_box, reps=2)
+    held = held_gib()
+    box_peak = peak_gib(third_box)
+    grid_elems = b_block * b_ka * b_ka * box_model.aev_computer.angular.num_feats
+    per_elem = max(vjp_peaks) / grid_elems
+    print(f"{card}: phase 53: third derivative of the {b_co.shape[1]}-atom box: median "
+          f"{np.median(box_ms):.3f} ms ({box_ms}); peak device memory {box_peak:.3f} GiB "
+          f"({held:.3f} held before the call); the recompute ({len(vjp_peaks)} call(s)) peaks "
+          f"at {max(vjp_peaks) / 2**30:.3f} GiB above what it was given: {per_elem:.1f} B a "
+          f"grid element of one block (the blocks' size takes {_THIRD_ORDER_GRID_BYTES})")
+    wall_s = time.perf_counter() - t_phase
+    print(f"new phase (53, third derivatives): {wall_s:.1f} s of wall time")
+    return {"launches": launches, "third_ms": third_ms, "third_peak": third_peak,
+            "weight_grad_ms": wg_ms, "weight_grad_peak": wg_peak, "blocks": blocks,
+            "err": max(errs), "weight_grad_err": g_err, "box_ms": box_ms, "box_peak": box_peak,
+            "box_blocks": b_blocks, "grid_bytes": per_elem}
+
+
+def xyz_phases(card: str, kernels_fn: dict, reset_counts, read_counts) -> dict:
+    """Phase 54: the native xyz parser.  It must build and load here (no
+    degrade).  XYZ_FRAMES frames of the 10,002-atom box (shifted by 0.5 A,
+    so that every coordinate is at least 0.45 A and ``%.10f`` gives each f32
+    back exactly; 0.01 A seeded perturbations after frame 0) written with
+    `write_xyz` and its cell, read natively and through Python: species,
+    coordinates, cell and pbc equal bit for bit, and equal to what was
+    written; both reads timed.  One E+F of frame 0 as read back (one K3,
+    one K3b)."""
+    from torchani_tpu_torch import csrc
+    from torchani_tpu_torch.grad import energies_and_forces
+    from torchani_tpu_torch.io import read_xyz, write_xyz
+    from torchani_tpu_torch.models import ANI2x
+    from torchani_tpu_torch.neighbors import CellList
+    from torchani_tpu_torch.testing import make_water_box
+
+    t_phase = time.perf_counter()
+    check(csrc.XYZPARSE_IS_AVAILABLE, "phase 54: the native xyz parser builds and loads (g++)")
+    species, coords, cell = make_water_box(10002)
+    rng = np.random.RandomState(54)
+    shifts = np.concatenate([np.zeros((1,) + coords.shape[1:]),
+                             0.01 * rng.randn(XYZ_FRAMES - 1, *coords.shape[1:])])
+    frames = (coords + 0.5 + shifts).astype(np.float32)
+    frame_species = np.repeat(species, XYZ_FRAMES, axis=0)
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "box.xyz")
+        t0 = time.perf_counter()
+        write_xyz(frame_species, frames, path, cell=cell)
+        write_s = time.perf_counter() - t0
+        size_mb = os.path.getsize(path) / 1e6
+        t0 = time.perf_counter()
+        native = read_xyz(path)
+        native_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        python = read_xyz(path, return_comments=True)[:4]
+        python_s = time.perf_counter() - t0
+    for a, b, what in zip(native, python, ("species", "coordinates", "cell", "pbc")):
+        check(a is not None and b is not None and a.dtype == b.dtype and a.shape == b.shape
+              and a.tobytes() == b.tobytes(), f"phase 54: native and Python {what} bit for bit")
+    check(native[0].tobytes() == frame_species.astype(np.int64).tobytes()
+          and native[1].tobytes() == frames.tobytes(), "phase 54: the frames read back as written")
+    check(native[2].tobytes() == np.asarray(cell, np.float32).tobytes()
+          and native[3].tolist() == [True] * 3, "phase 54: cell and pbc read back")
+    print(f"{card}: phase 54: {XYZ_FRAMES} frames x {species.shape[1]} atoms, {size_mb:.1f} MB: "
+          f"write_xyz {write_s:.3f} s; read_xyz native {native_s:.3f} s, Python route "
+          f"{python_s:.3f} s ({python_s / native_s:.1f}x); equal bit for bit")
+
+    # the frame read back is the frame written (above, bit for bit): one E+F
+    # of it shows the arrays go into the model as they are
+    model = ANI2x(pretrained=False, seed=0)
+    model.neighborlist = CellList(capacity=96)
+    reset_counts()
+    e_read, f_read = energies_and_forces(model, native[0][:1], native[1][:1], native[2], native[3])
+    torch.cuda.synchronize()
+    counts = read_counts()
+    check(counts == {k_: {"angular_aev": 1, "angular_aev_bwd": 1}.get(k_, 0) for k_ in kernels_fn},
+          "phase 54: the E+F of the frame read back launches K3 and K3b once")
+    check(bool(torch.isfinite(e_read).all() and torch.isfinite(f_read).all())
+          and f_read.shape == (1, species.shape[1], 3), "phase 54: E+F finite, of the box's shape")
+    print(f"phase 54: E+F of frame 0 read back: launches {counts}, energy {float(e_read[0]):.6f} Ha")
+    wall_s = time.perf_counter() - t_phase
+    print(f"new phase (54, xyz parser): {wall_s:.1f} s of wall time")
+    return {"launches": {"xyz_frame_ef": counts}, "native_s": native_s, "python_s": python_s,
+            "write_s": write_s}
 
 
 def main() -> int:
@@ -4123,6 +4382,13 @@ def main() -> int:
     torch.cuda.empty_cache()
     parallel = parallel_phases(card)
 
+    # ---- 53. third derivatives (`higher_order_phases`) ----
+    torch.cuda.empty_cache()
+    higher = higher_order_phases(card, kernels_fn, reset_counts, read_counts)
+
+    # ---- 54. the native xyz parser (`xyz_phases`) ----
+    xyz = xyz_phases(card, kernels_fn, reset_counts, read_counts)
+
     def entry(name, source, replaces, err, ms, plain, bound, by, library):
         return {
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
@@ -4143,6 +4409,8 @@ def main() -> int:
                 **{k_: v[name] for k_, v in train["launches"].items()},
                 **{k_: v[name] for k_, v in loaders["launches"].items()},
                 **{k_: v[name] for k_, v in parallel["launches"].items()},
+                **{k_: v[name] for k_, v in higher["launches"].items()},
+                **{k_: v[name] for k_, v in xyz["launches"].items()},
             },
             "max_abs_err": err, "ms": ms, "plain_ms": plain, "bound_ms": bound,
             "bound_by": by, "library_ms": library,

@@ -291,8 +291,8 @@ def test_bwd_bwd_reference_edge_lanes():
 
 def test_second_derivative_through_the_kernel_path_on_cpu():
     """A second derivative through `_AngularAEVFunction` on CPU tensors runs
-    K3bb's plain version (no launch) and equals the plain path's; a third
-    derivative raises."""
+    K3bb's plain version (no launch) and equals the plain path's; so does a
+    third, through K3bb's backward (`_bwd_bwd_vjp`, a plain recompute)."""
     kw = AEVComputer.like_2x(device="cpu").kernel_kwargs()
     lanes = [torch.as_tensor(x) for x in _cluster_lanes("like_2x", 7, seed=19, a=16)]
 
@@ -304,12 +304,15 @@ def test_second_derivative_through_the_kernel_path_on_cpu():
             out = angular_aev_reference(dist, diff, lanes[2], lanes[3], **kw)
         gd, gx = torch.autograd.grad(torch.sin(3 * out).sum(), (dist, diff), create_graph=True)
         h = torch.autograd.grad((gd * dist).sum() + (gx ** 2).sum(), (dist, diff),
-                                create_graph=kernel_path)
-        return h, dist
+                                create_graph=True)
+        return h, dist, diff
 
     before = angular_aev_bwd_bwd.launches
-    h_kernel, dist = hvp(True)
+    h_kernel, dist, diff = hvp(True)
     assert angular_aev_bwd_bwd.launches == before
-    _assert_close([t.detach().numpy() for t in h_kernel], [t.numpy() for t in hvp(False)[0]])
-    with pytest.raises(RuntimeError, match="not three times"):
-        torch.autograd.grad(h_kernel[0].sum(), dist)
+    h_plain, dist_p, diff_p = hvp(False)
+    _assert_close([t.detach().numpy() for t in h_kernel], [t.detach().numpy() for t in h_plain])
+    third = torch.autograd.grad(h_kernel[0].sum() + (h_kernel[1] ** 2).sum(), (dist, diff))
+    third_plain = torch.autograd.grad(h_plain[0].sum() + (h_plain[1] ** 2).sum(), (dist_p, diff_p))
+    assert angular_aev_bwd_bwd.launches == before
+    _assert_close([t.numpy() for t in third], [t.numpy() for t in third_plain])

@@ -30,10 +30,6 @@ LEFT_OUT = {
         "angular_aev_pallas",
         "the TPU kernel; its port is K3, `torchani_tpu_torch.aev.kernels.angular_aev`",
     ),
-    "csrc": (
-        "XYZPARSE_IS_AVAILABLE load_xyzparse",
-        "the native xyz parser is not ported: `io.read_xyz` is the pure-Python parser",
-    ),
 }
 #: modules of the JAX package that are not Python (compiled extensions)
 NATIVE = {"csrc.xyzparse": "the native xyz parser's extension module"}

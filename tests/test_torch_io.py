@@ -1,19 +1,31 @@
-"""PyTorch port: `io` (xyz, pdb) and the padding helpers of `utils` against
-the JAX package's, on the CPU.
+"""PyTorch port: `io` (xyz, pdb), the native xyz parser (`csrc`) and the
+padding helpers of `utils` against the JAX package's, on the CPU.
 
 `write_xyz` writes the JAX package's bytes; `read_xyz` returns the JAX
 package's arrays on files written by either package (padded conformers, the
-on-disk padding marker, a cell with pbc, comments); `read_pdb` reads a small
-synthetic PDB as the JAX package does; `pad_atomic_properties` and
-`strip_redundant_padding` give the JAX package's arrays.
+on-disk padding marker, a cell with pbc, comments), on each of its two
+routes: the native parser (the default where ``g++`` builds it; cell and pbc
+from the second line) and the Python one (``return_comments=True``, or the
+port's ``TORCHANI_TPU_TORCH_DISABLE_EXTENSIONS=1`` against JAX with
+``_native_read_xyz`` returning None; every comment line read).  Files whose
+cells or pbc differ between frames are where the routes part.  `parse_xyz`'s
+raw outputs equal those of the JAX package's library on the same bytes.
+`read_pdb` reads a small synthetic PDB as the JAX package does;
+`pad_atomic_properties` and `strip_redundant_padding` give the JAX
+package's arrays.
 """
+
+import shutil
 
 import numpy as np
 import pytest
 
 from torchani_tpu import io as jio
 from torchani_tpu import utils as jutils
-from torchani_tpu_torch import io, utils
+from torchani_tpu.csrc import load_xyzparse as jload_xyzparse
+from torchani_tpu_torch import csrc, io, utils
+
+needs_gxx = pytest.mark.skipif(shutil.which("g++") is None, reason="no g++ to build the parser")
 
 SPECIES = np.array([[8, 1, 1, -1], [6, 1, 1, 8], [1, 1, -1, -1]])
 COORDS = np.random.RandomState(0).randn(3, 4, 3).astype(np.float32)
@@ -77,10 +89,214 @@ def test_read_xyz_padding_marker_and_errors(tmp_path):
         io.read_xyz(bad)
     two = tmp_path / "two_cells.xyz"
     two.write_text('1\nLattice="1 0 0 0 1 0 0 0 1"\nH 0 0 0\n1\nLattice="2 0 0 0 2 0 0 0 2"\nH 0 0 0\n')
-    with pytest.raises(io.TorchaniIOError, match="distinct cells"):
-        io.read_xyz(two)
+    for package in (io, jio):  # the Python route raises in both packages
+        with pytest.raises(package.TorchaniIOError, match="distinct cells"):
+            package.read_xyz(two, return_comments=True)
+    if csrc.XYZPARSE_IS_AVAILABLE:  # the native route takes the first cell, as JAX's
+        np.testing.assert_array_equal(io.read_xyz(two)[2], np.eye(3, dtype=np.float32))
+        np.testing.assert_array_equal(io.read_xyz(two)[2], jio.read_xyz(two)[2])
     with pytest.raises(ValueError, match="Can't pad"):
         io.write_xyz(np.array([[100, 1]]), np.zeros((1, 2, 3)), tmp_path / "x.xyz", pad=True)
+
+
+#: files where the native and the Python route differ (cell and pbc), and
+#: files where they agree (padding, ragged frames, numeric labels, a heavy
+#: element, extra columns, blank lines)
+LATTICE1, LATTICE2 = 'Lattice="1 0 0 0 1 0 0 0 1"', 'Lattice="2 0 0 0 2.5 0 0 0.5 3"'
+XYZ_FILES = {
+    "distinct_cells": f"1\n{LATTICE1}\nH 0 0 0\n1\n{LATTICE2}\nH 0 0 0\n",
+    "second_frame_cell": f'1\ncomment\nH 0 0 0\n1\n{LATTICE2} pbc="T T T"\nH 0 0 1\n',
+    "changing_pbc": (f'2\n{LATTICE2} pbc="T T T"\nO 0 0 0\nH 0 0 1\n'
+                     f'2\n{LATTICE2} pbc="F F F"\nO 0 0 0\nH 0 1 0\n'),
+    "padded": "3\nx\nO 0 0 0\nH 0 0 0.96\n100 0 0 0\n3\nx\nC 1 2 3\nH 1 2 4.09\nH 0.5 2 3\n",
+    "ragged": "1\n\nH -1.5 2.25e-3 7\n4\nc\nN 0 0 0\nH 0 0 1\nH 0 1 0\nH 1 0 0\n",
+    "numeric_labels": "2\npbc=\"T F T\"\n8 0.1 0.2 0.3\n1 1.1 1.2 1.3\n",
+    "heavy_element": "3\n\nCl 0 0 0\nBr 2.1 0 0\nFe 0 2.2 0.123456789\n",
+    "extra_columns": "2\nProperties=species:S:1:pos:R:3:forces:R:3\nO 0 0 0 0.1 0.2 0.3\nH 0 0 1 1 2 3\n",
+    "blank_lines": "\n1\ncomment\nH 0 0 0\n\n\n1\ncomment\nO 1 1 1\n",
+    # a frame over the JAX route's first cap of 1024 atoms
+    "large_frame": ("2\nx\nO 0 0 0\nH 0 0 1\n1500\nbig\n"
+                    + "".join(f"C {i} {i % 7} -{i % 3}.5\n" for i in range(1500))
+                    + "3\nx\nN 0 0 0\nH 1 0 0\nH 0 1 0\n"),
+    # coordinates that run onto the next line: the parser reads on (strtod
+    # skips newlines), so its frames are not those of the count lines
+    "wrapped_frames": "1\nc\nH 0 0\n0\n1\nc\nH 1 1 1\n",
+    "wrapped_count": "1\nc\nH 0 0\n1\n2\nc\nH 0 0 0\nH 1 1 1\n",
+    # a count over the lines that follow it
+    "overlong_count": "1\nc\nH 0 0 0\n9999\nc\nH 0 0 0\n",
+}
+#: the Python route's error on two distinct cells (both packages)
+DISTINCT = "distinct_cells"
+
+
+def _read_all(reader, path, **kw):
+    try:
+        return reader(path, **kw)[:4]
+    except Exception as e:  # the same error class and message in both packages
+        return type(e).__name__, str(e)
+
+
+def _assert_same_read(ours, theirs):
+    if isinstance(theirs[0], str):
+        assert ours == theirs
+        return
+    for a, b in zip(ours[:2], theirs[:2]):
+        assert a.dtype == b.dtype
+        np.testing.assert_array_equal(a, b)
+    for a, b in zip(ours[2:], theirs[2:]):
+        assert (a is None) == (b is None)
+        if a is not None:
+            assert a.dtype == b.dtype
+            np.testing.assert_array_equal(a, b)
+
+
+@needs_gxx
+@pytest.mark.parametrize("route", ["default", "comments", "switched_off"])
+@pytest.mark.parametrize("name", sorted(XYZ_FILES))
+def test_read_xyz_routes_match_jax(tmp_path, monkeypatch, name, route):
+    """Each file through the same route in both packages: the native one by
+    default, the Python one with ``return_comments`` or with the native
+    parser switched off (the port's environment switch; JAX's
+    `_native_read_xyz` returning None)."""
+    path = tmp_path / f"{name}.xyz"
+    path.write_text(XYZ_FILES[name])
+    kw = {"return_comments": True} if route == "comments" else {}
+    if route == "switched_off":
+        monkeypatch.setenv("TORCHANI_TPU_TORCH_DISABLE_EXTENSIONS", "1")
+        monkeypatch.setattr(jio, "_native_read_xyz", lambda *a, **k: None)
+        assert csrc.load_xyzparse() is None and not csrc.XYZPARSE_IS_AVAILABLE
+    else:
+        assert csrc.XYZPARSE_IS_AVAILABLE
+    ours, theirs = _read_all(io.read_xyz, path, **kw), _read_all(jio.read_xyz, path, **kw)
+    _assert_same_read(ours, theirs)
+    if route != "default" and name == DISTINCT:
+        assert ours[0] == "TorchaniIOError" and "distinct cells" in ours[1]
+
+
+@needs_gxx
+def test_native_and_python_routes_part_on_cells_and_pbc(tmp_path):
+    """The three files where the routes part, with the values each route
+    gives: the native route reads the second line only."""
+    cell2 = np.array([[2, 0, 0], [0, 2.5, 0], [0, 0.5, 3]], np.float32)
+    got = {}
+    for name in ("distinct_cells", "second_frame_cell", "changing_pbc"):
+        path = tmp_path / f"{name}.xyz"
+        path.write_text(XYZ_FILES[name])
+        got[name] = io.read_xyz(path), _read_all(io.read_xyz, path, return_comments=True)
+    (native, python) = got["distinct_cells"]
+    np.testing.assert_array_equal(native[2], np.eye(3, dtype=np.float32))
+    assert native[3] is None and python[0] == "TorchaniIOError"
+    native, python = got["second_frame_cell"]
+    assert native[2] is None and native[3] is None
+    np.testing.assert_array_equal(python[2], cell2)
+    assert python[3].tolist() == [True] * 3
+    native, python = got["changing_pbc"]
+    assert native[3].tolist() == [True] * 3 and python[3].tolist() == [False] * 3
+    np.testing.assert_array_equal(native[2], python[2])
+
+
+@needs_gxx
+def test_native_route_taken_exactly_where_jax_takes_it(tmp_path, monkeypatch):
+    """`read_xyz` calls the native reader without ``return_comments`` and
+    returns its result; with ``return_comments``, or where the reader
+    returns None (no library, a failed parse, no frame), the Python route
+    reads the file."""
+    path = tmp_path / "mols.xyz"
+    io.write_xyz(SPECIES, COORDS, path, cell=CELL)
+    calls = []
+    real = io._native_read_xyz
+
+    def spy(*args):
+        calls.append(args)
+        return real(*args)
+
+    monkeypatch.setattr(io, "_native_read_xyz", spy)
+    native = io.read_xyz(path, detect_padding=False, pad_species_value=7)
+    assert calls == [(path, False, 7)]
+    io.read_xyz(path, return_comments=True)
+    assert len(calls) == 1
+    _assert_same_read(native, real(path, False, 7))
+    monkeypatch.setattr(io, "_native_read_xyz", lambda *a: None)
+    _assert_same_read(io.read_xyz(path), io.read_xyz(path, return_comments=True))
+    bad = tmp_path / "bad_symbol.xyz"  # the parser refuses a 4-letter label
+    bad.write_text("1\nc\nXxxx 0 0 0\n")
+    assert real(bad, True, 100) is None
+    empty = tmp_path / "empty.xyz"
+    empty.write_text("\n\n")
+    assert real(empty, True, 100) is None
+    assert _read_all(io.read_xyz, empty) == _read_all(jio.read_xyz, empty)
+
+
+@needs_gxx
+@pytest.mark.parametrize("name", ["large_frame", "trajectory"])
+def test_native_buffers_sized_from_the_frames(tmp_path, monkeypatch, name):
+    """The native route's buffers hold (frames + 1) x largest frame, not
+    JAX's (lines / 3 + 1) x cap, and it reads what JAX's native route
+    reads: a frame over 1,024 atoms, and a trajectory of 1,100-atom frames
+    (JAX's route asks for 1,468 x 8,192 atoms of buffers here)."""
+    path = tmp_path / f"{name}.xyz"
+    if name == "trajectory":
+        rng = np.random.RandomState(3)
+        species = rng.choice([1, 6, 8], size=(4, 1100))
+        io.write_xyz(species, rng.randn(4, 1100, 3).astype(np.float32) * 9, path, cell=CELL)
+    else:
+        path.write_text(XYZ_FILES[name])
+    theirs = jio.read_xyz(path)
+    sizes = []
+    zeros = np.zeros
+
+    def spy(shape, *args, **kwargs):
+        sizes.append(int(np.prod(shape)))
+        return zeros(shape, *args, **kwargs)
+
+    monkeypatch.setattr(io.np, "zeros", spy)
+    ours = io.read_xyz(path)
+    monkeypatch.setattr(io.np, "zeros", zeros)
+    _assert_same_read(ours, theirs)
+    frames, a_max = ours[0].shape
+    assert a_max > 1024
+    assert 0 < max(sizes) <= (frames + 1) * a_max * 3
+
+
+def _parse(lib, raw: bytes, max_frames: int, cap: int):
+    import ctypes
+
+    counts = np.zeros(max_frames, np.int32)
+    znums = np.zeros(max_frames * cap, np.int32)
+    coords = np.zeros(max_frames * cap * 3, np.float32)
+    nf = lib.parse_xyz(
+        raw, len(raw), max_frames,
+        counts.ctypes.data_as(ctypes.POINTER(ctypes.c_int)),
+        znums.ctypes.data_as(ctypes.POINTER(ctypes.c_int)),
+        coords.ctypes.data_as(ctypes.POINTER(ctypes.c_float)),
+        cap,
+    )
+    return nf, counts, znums, coords
+
+
+@needs_gxx
+@pytest.mark.parametrize("cap", [2, 1024])
+@pytest.mark.parametrize("name", sorted(XYZ_FILES) + ["written", "malformed"])
+def test_parse_xyz_raw_outputs_match_jax(tmp_path, name, cap):
+    """`parse_xyz` of both libraries on the same bytes: the return value
+    (frames, or the negative offset of an error: a frame over the cap, an
+    unknown label), counts, atomic numbers and f32 coordinates."""
+    if name == "written":
+        io.write_xyz(SPECIES, COORDS, tmp_path / "w.xyz", cell=CELL, pad=True)
+        raw = (tmp_path / "w.xyz").read_bytes()
+    elif name == "malformed":
+        raw = b"2\nc\nO 0 0 0\nH 0 zero 1\n"
+    else:
+        raw = XYZ_FILES[name].encode()
+    lib, jlib = csrc.load_xyzparse(), jload_xyzparse()
+    assert lib is not None and jlib is not None
+    max_frames = max(1, raw.count(b"\n") // 3 + 1)
+    ours, theirs = _parse(lib, raw, max_frames, cap), _parse(jlib, raw, max_frames, cap)
+    assert ours[0] == theirs[0]
+    for a, b in zip(ours[1:], theirs[1:]):
+        np.testing.assert_array_equal(a, b)
+    if cap == 1024:
+        assert (ours[0] < 0) == (name in ("malformed", "large_frame", "overlong_count"))
 
 
 PDB = """\

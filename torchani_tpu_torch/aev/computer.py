@@ -13,8 +13,10 @@ Angular strategies:
 - ``"cuda"``: the fused kernel (`angular_aev`, K3) and its backward kernel
   (`angular_aev_bwd`, K3b), one launch each (`_AngularAEVFunction`; on CPU
   tensors their plain versions, the backward in atom blocks); a second
-  derivative launches K3bb (`angular_aev_bwd_bwd`) once, a third raises.  The JAX
-  package's ``_angular_pallas_op`` differentiates an XLA recompute instead.
+  derivative launches K3bb (`angular_aev_bwd_bwd`) once; a third and any
+  higher one differentiate a plain recompute of K3bb's function
+  (`_bwd_bwd_vjp`), as the JAX package's ``_angular_pallas_op``
+  differentiates an XLA recompute above its first order.
   `ANIAngular` with the cosine cutoff or the default smooth one only (any
   other term or cutoff raises), as the JAX package's Pallas path; the
   kernel runs once over the whole table and ``angular_split`` changes
@@ -34,6 +36,7 @@ from torchani_tpu_torch.aev.kernels import (
     angular_aev,
     angular_aev_bwd,
     angular_aev_bwd_bwd,
+    angular_aev_reference,
     angular_grid,
     lane_species,
 )
@@ -67,6 +70,14 @@ STRATEGIES = ("auto", "plain", "cuda")
 #: kernel path on the card holds no grid; on the CPU its backward's plain
 #: version takes the same blocks
 _GRID_BYTES = 24
+#: the same for K3bb's backward (`_bwd_bwd_vjp`), whose recompute holds the
+#: graph of the grid's second derivative while it takes the third: 242-265
+#: measured on the CPU (peak resident memory against the grid's elements),
+#: rounded up; 78 on an H100 (peak device memory of the recompute against a
+#: block's grid, at the 10,002-atom box), where a block so holds ~0.6 GiB.
+#: Its blocks are ``atom_block * _GRID_BYTES // _THIRD_ORDER_GRID_BYTES``
+#: atoms, within the same 2 GiB
+_THIRD_ORDER_GRID_BYTES = 256
 #: memory one block of the plain angular path may hold, on any device
 #: (3,566 atoms at Ka = 28, Z = 32: three blocks for the 10,002-atom box)
 _BLOCK_BYTES = 2 << 30
@@ -123,8 +134,8 @@ class _AngularAEVFunction(torch.autograd.Function):
     through XLA); on CPU tensors their plain versions, the backward
     ``atom_block`` atoms at a time.  The lane species are computed once and
     serve every order.  The backward is `_AngularAEVBwdFunction`, so that
-    a second derivative (Hessians, force training) runs K3bb; a third one
-    raises."""
+    a second derivative (Hessians, force training) runs K3bb; a third or
+    higher one also runs `_bwd_bwd_vjp`."""
 
     @staticmethod
     def forward(ctx, dist, diff, mask, oh, kwargs, atom_block):
@@ -169,24 +180,70 @@ class _AngularAEVBwdFunction(torch.autograd.Function):
 
 
 class _AngularAEVBwdBwdFunction(torch.autograd.Function):
-    """K3bb (`angular_aev_bwd_bwd`).  Its own backward, a third derivative
-    of the angular AEV, raises: the JAX package differentiates its XLA
-    recompute to any order, the port's kernels to the second.  (A function
-    marked ``once_differentiable`` would not raise where the derivative is
-    asked of the lanes alone: autograd would leave its share out.)"""
+    """K3bb (`angular_aev_bwd_bwd`).  Its backward, a third derivative of
+    the angular AEV, is `_bwd_bwd_vjp`: autograd through a plain recompute,
+    differentiable again where the caller asks for a graph, so that every
+    higher order works as in the JAX package."""
 
     @staticmethod
     def forward(ctx, g, dist, diff, mask, oh, u_dist, u_diff, species, kwargs, atom_block):
+        ctx.save_for_backward(g, dist, diff, mask, oh, u_dist, u_diff)
+        ctx.kwargs = kwargs
+        ctx.atom_block = atom_block
         return angular_aev_bwd_bwd(
             g, dist, diff, mask, oh, u_dist, u_diff, species, atom_block=atom_block, **kwargs
         )
 
     @staticmethod
-    def backward(ctx, *grads):
-        raise RuntimeError(
-            "the angular AEV's kernels are differentiable twice, not three times; "
-            "use strategy='plain' for higher derivatives"
+    def backward(ctx, w_gg, w_hdist, w_hdiff):
+        g, dist, diff, mask, oh, u_dist, u_diff = ctx.saved_tensors
+        block = max(1, ctx.atom_block * _GRID_BYTES // _THIRD_ORDER_GRID_BYTES)
+        gg, gdist, gdiff, gu_dist, gu_diff = _bwd_bwd_vjp(
+            ctx.kwargs, block, (g, dist, diff, u_dist, u_diff), mask, oh,
+            (w_gg, w_hdist, w_hdiff),
         )
+        return gg, gdist, gdiff, None, None, gu_dist, gu_diff, None, None, None
+
+
+def _bwd_bwd_vjp(
+    kwargs: tp.Dict[str, tp.Any],
+    atom_block: int,
+    inputs: tp.Tuple[Tensor, ...],  # g, dist, diff, u_dist, u_diff
+    mask: Tensor,
+    oh: Tensor,
+    cotangents: tp.Tuple[Tensor, Tensor, Tensor],  # of gg, hdist, hdiff
+) -> tp.List[Tensor]:
+    """The vector-Jacobian product of K3bb's function: the cotangents of
+    ``g``, ``dist``, ``diff``, ``u_dist`` and ``u_diff`` from those of
+    ``(gg, hdist, hdiff)``.
+
+    The counterpart of differentiating ``_angular_pallas_bwd``'s XLA
+    recompute: autograd through the plain forward (`angular_aev_reference`,
+    one `angular_grid` call a block), differentiated twice to K3bb's
+    outputs and once more to their cotangents, ``atom_block`` atoms at a
+    time (rows are independent), so that memory holds one block's graph.
+    With grad mode on (a fourth or higher derivative) the inputs that carry
+    a graph are used as they are and the result carries one too; each
+    block's graph then lives until the caller's backward."""
+    create_graph = torch.is_grad_enabled()
+    n = inputs[1].shape[0]
+    parts = []
+    for sl in _blocks(n, atom_block):
+        with torch.enable_grad():
+            ins = [
+                t[sl] if create_graph and t.requires_grad else t[sl].detach().requires_grad_()
+                for t in inputs
+            ]
+            g, dist, diff, u_dist, u_diff = ins
+            aev = angular_aev_reference(dist, diff, mask[sl], oh[sl], **kwargs)
+            gdist, gdiff = torch.autograd.grad(aev, (dist, diff), g, create_graph=True)
+            phi = torch.sum(gdist * u_dist) + torch.sum(gdiff * u_diff)
+            outs = torch.autograd.grad(phi, (g, dist, diff), create_graph=True)
+            psi = sum(torch.sum(o * w[sl]) for o, w in zip(outs, cotangents))
+            parts.append(torch.autograd.grad(psi, ins, create_graph=create_graph))
+    if not parts:
+        return [torch.zeros_like(t) for t in inputs]
+    return [torch.cat(p) for p in zip(*parts)]
 
 
 class AEVComputer(torch.nn.Module):

@@ -1,10 +1,17 @@
-"""Build and load the hand-written CUDA kernels.
+"""Build and load the hand-written CUDA kernels and the native xyz parser.
 
 Each ``*.cu`` file in this directory is one kernel library with a plain C
 interface.  It is compiled by ``nvcc`` for ``sm_90a`` into a shared library
 and loaded with ``ctypes``.  Libraries are named by a hash of their source
 and flags, so an edited source is rebuilt and an unchanged one is reused.
 Nothing here runs at import: the first CUDA call of a kernel builds it.
+
+``xyzparse.cpp`` is host C++ (the counterpart of the JAX package's
+``csrc``): `load_xyzparse` builds it with ``g++`` at its first call into the
+same directory and returns None where it cannot be built or loaded, and
+`io.read_xyz` then reads through Python.  ``XYZPARSE_IS_AVAILABLE`` is
+resolved at each access.  ``TORCHANI_TPU_TORCH_DISABLE_EXTENSIONS=1``
+switches the parser off (never a CUDA kernel).
 """
 
 import ctypes
@@ -18,13 +25,17 @@ from pathlib import Path
 
 from torchani_tpu_torch.paths import csrc_dir, kernel_build_dir
 
-__all__ = ["NVCC_FLAGS", "build", "load_library", "sources"]
+__all__ = [
+    "NVCC_FLAGS", "XYZPARSE_IS_AVAILABLE", "build", "load_library", "load_xyzparse", "sources",
+]
 
 #: Hopper target, full-precision math (no --use_fast_math), plain C ABI
 NVCC_FLAGS: tp.Tuple[str, ...] = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v",
 )
+#: the xyz parser's host build (the JAX package's flags)
+GXX_FLAGS: tp.Tuple[str, ...] = ("-O2", "-shared", "-fPIC")
 
 
 def sources() -> tp.Dict[str, Path]:
@@ -40,8 +51,8 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: set CUDA_HOME or put nvcc on PATH")
 
 
-def _library_path(src: Path) -> Path:
-    digest = hashlib.sha1(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
+def _library_path(src: Path, flags: tp.Sequence[str] = NVCC_FLAGS) -> Path:
+    digest = hashlib.sha1(src.read_bytes() + " ".join(flags).encode())
     return kernel_build_dir() / f"lib{src.stem}_{digest.hexdigest()[:16]}.so"
 
 
@@ -86,3 +97,47 @@ def load_library(name: str) -> ctypes.CDLL:
     """Build (if needed) and load one kernel library."""
     build([name])
     return ctypes.CDLL(str(_library_path(sources()[name])))
+
+
+@functools.lru_cache(maxsize=None)
+def _xyzparse() -> tp.Optional[ctypes.CDLL]:
+    src = csrc_dir() / "xyzparse.cpp"
+    out = _library_path(src, GXX_FLAGS)
+    tmp = out.with_name(f"{out.stem}.{os.getpid()}.tmp.so")
+    try:
+        if not out.exists():
+            out.parent.mkdir(parents=True, exist_ok=True)
+            subprocess.run(
+                ["g++", *GXX_FLAGS, "-o", str(tmp), str(src)],
+                check=True, capture_output=True, timeout=120,
+            )
+            os.replace(tmp, out)
+        lib = ctypes.CDLL(str(out))
+    except (OSError, subprocess.SubprocessError):
+        tmp.unlink(missing_ok=True)
+        return None
+    lib.parse_xyz.restype = ctypes.c_long
+    lib.parse_xyz.argtypes = [
+        ctypes.c_char_p,
+        ctypes.c_long,
+        ctypes.c_long,
+        ctypes.POINTER(ctypes.c_int),
+        ctypes.POINTER(ctypes.c_int),
+        ctypes.POINTER(ctypes.c_float),
+        ctypes.c_long,
+    ]
+    return lib
+
+
+def load_xyzparse() -> tp.Optional[ctypes.CDLL]:
+    """Load (building if needed) the native xyz parser; None if it is
+    switched off or cannot be built or loaded."""
+    if os.getenv("TORCHANI_TPU_TORCH_DISABLE_EXTENSIONS") == "1":
+        return None
+    return _xyzparse()
+
+
+def __getattr__(name: str) -> tp.Any:
+    if name == "XYZPARSE_IS_AVAILABLE":
+        return load_xyzparse() is not None
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

@@ -3,10 +3,13 @@ format (counterpart of ``torchani_tpu/io.py``).
 
 Multi-conformer files, ``Lattice="..."`` cell parsing, and the padding
 conventions: -1 element padding in arrays, atomic number 100 as the on-disk
-padding marker.  Host-side, numpy in and out.  Parsing is plain Python; the
-JAX package's native fast path is not part of this package.
+padding marker.  Host-side, numpy in and out.  `read_xyz` parses through
+the native C++ parser (`csrc.load_xyzparse`) where it is available, as the
+JAX package's does, and through Python otherwise.
 """
 
+import ctypes
+import re
 import shlex
 import typing as tp
 from pathlib import Path
@@ -92,6 +95,116 @@ def _parse_comment(
     return cell, pbc
 
 
+#: a header line's atom count (leading spaces, tabs and CRs, as the parser
+#: skips them), and an integer at an offset where the parser stopped
+_COUNT = re.compile(rb"[ \t\r]*([+-]?\d+)?")
+_INT = re.compile(rb"\s*([+-]?\d+)")
+#: the largest frame the JAX package's native route reads: its cap grows
+#: 1024 -> 8192 -> ... while below 10,000,000
+_CAP_LIMIT = 1024 * 8**5
+
+
+def _frame_guess(raw: bytes) -> tp.Tuple[int, int]:
+    """Frames and largest atom count of a file laid out as count line,
+    comment line and one line an atom, read from its count lines alone: a
+    guess, which the parse then confirms or corrects."""
+    starts = np.flatnonzero(np.frombuffer(raw, np.uint8) == ord("\n")) + 1
+    starts = np.concatenate(([0], starts))
+    frames = cap = i = 0
+    while i < len(starts):
+        m = _COUNT.match(raw, int(starts[i]))
+        if m.group(1) is None:
+            if m.end() < len(raw) and raw[m.end()] != ord("\n"):
+                break  # not a count line: the parse finds what it is
+            i += 1  # a blank line, skipped as the parser skips it
+            continue
+        natoms = int(m.group(1))
+        if natoms <= 0 or i + 2 + natoms > len(starts):
+            break  # not a frame that the file's lines can hold
+        frames, cap = frames + 1, max(cap, natoms)
+        i += natoms + 2
+    return max(frames, 1), max(cap, 1)
+
+
+def _native_read_xyz(path, detect_padding: bool, pad_species_value: int):
+    """`read_xyz` through the C++ parser; None where it is unavailable, the
+    parse fails or finds no frame.
+
+    The JAX package's native route, with its buffers sized from the file:
+    frames and largest frame are guessed from the count lines
+    (`_frame_guess`), and the parse confirms them.  It parses to the end
+    of the text only if it stops below its frame bound, and a frame over
+    the cap fails at that frame's count: a failed guess grows the frame
+    bound twofold or the cap to that count, and parses again.  The parse
+    that succeeds is the one JAX's route keeps, whose frame bound (lines
+    / 3 + 1) and cap (1024 · 8^k up to `_CAP_LIMIT`) are upper bounds
+    whose buffers take their product, whatever the file holds.
+
+    Cell and pbc come from the file's second line alone (parsed in Python;
+    the native parser skips comment lines), as on the JAX package's native
+    route."""
+    from torchani_tpu_torch.csrc import load_xyzparse
+
+    lib = load_xyzparse()
+    if lib is None:
+        return None
+    raw = Path(path).read_bytes()
+    newlines = raw.count(b"\n")
+    # JAX's frame bound: a frame takes at least three lines
+    frame_bound = max(1, newlines // 3 + 1)
+    frames, cap = _frame_guess(raw)
+    while True:
+        max_frames = min(frames + 1, frame_bound)
+        counts = np.zeros(max_frames, dtype=np.int32)
+        znums = np.zeros(max_frames * cap, dtype=np.int32)
+        coords = np.zeros(max_frames * cap * 3, dtype=np.float32)
+        nf = lib.parse_xyz(
+            raw,
+            len(raw),
+            max_frames,
+            counts.ctypes.data_as(ctypes.POINTER(ctypes.c_int)),
+            znums.ctypes.data_as(ctypes.POINTER(ctypes.c_int)),
+            coords.ctypes.data_as(ctypes.POINTER(ctypes.c_float)),
+            cap,
+        )
+        if nf >= 0:
+            if nf < max_frames or max_frames == frame_bound:
+                break
+            frames *= 2  # more frames than guessed
+            continue
+        m = _INT.match(raw, -nf - 1)
+        natoms = int(m.group(1)) if m else 0
+        if natoms <= cap or natoms > min(_CAP_LIMIT, newlines + 1):
+            return None  # a genuine parse failure (an atom takes a line): the Python route
+        cap = natoms  # a frame larger than the cap
+    if nf == 0:
+        return None
+    counts = counts[:nf]
+    a_max = int(counts.max())
+    species = np.full((nf, a_max), -1, dtype=np.int64)
+    out_coords = np.zeros((nf, a_max, 3), dtype=np.float32)
+    zn = znums.reshape(max_frames, cap)
+    co = coords.reshape(max_frames, cap, 3)
+    for i in range(nf):
+        c = counts[i]
+        species[i, :c] = zn[i, :c]
+        out_coords[i, :c] = co[i, :c]
+    if detect_padding:
+        padmask = species == pad_species_value
+        species[padmask] = -1
+        out_coords[padmask] = 0.0
+    # the text through its second newline holds the second line whole
+    cut = raw.find(b"\n", raw.find(b"\n") + 1)
+    text = raw[: cut + 1 if cut >= 0 else len(raw)].decode("utf-8", errors="replace").splitlines()
+    cell = pbc = None
+    if len(text) >= 2:
+        try:
+            cell, pbc = _parse_comment(text[1])
+        except TorchaniIOError:
+            cell = pbc = None
+    return species, out_coords, cell, pbc
+
+
 def read_xyz(
     path,
     detect_padding: bool = True,
@@ -104,7 +217,16 @@ def read_xyz(
     None)`` (plus the comment lines if ``return_comments``).  Conformers with
     fewer atoms are padded with species -1 / coordinates 0; with
     ``detect_padding`` so are atoms of element ``pad_species_value``.
+
+    Without ``return_comments`` the native parser reads the file where it
+    is available (`_native_read_xyz`: cell and pbc from the second line
+    only); the Python route below reads every comment line, takes the last
+    pbc and raises on two distinct cells.  Both are the JAX package's.
     """
+    if not return_comments:
+        native = _native_read_xyz(path, detect_padding, pad_species_value)
+        if native is not None:
+            return native
     frames: tp.List[tp.Dict[str, np.ndarray]] = []
     comments: tp.List[str] = []
     cell = None
