@@ -141,9 +141,16 @@ pass differentiates a plain recompute, one `angular_grid` call a block),
 then a third derivative of the 10,002-atom box (blocks, time, memory);
 and phase 54 (`xyz_phases`): the native xyz parser must build, and 20
 frames of the box go through `write_xyz` and both `read_xyz` routes, bit
-for bit, with E+F of a frame read back.  Every number it prints was measured or computed in the run.  It prints a ``kernels`` JSON
+for bit, with E+F of a frame read back; and phase 55 (`triclinic_phases`):
+ANI-2x MD on the 10,002-atom box with its cell sheared (b += 0.2 a, c +=
+0.1 a + 0.15 b), 10 NVE steps through each refresh (gather, slot-row with
+K1 and K2, atom-packed with K5f and K5b) with exact launches, the four
+refresh kernels against their plain versions at the sheared tables, and the
+slot and packed coordinates against the gather run's.  Every number it
+prints was measured or computed in the run.  It prints a ``kernels`` JSON
 line (all nine kernels; K3, K3b and K3bb also at the training batch; K1 and
-K2 also at the shards' buckets) and,
+K2 also at the shards' buckets; K1, K2, K5f and K5b also at the sheared
+box's tables) and,
 last, ``{"ok": true, "device": {...}}``.  Any failed check raises, and the script exits non-zero without that last line; so does
 a machine with no CUDA device, or a directory without the package.  A few
 minutes of command time on an H100.
@@ -308,6 +315,10 @@ THIRD_BOX_ATOMS = 10002
 #: the xyz round trip (phase 54): frames of the 10,002-atom box written with
 #: `write_xyz` and read back by both routes
 XYZ_FRAMES = 20
+#: triclinic MD (phase 55): NVE steps of each refresh on the sheared box; the
+#: slot and packed coordinates within MD_COORD_ATOL of the gather run's
+#: (phase 23's 10-step rule: K2's and K3b's atomics make longer runs drift)
+TRI_STEPS = 10
 
 
 def check(ok: bool, what: str) -> None:
@@ -347,10 +358,11 @@ def count_syncs(fn):
 def kernels_ms(fn, reps: int) -> float:
     """Device time of the kernels that ``fn()`` launches, per call, summed
     by ``torch.profiler`` (no idle time of the stream in it).  A window in
-    which the profiler recorded no device time at all is taken again, up to
-    three times; after three such windows (the profiler's device tracing
-    drops a window now and then) the time between CUDA events stands in,
-    launch gaps included, and the line says so."""
+    which the profiler recorded fewer device events than calls (each call
+    launches at least one kernel) is taken again, with a line that says so,
+    up to three times; after three such windows (the profiler's device
+    tracing drops a window, or part of one, now and then) the time between
+    CUDA events stands in, launch gaps included, and the line says so."""
     fn()
     torch.cuda.synchronize()
     activities = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
@@ -359,13 +371,14 @@ def kernels_ms(fn, reps: int) -> float:
             for _ in range(reps):
                 fn()
             torch.cuda.synchronize()
-        device_us = sum(
-            e.self_device_time_total
-            for e in prof.key_averages()
-            if e.device_type == torch.autograd.DeviceType.CUDA
-        )
-        if device_us > 0:
+        device = [e for e in prof.key_averages()
+                  if e.device_type == torch.autograd.DeviceType.CUDA]
+        device_us = sum(e.self_device_time_total for e in device)
+        events = sum(e.count for e in device)
+        if device_us > 0 and events >= reps:
             return device_us / reps / 1e3
+        print(f"torch.profiler recorded {events} device events for {reps} calls: window taken "
+              f"again")
     ms = cuda_ms(fn, reps)
     print(f"torch.profiler recorded no device time in three windows: {ms:.4f} ms between "
           f"CUDA events instead")
@@ -2078,6 +2091,231 @@ def xyz_phases(card: str, kernels_fn: dict, reset_counts, read_counts) -> dict:
     print(f"new phase (54, xyz parser): {wall_s:.1f} s of wall time")
     return {"launches": {"xyz_frame_ef": counts}, "native_s": native_s, "python_s": python_s,
             "write_s": write_s}
+
+
+def sheared_water_box(n: int) -> tuple:
+    """`make_water_box(n)` with its cell's rows sheared as
+    tests/test_torch_cells.py shears them (b += 0.2 a, c += 0.1 a + 0.15 b;
+    the volume unchanged), each rigid molecule moved with its oxygen's
+    fractional position: ``(species (1, A), coords (1, A, 3), cell (3, 3))``."""
+    from torchani_tpu_torch.testing import make_water_box
+
+    species, coords, cell = make_water_box(n)
+    edge = float(cell[0, 0])
+    tri = np.array([[1.0, 0.0, 0.0], [0.2, 1.0, 0.0], [0.1, 0.15, 1.0]]) * edge
+    xyz = coords[0].astype(np.float64).reshape(-1, 3, 3)  # molecules of O, H, H
+    check(bool((species[0].reshape(-1, 3) == [8, 1, 1]).all()),
+          "the water box is O, H, H molecules")
+    shift = (xyz[:, 0] / edge) @ tri - xyz[:, 0]
+    moved = (xyz + shift[:, None, :]).reshape(1, -1, 3).astype(np.float32)
+    return species, moved, tri.astype(np.float32)
+
+
+def triclinic_phases(card: str, kernels_fn: dict, reset_counts, read_counts) -> dict:
+    """Phase 55: ANI-2x (8 members, seed 0) on the sheared 10,002-atom box
+    (`sheared_water_box`), `MolecularDynamics` with each refresh: gather
+    (``bucket_refresh=False``), slot-row (``True``) and atom-packed
+    (``"packed"``), each from its own `init` with the gather run's
+    velocities.  Launches exactly: at `init` K3, K3b and the refresh's
+    backward once and its forward twice (the angular split's count refresh
+    of a driver of 2,048 atoms or more runs it too, as on the cubic box's
+    MD path); over TRI_STEPS NVE steps K3 and K3b once a step, K1 and K2
+    (slot) or K5f and K5b (packed) once a step, no other kernel, no plain
+    angular grid.  K1 and K2 at the slot run's tables and K5f and K5b at the
+    packed run's against their plain versions, timed beside their bounds;
+    `init` forces and the coordinates after TRI_STEPS steps of the slot and
+    packed runs against the gather run's; each refresh's step timed."""
+    from torchani_tpu_torch.aev.kernels import angular_grid
+    from torchani_tpu_torch.bucket_refresh import (
+        BucketTables,
+        _cand_table,
+        _occupied_lanes,
+        _statics,
+        bucket_select_bwd,
+        bucket_select_bwd_reference,
+        bucket_select_fwd,
+        bucket_select_reference,
+    )
+    from torchani_tpu_torch.bucket_refresh_packed import (
+        PackedTables,
+        _flat_rows_index,
+        packed_select_bwd,
+        packed_select_bwd_reference,
+        packed_select_fwd,
+        packed_select_reference,
+    )
+    from torchani_tpu_torch.bucket_refresh_packed import _statics as _packed_statics
+    from torchani_tpu_torch.md import MolecularDynamics
+    from torchani_tpu_torch.models import ANI2x
+
+    t_phase = time.perf_counter()
+    dev = torch.device("cuda")
+    species_np, coords_np, cell_np = sheared_water_box(10002)
+    species = torch.as_tensor(species_np, device=dev)
+    coords = torch.as_tensor(coords_np, device=dev)
+    cell = torch.as_tensor(cell_np, device=dev)
+    num_atoms = species_np.shape[1]
+    model = ANI2x(pretrained=False, seed=0)
+    refreshes = {  # bucket_refresh, the tables' type, the refresh's kernels
+        "gather": (False, type(None), ()),
+        "slot": (True, BucketTables, ("bucket_select_fwd", "bucket_select_bwd")),
+        "packed": ("packed", PackedTables, ("packed_select_fwd", "packed_select_bwd")),
+    }
+    launches, starts, ends, step_ms, kernels = {}, {}, {}, {}, {}
+    for name, (refresh, tables_type, refresh_kernels) in refreshes.items():
+        md = MolecularDynamics(model, species, cell=cell, pbc=True, bucket_refresh=refresh)
+        reset_counts()
+        start = md.init(coords, temperature=300.0, generator=torch.Generator().manual_seed(0))
+        torch.cuda.synchronize()
+        launches[f"triclinic_init_{name}"] = init_counts = read_counts()
+        if name != "gather":
+            start = start.replace(velocities=starts["gather"].velocities)
+        check(type(start.bucket) is tables_type and not bool(start.overflow),
+              f"phase 55 ({name}): the sheared box takes the {name} refresh, without overflow")
+        want = {"angular_aev": 1, "angular_aev_bwd": 1}
+        if refresh_kernels:  # the forward twice: also the angular split's count refresh
+            want.update({refresh_kernels[0]: 2, refresh_kernels[1]: 1})
+        check(init_counts == {k_: want.get(k_, 0) for k_ in kernels_fn} and angular_grid.calls == 0,
+              f"phase 55 ({name}): init launches K3, K3b and the refresh's backward once, its "
+              f"forward twice")
+        reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        end = md.run_nve(start, TRI_STEPS)
+        torch.cuda.synchronize()
+        run_ms = (time.perf_counter() - t0) * 1e3 / TRI_STEPS
+        launches[f"triclinic_md_{name}"] = counts = read_counts()
+        want = {k_: TRI_STEPS for k_ in ("angular_aev", "angular_aev_bwd", *refresh_kernels)}
+        check(counts == {k_: want.get(k_, 0) for k_ in kernels_fn} and angular_grid.calls == 0,
+              f"phase 55 ({name}): {TRI_STEPS} NVE steps launch K3, K3b and the refresh's kernels "
+              f"once a step and no other kernel")
+        check(end.step == TRI_STEPS and not bool(end.overflow)
+              and type(end.bucket) is tables_type
+              and all(bool(torch.isfinite(t).all()) for t in (end.energy, end.forces, end.coords)),
+              f"phase 55 ({name}): {TRI_STEPS} finite steps on the {name} refresh, no overflow")
+        # the same stretch again, step by step, for the step's time
+        state, times = start, []
+        for _ in range(TRI_STEPS):
+            t0 = time.perf_counter()
+            state = md.step_nve(state)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        step_ms[name] = {"median": float(np.median(times)), "min": float(np.min(times)),
+                         "max": float(np.max(times)), "run": run_ms}
+        starts[name], ends[name] = start, end
+        print(f"phase 55 ({name}): {TRI_STEPS} NVE steps, {end.rebuilds} rebuilds, init launches "
+              f"{init_counts}, run launches {counts}")
+
+        tables = start.bucket
+        if name == "slot":
+            grid, g_, c_, k_ = _statics(tables.atom_of_slot, tables.keys, tables.wrapshift)
+            r_ = c_ * k_
+            canon = md._to_internal(start.coords) - tables.wrap_offset
+            cand = _cand_table(canon, tables.atom_of_slot, tables.wrapshift, grid, c_)
+            nlanes = _occupied_lanes(tables.atom_of_slot, num_atoms, g_, c_, k_)
+            lanes = int(nlanes.sum())
+            occupied = torch.arange(r_, device=dev)[None, :] < nlanes[:, None]
+            k1_launch_shape("phase 55: K1 at the triclinic tables", g_, c_, r_)
+            k1_out = bucket_select_fwd(cand, tables.keys, nlanes)
+            torch.cuda.synchronize()
+            k1_err = float((k1_out - bucket_select_reference(cand, tables.keys, nlanes))[occupied]
+                           .abs().max())
+            check(k1_err == 0.0, "phase 55: K1 is an exact selection at the triclinic tables")
+            g_rows = torch.randn((g_, r_, 3), device=dev,
+                                 generator=torch.Generator(dev).manual_seed(55))
+            launch_shape("phase 55: K2 at the triclinic tables", g_, c_, 3)
+            k2_out = bucket_select_bwd(g_rows, tables.keys, c_, nlanes)
+            torch.cuda.synchronize()
+            k2_ref = bucket_select_bwd_reference(g_rows, tables.keys, c_, nlanes)
+            k2_err = float((k2_out - k2_ref).abs().max())
+            check(within(k2_out, k2_ref, K2_TOL),
+                  "phase 55: K2 within tolerance at the triclinic tables")
+            def k1_fn():
+                return bucket_select_fwd(cand, tables.keys, nlanes)
+
+            kernels["bucket_select_fwd"] = dict(
+                max_abs_err=k1_err, ms=kernels_ms(k1_fn, reps=20), events_ms=cuda_ms(k1_fn, 20),
+                plain_ms=kernels_ms(lambda: bucket_select_reference(cand, tables.keys, nlanes),
+                                    reps=10),
+                bound_ms=select_bound_ms(lanes, g_, c_, adds=False)[0])
+            def k2_fn():
+                return bucket_select_bwd(g_rows, tables.keys, c_, nlanes)
+
+            kernels["bucket_select_bwd"] = dict(
+                max_abs_err=k2_err, ms=kernels_ms(k2_fn, reps=20), events_ms=cuda_ms(k2_fn, 20),
+                plain_ms=kernels_ms(
+                    lambda: bucket_select_bwd_reference(g_rows, tables.keys, c_, nlanes), reps=10),
+                bound_ms=select_bound_ms(lanes, g_, c_, adds=True)[0])
+            print(f"phase 55: slot tables: grid {grid} (G={g_}), C={c_} slots, K={k_} lanes; "
+                  f"occupied lanes {lanes} of {g_ * r_}")
+            del cand, k1_out, g_rows, k2_out, k2_ref
+        elif name == "packed":
+            pgrid, pg, pc, pns, ps_cap, pkl = _packed_statics(tables)
+            planes = pns * ps_cap * pkl
+            pindex = _flat_rows_index(tables.keys_flat, tables.tile_bucket, pg, pc).reshape(-1)
+            pvalid = int((pindex < pg * 27 * pc).sum())
+            k5_launch_shape("phase 55: K5f and K5b at the triclinic packed tables", pg, pc,
+                            max(1, ps_cap // 8 * pns // pg))
+            pcanon = md._to_internal(start.coords) - tables.wrap_offset
+            pcand = _cand_table(pcanon, tables.atom_of_slot, tables.wrapshift, pgrid, pc)
+            pout = packed_select_fwd(pcand, tables.keys_flat, tables.tile_bucket)
+            torch.cuda.synchronize()
+            k5f_err = float(
+                (pout - packed_select_reference(pcand, tables.keys_flat, tables.tile_bucket))
+                .abs().max())
+            check(k5f_err == 0.0, "phase 55: K5f is an exact selection at the triclinic tables")
+            pgout = torch.randn(pout.shape, device=dev,
+                                generator=torch.Generator(dev).manual_seed(56))
+            pback = packed_select_bwd(pgout, tables.keys_flat, tables.tile_bucket, pc, pg)
+            torch.cuda.synchronize()
+            pbref = packed_select_bwd_reference(pgout, tables.keys_flat, tables.tile_bucket, pc, pg)
+            k5b_err = float((pback - pbref).abs().max())
+            check(within(pback, pbref, SUM_TOL),
+                  "phase 55: K5b within tolerance at the triclinic tables")
+            tiles = tables.tile_bucket.numel()
+            def k5f_fn():
+                return packed_select_fwd(pcand, tables.keys_flat, tables.tile_bucket)
+
+            kernels["packed_select_fwd"] = dict(
+                max_abs_err=k5f_err, ms=kernels_ms(k5f_fn, reps=20), events_ms=cuda_ms(k5f_fn, 20),
+                plain_ms=kernels_ms(
+                    lambda: packed_select_reference(pcand, tables.keys_flat, tables.tile_bucket),
+                    reps=10),
+                bound_ms=packed_bound_ms(planes, planes, pg, pc, tiles, adds=False)[0])
+            def k5b_fn():
+                return packed_select_bwd(pgout, tables.keys_flat, tables.tile_bucket, pc, pg)
+
+            kernels["packed_select_bwd"] = dict(
+                max_abs_err=k5b_err, ms=kernels_ms(k5b_fn, reps=20), events_ms=cuda_ms(k5b_fn, 20),
+                plain_ms=kernels_ms(
+                    lambda: packed_select_bwd_reference(pgout, tables.keys_flat, tables.tile_bucket,
+                                                        pc, pg), reps=10),
+                bound_ms=packed_bound_ms(planes, pvalid, pg, pc, tiles, adds=True)[0])
+            print(f"phase 55: packed tables: {pns} spans of {pg // pns} bucket(s), S_cap={ps_cap} "
+                  f"rows, KL={pkl} lanes, {planes} lanes ({pvalid} hold a neighbor)")
+            del pindex, pcand, pout, pgout, pback, pbref
+        del md, state
+    for name in ("slot", "packed"):
+        df = float((starts[name].forces - starts["gather"].forces).abs().max())
+        dx = float((ends[name].coords - ends["gather"].coords).abs().max())
+        print(f"phase 55: {name} against gather: init max |dF| {df:.3e} Ha/A, after {TRI_STEPS} "
+              f"steps max |dx| {dx:.3e} A")
+        check(df <= FORCE_ATOL, f"phase 55: {name} init forces equal the gather run's")
+        check(dx <= MD_COORD_ATOL,
+              f"phase 55: {name} coordinates within {MD_COORD_ATOL} A of the gather run's after "
+              f"{TRI_STEPS} steps")
+    for short, name in (("K1", "bucket_select_fwd"), ("K2", "bucket_select_bwd"),
+                        ("K5f", "packed_select_fwd"), ("K5b", "packed_select_bwd")):
+        k_ = kernels[name]
+        print(f"{card}: phase 55: {short} at the triclinic tables: max abs err "
+              f"{k_['max_abs_err']:.3e}; {k_['ms']:.4f} ms ({k_['events_ms']:.4f} between CUDA "
+              f"events); plain {k_['plain_ms']:.4f} ms; bound {k_['bound_ms']:.4f} ms")
+    print(f"{card}: phase 55: ANI-2x MD on the sheared {num_atoms}-atom box, ms a step (median, "
+          f"min, max of {TRI_STEPS} steps; as one run): "
+          + "; ".join(f"{n_} {v['median']:.3f}, {v['min']:.3f}, {v['max']:.3f}; {v['run']:.3f}"
+                      for n_, v in step_ms.items()))
+    print(f"new phase (55, triclinic MD): {time.perf_counter() - t_phase:.1f} s of wall time")
+    return {"launches": launches, "kernels": kernels, "step_ms": step_ms}
 
 
 def main() -> int:
@@ -4389,6 +4627,10 @@ def main() -> int:
     # ---- 54. the native xyz parser (`xyz_phases`) ----
     xyz = xyz_phases(card, kernels_fn, reset_counts, read_counts)
 
+    # ---- 55. triclinic MD through the three refreshes (`triclinic_phases`) ----
+    torch.cuda.empty_cache()
+    tri = triclinic_phases(card, kernels_fn, reset_counts, read_counts)
+
     def entry(name, source, replaces, err, ms, plain, bound, by, library):
         return {
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
@@ -4411,6 +4653,7 @@ def main() -> int:
                 **{k_: v[name] for k_, v in parallel["launches"].items()},
                 **{k_: v[name] for k_, v in higher["launches"].items()},
                 **{k_: v[name] for k_, v in xyz["launches"].items()},
+                **{k_: v[name] for k_, v in tri["launches"].items()},
             },
             "max_abs_err": err, "ms": ms, "plain_ms": plain, "bound_ms": bound,
             "bound_by": by, "library_ms": library,
@@ -4515,6 +4758,9 @@ def main() -> int:
             "library_ms": k4[p_][f"{side}_lib"],
             **({"split": k4[p_]["split"], "threads": k4[p_]["threads"]} if side == "b" else {}),
         }
+    # K1, K2, K5f and K5b at the sheared box's tables (phase 55)
+    for name, at in tri["kernels"].items():
+        next(k_ for k_ in kernels if k_["name"] == name)["at_triclinic"] = at
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({
         "ok": True,

@@ -12,12 +12,14 @@ list, so the lists can only shrink as the port grows.
 
 import importlib
 import inspect
+import os
 import pkgutil
 
 import pytest
 
 import torchani_tpu
 from test_api_parity import REFERENCE_SURFACE
+from test_torch_io import jax_csrc_module
 
 #: the names of REFERENCE_SURFACE the port does not have yet, by module
 #: (a module that the port lacks altogether lists all of its names)
@@ -85,11 +87,25 @@ def test_charges_and_zoo_names_resolve():
 
 
 def _jax_modules():
-    return sorted(
-        info.name[len("torchani_tpu."):]
-        for info in pkgutil.walk_packages(torchani_tpu.__path__, "torchani_tpu.")
-        if info.name[len("torchani_tpu."):] not in NATIVE
-    )
+    """The JAX package's modules, found on disk.  `pkgutil.walk_packages`
+    would import each package to walk into it, and importing
+    `torchani_tpu.csrc` builds its parser in the JAX package's directory
+    (`test_torch_io.jax_csrc_module`); this list is made while every test
+    process collects."""
+
+    def walk(path, prefix):
+        for info in pkgutil.iter_modules([path]):
+            yield prefix + info.name
+            if info.ispkg:
+                yield from walk(os.path.join(path, info.name), f"{prefix}{info.name}.")
+
+    return sorted(m for m in walk(torchani_tpu.__path__[0], "") if m not in NATIVE)
+
+
+def _jax_module(mod: str):
+    if mod == "csrc":  # without its import-time build
+        return jax_csrc_module()
+    return importlib.import_module("torchani_tpu." + mod)
 
 
 def _public_names(module) -> set:
@@ -110,7 +126,7 @@ def test_left_out_lists_name_jax_modules():
 
 @pytest.mark.parametrize("mod", _jax_modules())
 def test_every_jax_module_surface(mod):
-    names = _public_names(importlib.import_module("torchani_tpu." + mod))
+    names = _public_names(_jax_module(mod))
     port = _port_module(mod)
     absent = {n for n in names if port is None or not hasattr(port, n)}
     left_out = set(LEFT_OUT.get(mod, ("", ""))[0].split())

@@ -11,7 +11,9 @@ same relaxed geometries (atol 1e-4 A) for one conformer and for a file whose
 conformers have 3 and 4 atoms (padded batch).  ``md --traj`` records its
 frames through `MolecularDynamics.trajectory`, ``md --mts`` runs RESPA; an
 unknown model exits, and without ``--device cpu`` a machine with no CUDA
-device is refused.
+device is refused.  The JAX CLI reads its files through the JAX package's
+native parser as `test_torch_io.jax_parser` hands it out (built in this
+process's own directory), never through a build in the JAX package's.
 """
 
 import json
@@ -28,6 +30,7 @@ from torchani_tpu_torch import cli
 from torchani_tpu_torch.arch import simple_ani
 from torchani_tpu_torch.interop import load_jax_arrays
 from torchani_tpu_torch.io import read_xyz, write_xyz
+from test_torch_io import jax_parser, jax_parser_lib  # noqa: F401  (JAX's CLI reads xyz)
 
 torch.set_num_threads(2)
 WATER = np.array([[0.0, 0.0, 0.119], [0.0, 0.763, -0.477], [0.0, -0.763, -0.477]], np.float32)

@@ -13,19 +13,100 @@ raw outputs equal those of the JAX package's library on the same bytes.
 `read_pdb` reads a small synthetic PDB as the JAX package does;
 `pad_atomic_properties` and `strip_redundant_padding` give the JAX
 package's arrays.
+
+The JAX package's parser reaches these tests only as `jax_parser` hands
+it to JAX's loader: built from its source into each test process's own
+temporary directory.  Nothing here imports `torchani_tpu.csrc` while the
+module is collected, and nothing builds in the JAX package's directory,
+whose loader writes ``xyzparse.so`` in place: under ``-n 6`` the workers
+that each imported it while collecting raced on that one path, and one
+worker's loader gave None.  `test_parsers_load_whole_in_processes_at_once`
+holds both parsers' loading in four processes started together.
 """
 
+import ctypes
+import importlib
+import os
 import shutil
+import subprocess
+import sys
+from pathlib import Path
 
 import numpy as np
 import pytest
 
 from torchani_tpu import io as jio
 from torchani_tpu import utils as jutils
-from torchani_tpu.csrc import load_xyzparse as jload_xyzparse
 from torchani_tpu_torch import csrc, io, utils
 
 needs_gxx = pytest.mark.skipif(shutil.which("g++") is None, reason="no g++ to build the parser")
+
+#: the JAX package's parser source, which the tests build for themselves
+JAX_PARSER_SRC = Path(jio.__file__).resolve().parent / "csrc" / "xyzparse.cpp"
+
+
+def jax_csrc_module():
+    """The JAX package's `torchani_tpu.csrc`, imported without the build that
+    its import runs where ``xyzparse.so`` is missing or stale.  That build
+    writes ``g++``'s output straight onto ``xyzparse.so`` in the JAX
+    package's directory, with no temporary file and no lock: processes that
+    import the module at once (test workers collecting the same files) write
+    that one path while others load it.  So the import here runs with the
+    module's switch ``TORCHANI_TPU_DISABLE_EXTENSIONS=1`` on; then the
+    switch is set back to what the environment says and the loader left
+    untried, as after a fresh import (``XYZPARSE_IS_AVAILABLE`` stays
+    False).  A module that this process imported before is returned as it
+    is."""
+    name = "torchani_tpu.csrc"
+    if name not in sys.modules:
+        with pytest.MonkeyPatch.context() as mp:
+            mp.setenv("TORCHANI_TPU_DISABLE_EXTENSIONS", "1")
+            module = importlib.import_module(name)
+        module._DISABLED = os.getenv("TORCHANI_TPU_DISABLE_EXTENSIONS") == "1"
+        module._TRIED, module._LIB = False, None
+    return sys.modules[name]
+
+
+def build_jax_parser(directory: Path):
+    """The JAX package's parser built from its source (read only) into
+    ``directory``: ``g++`` with its loader's flags onto a temporary name,
+    then `os.replace`; loaded with its loader's argument types.  None where
+    it cannot be built or loaded, as its loader degrades."""
+    out = Path(directory) / "xyzparse.so"
+    tmp = out.with_name(f"xyzparse.{os.getpid()}.tmp.so")
+    try:
+        subprocess.run(["g++", "-O2", "-shared", "-fPIC", "-o", str(tmp), str(JAX_PARSER_SRC)],
+                       check=True, capture_output=True, timeout=120)
+        os.replace(tmp, out)
+        lib = ctypes.CDLL(str(out))
+    except (OSError, subprocess.SubprocessError):
+        tmp.unlink(missing_ok=True)
+        return None
+    lib.parse_xyz.restype = ctypes.c_long
+    lib.parse_xyz.argtypes = [
+        ctypes.c_char_p, ctypes.c_long, ctypes.c_long, ctypes.POINTER(ctypes.c_int),
+        ctypes.POINTER(ctypes.c_int), ctypes.POINTER(ctypes.c_float), ctypes.c_long,
+    ]
+    return lib
+
+
+@pytest.fixture(scope="session")
+def jax_parser_lib(tmp_path_factory):
+    """The JAX package's parser, built once in each test process into that
+    process's own temporary directory."""
+    return build_jax_parser(tmp_path_factory.mktemp("jax_xyzparse"))
+
+
+@pytest.fixture(autouse=True)
+def jax_parser(jax_parser_lib, monkeypatch):
+    """JAX's loader (`torchani_tpu.csrc.load_xyzparse`) hands out
+    `jax_parser_lib` during each test here, so that `jio.read_xyz` takes its
+    native route with a library known to be whole and nothing builds in the
+    JAX package's directory."""
+    module = jax_csrc_module()
+    monkeypatch.setattr(module, "_LIB", jax_parser_lib)
+    monkeypatch.setattr(module, "_TRIED", True)
+    return jax_parser_lib
 
 SPECIES = np.array([[8, 1, 1, -1], [6, 1, 1, 8], [1, 1, -1, -1]])
 COORDS = np.random.RandomState(0).randn(3, 4, 3).astype(np.float32)
@@ -127,6 +208,8 @@ XYZ_FILES = {
 }
 #: the Python route's error on two distinct cells (both packages)
 DISTINCT = "distinct_cells"
+#: bytes that both parsers refuse at the 17th byte (a coordinate that is no number)
+MALFORMED = b"2\nc\nO 0 0 0\nH 0 zero 1\n"
 
 
 def _read_all(reader, path, **kw):
@@ -259,8 +342,6 @@ def test_native_buffers_sized_from_the_frames(tmp_path, monkeypatch, name):
 
 
 def _parse(lib, raw: bytes, max_frames: int, cap: int):
-    import ctypes
-
     counts = np.zeros(max_frames, np.int32)
     znums = np.zeros(max_frames * cap, np.int32)
     coords = np.zeros(max_frames * cap * 3, np.float32)
@@ -277,7 +358,7 @@ def _parse(lib, raw: bytes, max_frames: int, cap: int):
 @needs_gxx
 @pytest.mark.parametrize("cap", [2, 1024])
 @pytest.mark.parametrize("name", sorted(XYZ_FILES) + ["written", "malformed"])
-def test_parse_xyz_raw_outputs_match_jax(tmp_path, name, cap):
+def test_parse_xyz_raw_outputs_match_jax(tmp_path, jax_parser, name, cap):
     """`parse_xyz` of both libraries on the same bytes: the return value
     (frames, or the negative offset of an error: a frame over the cap, an
     unknown label), counts, atomic numbers and f32 coordinates."""
@@ -285,10 +366,10 @@ def test_parse_xyz_raw_outputs_match_jax(tmp_path, name, cap):
         io.write_xyz(SPECIES, COORDS, tmp_path / "w.xyz", cell=CELL, pad=True)
         raw = (tmp_path / "w.xyz").read_bytes()
     elif name == "malformed":
-        raw = b"2\nc\nO 0 0 0\nH 0 zero 1\n"
+        raw = MALFORMED
     else:
         raw = XYZ_FILES[name].encode()
-    lib, jlib = csrc.load_xyzparse(), jload_xyzparse()
+    lib, jlib = csrc.load_xyzparse(), jax_parser
     assert lib is not None and jlib is not None
     max_frames = max(1, raw.count(b"\n") // 3 + 1)
     ours, theirs = _parse(lib, raw, max_frames, cap), _parse(jlib, raw, max_frames, cap)
@@ -297,6 +378,98 @@ def test_parse_xyz_raw_outputs_match_jax(tmp_path, name, cap):
         np.testing.assert_array_equal(a, b)
     if cap == 1024:
         assert (ours[0] < 0) == (name in ("malformed", "large_frame", "overlong_count"))
+
+
+#: one process of `test_parsers_load_whole_in_processes_at_once`: once
+#: every process has imported (a file each in the shared directory), the
+#: port's parser from the shared build directory in its environment, and
+#: the JAX package's as `jax_parser` gives it, built into the process's own
+#: directory (argv: the tests' directory, that directory, the output file,
+#: the processes)
+_LOADER_PROCESS = """
+import sys
+import time
+from pathlib import Path
+
+import numpy as np
+
+sys.path.insert(0, sys.argv[1])
+import test_torch_io as t
+
+own = Path(sys.argv[2])
+(own.parent / (own.name + ".ready")).touch()
+deadline = time.monotonic() + 60
+while len(list(own.parent.glob("*.ready"))) < int(sys.argv[4]) and time.monotonic() < deadline:
+    time.sleep(0.01)
+module = t.jax_csrc_module()
+module._LIB, module._TRIED = t.build_jax_parser(own), True
+out = {}
+for name, lib in (("port", t.csrc.load_xyzparse()), ("jax", module.load_xyzparse())):
+    out[name + "_malformed"] = np.asarray(t._parse(lib, t.MALFORMED, 2, 1024)[0])
+    for i, a in enumerate(t._parse(lib, *t._RACE_PARSE)):
+        out[f"{name}_raw{i}"] = np.asarray(a)
+path = own / "frames.xyz"
+path.write_text(t.XYZ_FILES[t.RACE_FILE])
+for name, reader in (("port", t.io.read_xyz), ("jax", t.jio.read_xyz)):
+    for i, a in enumerate(reader(path)):
+        out[f"{name}_read{i}"] = np.asarray(a)
+np.savez(sys.argv[3], **out)
+"""
+#: the file those processes parse (a frame over JAX's first cap), and its
+#: raw parse's arguments (the bytes, frames, a cap over its largest frame)
+RACE_FILE = "large_frame"
+_RACE_PARSE = (XYZ_FILES[RACE_FILE].encode(), XYZ_FILES[RACE_FILE].count("\n") // 3 + 1, 2048)
+
+
+@needs_gxx
+def test_parsers_load_whole_in_processes_at_once(tmp_path, jax_parser):
+    """Four processes, each loading at the same moment the port's parser from
+    one empty build directory (each builds it, onto its own temporary name)
+    and the JAX package's the way `jax_parser` does: every process gets two
+    whole libraries, which refuse `MALFORMED` at its 17th byte and parse
+    `RACE_FILE` as this process's JAX library does, and reads it to JAX's
+    arrays on both packages' native routes.  No process builds or rewrites
+    ``xyzparse.so`` in the JAX package's directory."""
+    jax_so = JAX_PARSER_SRC.with_suffix(".so")
+    before = jax_so.stat() if jax_so.exists() else None
+    env = {**os.environ, "TORCHANI_TPU_TORCH_BUILD_DIR": str(tmp_path / "build")}
+    runs, processes = [], 4
+    for i in range(processes):
+        own = tmp_path / f"process{i}"
+        own.mkdir()
+        runs.append((own / "out.npz", subprocess.Popen(
+            [sys.executable, "-c", _LOADER_PROCESS, str(Path(__file__).parent), str(own),
+             str(own / "out.npz"), str(processes)],
+            cwd=Path(__file__).resolve().parent.parent, env=env, stdout=subprocess.PIPE,
+            stderr=subprocess.PIPE)))
+    errors = []
+    for _, proc in runs:
+        try:
+            errors.append(proc.communicate(timeout=120)[1].decode()[-3000:])
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            errors.append(proc.communicate()[1].decode()[-3000:] + "\n(killed after 120 s)")
+    assert all(proc.returncode == 0 for _, proc in runs), "\n".join(errors)
+    assert len(list((tmp_path / "build").glob("libxyzparse_*.so"))) == 1
+    assert not list((tmp_path / "build").glob("*.tmp.so"))
+    path = tmp_path / "frames.xyz"
+    path.write_text(XYZ_FILES[RACE_FILE])
+    raw = _parse(jax_parser, *_RACE_PARSE)
+    read = jio.read_xyz(path)
+    assert raw[0] == 3 and read[0].shape == (3, 1500)
+    for out, _ in runs:
+        with np.load(out) as got:
+            for name in ("port", "jax"):
+                assert int(got[name + "_malformed"]) == -17
+                for i, want in enumerate(raw):
+                    np.testing.assert_array_equal(got[f"{name}_raw{i}"], want)
+                for i, want in enumerate(read[:2]):
+                    assert got[f"{name}_read{i}"].dtype == want.dtype
+                    np.testing.assert_array_equal(got[f"{name}_read{i}"], want)
+    after = jax_so.stat() if jax_so.exists() else None
+    assert (before is None) == (after is None)
+    if before is not None:
+        assert (after.st_ino, after.st_mtime_ns) == (before.st_ino, before.st_mtime_ns)
 
 
 PDB = """\
