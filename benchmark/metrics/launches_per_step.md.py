@@ -1,0 +1,7 @@
+"""Kernel launches per MD step."""
+
+from benchmark import readers
+
+
+def read(ctx):
+    return readers.launches(ctx, "steps")
