@@ -32,6 +32,10 @@ LEFT_OUT = {
         "angular_aev_pallas",
         "the TPU kernel; its port is K3, `torchani_tpu_torch.aev.kernels.angular_aev`",
     ),
+    "profiling": (
+        "PRINT_AEV_BRANCH",
+        "a flag from the environment that no code of either package reads",
+    ),
 }
 #: modules of the JAX package that are not Python (compiled extensions)
 NATIVE = {"csrc.xyzparse": "the native xyz parser's extension module"}

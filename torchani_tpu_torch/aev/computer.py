@@ -51,6 +51,7 @@ from torchani_tpu_torch.aev.terms import (
 )
 from torchani_tpu_torch.annotations import DeviceArg, Tensor
 from torchani_tpu_torch.cutoffs import Cutoff, CutoffArg, CutoffCosine, CutoffSmooth
+from torchani_tpu_torch.profiling import scope
 from torchani_tpu_torch.utils import perm_gather
 from torchani_tpu_torch.neighbors import (
     NeighborlistArg,
@@ -481,9 +482,9 @@ class AEVComputer(torch.nn.Module):
 
     def _present_species(self, elem: Tensor) -> tp.Tuple[int, ...]:
         """Species present in the element array (a host decision)."""
-        return tuple(
-            t for t in torch.unique(elem).tolist() if 0 <= t < self.num_species
-        )
+        with scope("aev.present_species", wait=True):
+            present = torch.unique(elem).tolist()
+        return tuple(t for t in present if 0 <= t < self.num_species)
 
     def _angular_capacity(self, radial_capacity: int) -> int:
         """The JAX package's angular repack capacity: ``angular_capacity``

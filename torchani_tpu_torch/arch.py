@@ -40,6 +40,7 @@ from torchani_tpu_torch.potentials import (
     SeparateChargesNNPotential,
     TwoBodyDispersionD3,
 )
+from torchani_tpu_torch.profiling import scope
 from torchani_tpu_torch.sae import SelfEnergy
 from torchani_tpu_torch.tuples import EnergiesScalars, SpeciesEnergies
 from torchani_tpu_torch.utils import resolve_device
@@ -58,10 +59,15 @@ _NETWORK_CTORS = {
 
 
 def as_tensor(x, dtype: torch.dtype, device: torch.device) -> Tensor:
-    """An input (numpy array, list or tensor) as a tensor on ``device``."""
-    if isinstance(x, torch.Tensor):
-        return x.to(device=device, dtype=dtype)
-    return torch.as_tensor(np.asarray(x), dtype=dtype, device=device)
+    """An input (numpy array, list or tensor) as a tensor on ``device``.  A
+    copy from the host onto a card waits for the card's stream
+    (``arch.copy_in``)."""
+    if isinstance(x, torch.Tensor) and x.device == device:
+        return x.to(dtype=dtype)
+    with scope("arch.copy_in", wait=True):
+        if isinstance(x, torch.Tensor):
+            return x.to(device=device, dtype=dtype)
+        return torch.as_tensor(np.asarray(x), dtype=dtype, device=device)
 
 
 class ANI(torch.nn.Module):
@@ -183,7 +189,8 @@ class ANI(torch.nn.Module):
             cell = as_tensor(cell, torch.float32, self.device)
         if pbc is not None:
             pbc = as_tensor(pbc, torch.bool, self.device)
-        neighbors = self.neighborlist(self.cutoff, elem_idxs, coords, cell, pbc)
+        with scope("neighbors"):
+            neighbors = self.neighborlist(self.cutoff, elem_idxs, coords, cell, pbc)
         return elem_idxs, coords, neighbors
 
     def _narrowed(self, neighbors: Neighbors) -> tp.Iterator[tp.Tuple[str, Potential, Neighbors]]:
@@ -212,12 +219,13 @@ class ANI(torch.nn.Module):
         host (`MolecularDynamics`): no potential then reads the species back from
         the device.  Charge networks do not run: nothing here reads them."""
         energies = None
-        for _, pot, pot_neighbors in self._narrowed(neighbors):
-            e = pot._energies_from_neighbors(
-                elem_idxs, coords, pot_neighbors, charge=charge,
-                atomic=atomic, ensemble_values=ensemble_values,
-                species_ranges=species_ranges,
-            )
+        for name, pot, pot_neighbors in self._narrowed(neighbors):
+            with scope(f"potential.{name}"):
+                e = pot._energies_from_neighbors(
+                    elem_idxs, coords, pot_neighbors, charge=charge,
+                    atomic=atomic, ensemble_values=ensemble_values,
+                    species_ranges=species_ranges,
+                )
             energies = e if energies is None else energies + e
         if self.energy_shifter.enabled:
             energies = energies + self.energy_shifter(elem_idxs, atomic=atomic)

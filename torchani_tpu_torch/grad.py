@@ -24,6 +24,7 @@ import torch
 from torchani_tpu_torch.annotations import Tensor
 from torchani_tpu_torch.arch import as_tensor
 from torchani_tpu_torch.neighbors import _finalize, _gather_atoms
+from torchani_tpu_torch.profiling import scope
 from torchani_tpu_torch.tuples import EnergiesForcesHessians, ForcesHessians, VibAnalysis
 from torchani_tpu_torch.units import mhessian2fconst, sqrt_mhessian2invcm, sqrt_mhessian2milliev
 from torchani_tpu_torch.utils import get_atomic_masses
@@ -76,10 +77,12 @@ def energies_and_forces(
 ) -> tp.Tuple[Tensor, Tensor]:
     """One forward serves both: energies ``(molecules,)`` and forces
     ``-dE/dr`` ``(molecules, atoms, 3)``."""
-    coords, cell, pbc = _inputs(model, coords, cell, pbc)
-    e = model(species, coords, cell, pbc, **kwargs)
-    (g,) = torch.autograd.grad(e.sum(), coords)
-    return e.detach(), -g
+    with scope("grad.energies_and_forces"):
+        coords, cell, pbc = _inputs(model, coords, cell, pbc)
+        e = model(species, coords, cell, pbc, **kwargs)
+        with scope("grad.backward"):
+            (g,) = torch.autograd.grad(e.sum(), coords)
+        return e.detach(), -g
 
 
 def forces(model, species, coords, cell=None, pbc=None, **kwargs) -> Tensor:
@@ -102,7 +105,8 @@ def energies_and_forces_for_training(
     unless the coordinates' gradient is asked for too)."""
     coords, cell, pbc = _inputs(model, coords, cell, pbc)
     e = model(species, coords, cell, pbc)
-    (g,) = torch.autograd.grad(e.sum(), coords, create_graph=True)
+    with scope("grad.backward"):
+        (g,) = torch.autograd.grad(e.sum(), coords, create_graph=True)
     return e, -g
 
 

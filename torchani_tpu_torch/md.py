@@ -68,6 +68,7 @@ from torchani_tpu_torch.neighbors import (
     narrow_to_cutoff,
 )
 from torchani_tpu_torch.nn.containers import SpeciesRanges
+from torchani_tpu_torch.profiling import scope
 from torchani_tpu_torch.utils import get_atomic_masses, resolve_device
 
 __all__ = [
@@ -781,12 +782,13 @@ class MolecularDynamics:
             if pair_aux is not None and name in pair_aux:
                 aux = pair_aux[name]
                 nbp = nbp.replace(pair_aux=aux if p is None else aux[:, :p])
-            e = e + torch.sum(
-                pot._energies_from_neighbors(
-                    self.elem_idxs, cs[None], _batch1(nbp),
-                    species_ranges=self._species_ranges,
+            with scope(f"potential.{name}"):
+                e = e + torch.sum(
+                    pot._energies_from_neighbors(
+                        self.elem_idxs, cs[None], _batch1(nbp),
+                        species_ranges=self._species_ranges,
+                    )
                 )
-            )
         if model.energy_shifter.enabled:
             e = e + torch.sum(model.energy_shifter(self.elem_idxs))
         return e
@@ -794,11 +796,13 @@ class MolecularDynamics:
     def _energy_and_forces(self, state: MDState, coords: Tensor) -> tp.Tuple[Tensor, Tensor]:
         """Energy and forces at ``coords`` (user order) on the cached
         topology; a fresh graph per call, nothing of it is kept."""
-        c = coords.detach().requires_grad_(True)
-        with torch.enable_grad():
-            nb = _refresh_neighbors(state, c)
+        with scope("md.forces"), torch.enable_grad():
+            c = coords.detach().requires_grad_(True)
+            with scope("md.refresh"):
+                nb = _refresh_neighbors(state, c)
             e = self._potential_energy(nb, self._to_internal(c), state.pair_aux)
-            (g,) = torch.autograd.grad(e, c)
+            with scope("md.backward"):
+                (g,) = torch.autograd.grad(e, c)
         return e.detach(), -g
 
     def _energy_forces_virial(
@@ -877,8 +881,9 @@ class MolecularDynamics:
     def _maybe_rebuild(self, state: MDState, coords: Tensor) -> MDState:
         """Rebuild the cache at ``coords`` if a pair can have closed the skin
         gap: when the SUM of the two largest per-atom displacements since the
-        last build exceeds the skin.  The decision is read on the host: the
-        step's one wait for the device.  A rebuild changes no static size; an
+        last build exceeds the skin.  The decision is read on the host
+        (``md.rebuild_check``, a wait for the device); the rebuild, when
+        taken, is ``md.rebuild``.  A rebuild changes no static size; an
         overflow sets the flag (and poisons the AEV with NaN).
 
         NPT (``state.scale`` set): the table covers physical pair distances
@@ -887,19 +892,21 @@ class MolecularDynamics:
         motion twice (conservative).  The build takes the reduced
         coordinates, and flags an overflow once the box has shrunk past the
         ``npt_compression`` margin."""
-        moved2 = torch.sum((coords - state.ref_coords) ** 2, dim=-1)
-        top2 = torch.topk(moved2, min(2, moved2.shape[0])).values
-        if state.scale is None:
-            gap = self.build_radius - self.cutoff
-        else:
-            gap = state.scale * self.build_radius - self.cutoff
-        need = torch.sum(torch.sqrt(top2)) > gap
-        if not bool(need):
+        with scope("md.rebuild_check", wait=True):
+            moved2 = torch.sum((coords - state.ref_coords) ** 2, dim=-1)
+            top2 = torch.topk(moved2, min(2, moved2.shape[0])).values
+            if state.scale is None:
+                gap = self.build_radius - self.cutoff
+            else:
+                gap = state.scale * self.build_radius - self.cutoff
+            need = bool(torch.sum(torch.sqrt(top2)) > gap)
+        if not need:
             return state
-        red = coords if state.scale is None else coords / state.scale
-        idx, mask, shift, nbr_elem, overflow, tables, pair_aux = self._build_cache(red)
-        if state.scale is not None:
-            overflow = overflow | (state.scale * self.build_radius < self.cutoff)
+        with scope("md.rebuild"):
+            red = coords if state.scale is None else coords / state.scale
+            idx, mask, shift, nbr_elem, overflow, tables, pair_aux = self._build_cache(red)
+            if state.scale is not None:
+                overflow = overflow | (state.scale * self.build_radius < self.cutoff)
         return state.replace(
             nbr_idx=idx,
             nbr_mask=mask,
@@ -916,16 +923,17 @@ class MolecularDynamics:
     def step_nve(self, state: MDState) -> MDState:
         """One Velocity-Verlet step."""
         dt = self.dt
-        with torch.no_grad():
-            v_half = state.velocities + 0.5 * dt * state.forces * self._inv_m
-            coords = state.coords + dt * v_half
-        state = self._maybe_rebuild(state, coords)
-        e, f = self._energy_and_forces(state, coords)
-        with torch.no_grad():
-            v = v_half + 0.5 * dt * f * self._inv_m
-        return state.replace(
-            coords=coords, velocities=v, forces=f, energy=e, step=state.step + 1
-        )
+        with scope("md.step"):
+            with scope("md.integrate"), torch.no_grad():
+                v_half = state.velocities + 0.5 * dt * state.forces * self._inv_m
+                coords = state.coords + dt * v_half
+            state = self._maybe_rebuild(state, coords)
+            e, f = self._energy_and_forces(state, coords)
+            with scope("md.integrate"), torch.no_grad():
+                v = v_half + 0.5 * dt * f * self._inv_m
+            return state.replace(
+                coords=coords, velocities=v, forces=f, energy=e, step=state.step + 1
+            )
 
     def run_nve(self, state: MDState, num_steps: int) -> MDState:
         """Run ``num_steps`` NVE steps."""

@@ -23,6 +23,7 @@ import numpy as np
 import torch
 
 from torchani_tpu_torch.annotations import Tensor
+from torchani_tpu_torch.profiling import scope
 from torchani_tpu_torch.utils import _host, map_to_central
 
 __all__ = [
@@ -529,7 +530,9 @@ def cell_list(
     real = elem_idxs >= 0
     spos = origin_coords.detach()
     scell = used_cell.detach()
-    frac = spos @ torch.linalg.inv(scell)
+    with scope("neighbors.cell_inverse", wait=True):
+        inverse = torch.linalg.inv(scell)  # its singularity check waits for a card
+    frac = spos @ inverse
     if periodic:
         frac = frac - torch.floor(frac)
     frac = torch.clamp(frac, 0.0, 1.0 - 1e-7)

@@ -20,6 +20,7 @@ import torch
 from torchani_tpu_torch.annotations import DeviceArg, Symbols, Tensor
 from torchani_tpu_torch.constants import ATOMIC_NUMBER, PERIODIC_TABLE
 from torchani_tpu_torch.nn.partition import block_rows, species_blocks, unblock_rows
+from torchani_tpu_torch.profiling import scope
 from torchani_tpu_torch.utils import resolve_device
 
 __all__ = [
@@ -319,10 +320,13 @@ class Ensemble(torch.nn.Module):
         if self.partition is not None:
             return self._blocked_values(elem, x0).reshape(e, c, a, self.out_dim)
         out = x0.new_zeros((e, c * a, self.out_dim))
-        for s in torch.unique(elem).tolist():
+        with scope("nn.present_species", wait=True):
+            present = torch.unique(elem).tolist()
+        for s in present:
             if not 0 <= s < self.num_species:
                 continue
-            rows = torch.nonzero(elem == s).squeeze(1)
+            with scope("nn.species_rows", wait=True):
+                rows = torch.nonzero(elem == s).squeeze(1)
             out = out.index_copy(1, rows, self._species_mlp(s, x0.index_select(-2, rows)))
         return out.reshape(e, c, a, self.out_dim)
 

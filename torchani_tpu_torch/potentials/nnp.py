@@ -9,6 +9,7 @@ from torchani_tpu_torch.neighbors import Neighbors
 from torchani_tpu_torch.nn import Ensemble
 from torchani_tpu_torch.nn.containers import SpeciesRanges
 from torchani_tpu_torch.potentials.core import Potential
+from torchani_tpu_torch.profiling import scope
 from torchani_tpu_torch.tuples import EnergiesScalars
 
 __all__ = ["NNPotential"]
@@ -38,10 +39,11 @@ class NNPotential(Potential):
         species_ranges: tp.Optional[SpeciesRanges] = None,
     ) -> EnergiesScalars:
         aevs = self._aevs(elem_idxs, coords, neighbors, species_ranges)
-        energies = self.neural_networks(
-            elem_idxs, aevs, atomic=atomic, ensemble_values=ensemble_values,
-            species_ranges=species_ranges,
-        )
+        with scope("nnp.networks"):
+            energies = self.neural_networks(
+                elem_idxs, aevs, atomic=atomic, ensemble_values=ensemble_values,
+                species_ranges=species_ranges,
+            )
         return EnergiesScalars(energies)
 
     def _aevs(
@@ -54,6 +56,7 @@ class NNPotential(Potential):
         present = None
         if species_ranges is not None:
             present = tuple(s for s, _, _ in species_ranges)
-        return self.aev_computer.compute_from_neighbors(
-            elem_idxs, coords, neighbors, present=present
-        )
+        with scope("nnp.aev"):
+            return self.aev_computer.compute_from_neighbors(
+                elem_idxs, coords, neighbors, present=present
+            )

@@ -29,55 +29,158 @@ launches) and of the refresh, and the profiled window's launches, host waits
 and top kernels.  ``python3 -m torchani_tpu_torch.profiling ani2dr`` prints
 that last part alone.
 
-The module also holds the JAX package's tracing and timing API for use in
-code: `scope` (a label that shows in ``torch.profiler`` traces and, on the
-card, as an NVTX range), `sync`, `Timer` and `trace`.
-``TORCHANI_TPU_PRINT_AEV_BRANCH=1`` sets `PRINT_AEV_BRANCH`, which, as in the
-JAX package, is exported and read by nothing.
+The module also holds the port's one tracing API: `scope`, a span at a
+layer boundary of the program (the MD step, the E+F call, the training step
+and the layers inside them), and `reset`, `spans` and `span_table`, which
+read what the spans recorded; and the JAX package's timing helpers `sync`,
+`Timer` and `trace`.  A span records only while a profiler runs
+(``torch.profiler.profile``, `trace`, ``torch.autograd.profiler.emit_nvtx``);
+otherwise `scope` returns a shared null context.  Under ``emit_nvtx`` every
+span is an NVTX range, for Nsight.
 """
 
 import contextlib
+import dataclasses
+import itertools
 import os
 import sys
 import tempfile
+import threading
 import time
 import typing as tp
 from pathlib import Path
 
 import numpy as np
 import torch
-
-from torchani_tpu_torch.grad import energies_and_forces
-from torchani_tpu_torch.bucket_refresh import vals_select_bwd, vals_select_fwd
-from torchani_tpu_torch.md import (
-    MolecularDynamics,
-    _batch1,
-    _refresh_neighbors,
-    _slice_lanes,
-    kinetic_temperature,
-)
-from torchani_tpu_torch.models import ANI2dr, ANI2x
-from torchani_tpu_torch.neighbors import CellList, narrow_to_cutoff
-from torchani_tpu_torch.testing import make_water_box
+from torch.autograd import profiler as _autograd_profiler
 
 __all__ = [
-    "scope", "Timer", "trace", "sync", "PRINT_AEV_BRANCH", "wall_times_ms", "peak_gib",
-    "main", "md_report", "heating_report", "dr_report",
+    "scope", "reset", "spans", "span_table", "Span", "Timer", "trace", "sync",
+    "wall_times_ms", "peak_gib", "main", "md_report", "heating_report", "dr_report",
 ]
 
-PRINT_AEV_BRANCH = os.getenv("TORCHANI_TPU_PRINT_AEV_BRANCH") == "1"
+
+@dataclasses.dataclass
+class Span:
+    """One recorded span: its ``name``; its ``id``, that of the span it
+    opened in (``parent``, None at the top) and that of the top-level span
+    of its thread (``unit``, its own id at the top); ``wait`` if it is a
+    host wait for the device; host start and end by
+    ``time.perf_counter_ns()``; on CUDA, timing events recorded on the
+    current stream at its start and end (its device interval)."""
+
+    id: int
+    name: str
+    parent: tp.Optional[int]
+    unit: int
+    wait: bool
+    start_ns: int = 0
+    end_ns: tp.Optional[int] = None
+    events: tp.Optional[tp.Tuple[torch.cuda.Event, torch.cuda.Event]] = None
 
 
-@contextlib.contextmanager
-def scope(name: str):
-    """A named range: a ``torch.profiler.record_function`` label, and on a
-    machine with CUDA also an NVTX range inside it (for Nsight)."""
-    with torch.profiler.record_function(name):
-        if torch.cuda.is_available():
-            with torch.cuda.nvtx.range(name):
-                yield
-        else:
-            yield
+_OFF = contextlib.nullcontext()
+_records: tp.List[Span] = []
+_ids = itertools.count()
+#: each thread's open spans, innermost last
+_open = threading.local()
+
+
+class _Scope:
+    """An open span (see `scope`)."""
+
+    __slots__ = ("name", "wait", "span", "label")
+
+    def __init__(self, name: str, wait: bool) -> None:
+        self.name = name
+        self.wait = wait
+
+    # the host clock reads first and last, so that a span's own recording
+    # is in its host time and not in its parent's self time
+    def __enter__(self) -> Span:
+        start = time.perf_counter_ns()
+        stack = _open.__dict__.setdefault("stack", [])
+        top = stack[-1] if stack else None
+        uid = next(_ids)
+        span = Span(uid, self.name, top.id if top else None, top.unit if top else uid,
+                    self.wait, start)
+        self.label = torch.autograd.profiler.record_function(self.name)
+        self.label.__enter__()
+        if torch.cuda.is_initialized():
+            span.events = (torch.cuda.Event(enable_timing=True),
+                           torch.cuda.Event(enable_timing=True))
+            span.events[0].record()
+        stack.append(span)
+        _records.append(span)
+        self.span = span
+        return span
+
+    def __exit__(self, *exc) -> None:
+        span = self.span
+        if span.events is not None:
+            span.events[1].record()
+        _open.stack.pop()
+        self.label.__exit__(*exc)
+        span.end_ns = time.perf_counter_ns()
+
+
+def scope(name: str, wait: bool = False) -> tp.ContextManager:
+    """A span named ``name`` around a block; ``wait`` marks a host wait for
+    the device (a ``.tolist()``, ``bool()`` or ``nonzero`` of a device
+    tensor), one span per wait.
+
+    Off (no profiler running) this is a shared null context: nothing is
+    recorded.  On, the span is a ``torch.profiler.record_function`` range,
+    on the profiler's timeline with the kernels, and a `Span` in the table
+    that `span_table` reads, kept until `reset`.  Open no span inside an
+    autograd ``Function.backward``: it runs on the autograd engine's thread;
+    a backward pass is one span around its ``torch.autograd.grad`` call."""
+    if not _autograd_profiler._is_profiler_enabled:
+        return _OFF
+    return _Scope(name, wait)
+
+
+def reset() -> None:
+    """Forget every recorded span."""
+    _records.clear()
+
+
+def spans() -> tp.List[Span]:
+    """The spans recorded since the last `reset`, in the order they
+    opened."""
+    return list(_records)
+
+
+def span_table() -> tp.Dict[str, tp.Dict[str, tp.Any]]:
+    """Totals by span name over the closed spans since the last `reset`:
+    ``count``; ``host_s``, the host seconds inside them; ``self_s``, that
+    less the part their child spans cover; ``wait_s``, the host seconds in
+    wait spans among them and inside them (a wait inside a wait counted
+    once); ``device_s``, the seconds between each span's two timing events
+    on the device (None where no span of the name ran on CUDA).  Waits for
+    the device first, so that every timing event has completed."""
+    done = [s for s in _records if s.end_ns is not None]
+    if any(s.events is not None for s in done):
+        torch.cuda.synchronize()
+    inner: tp.Dict[int, tp.Tuple[int, int]] = {}  # id -> children's host, wait ns
+    table: tp.Dict[str, tp.Dict[str, tp.Any]] = {}
+    for s in reversed(done):  # every child before its parent
+        host = s.end_ns - s.start_ns
+        child_host, child_wait = inner.pop(s.id, (0, 0))
+        wait = host if s.wait else child_wait
+        if s.parent is not None:
+            h, w = inner.get(s.parent, (0, 0))
+            inner[s.parent] = (h + host, w + wait)
+        row = table.setdefault(s.name, dict(count=0, host_s=0.0, self_s=0.0, wait_s=0.0,
+                                            device_s=None))
+        row["count"] += 1
+        row["host_s"] += host * 1e-9
+        row["self_s"] += (host - child_host) * 1e-9
+        row["wait_s"] += wait * 1e-9
+        if s.events is not None:
+            device_ms = s.events[0].elapsed_time(s.events[1])
+            row["device_s"] = (row["device_s"] or 0.0) + device_ms * 1e-3
+    return table
 
 
 def _tensors(tree: tp.Any) -> tp.Iterator[torch.Tensor]:
@@ -152,12 +255,14 @@ def trace(log_dir: tp.Optional[str] = None):
     """Profile the block with ``torch.profiler`` (the CPU, and CUDA where
     there is a device) and write a Chrome/Perfetto trace into ``log_dir``
     (by default ``torchani-tpu-torch-trace`` in the temporary directory).
-    Yields the directory; the file is ``trace-<time>-<pid>.json``."""
+    Yields the directory; the file is ``trace-<time>-<pid>.json``.  The
+    span table starts empty (`reset`) and holds the block's spans after."""
     out_dir = Path(log_dir or Path(tempfile.gettempdir()) / "torchani-tpu-torch-trace")
     out_dir.mkdir(parents=True, exist_ok=True)
     activities = [torch.profiler.ProfilerActivity.CPU]
     if torch.cuda.is_available():
         activities.append(torch.profiler.ProfilerActivity.CUDA)
+    reset()
     with torch.profiler.profile(activities=activities) as prof:
         yield str(out_dir)
     prof.export_chrome_trace(str(out_dir / f"trace-{time.time_ns()}-{os.getpid()}.json"))
@@ -199,6 +304,8 @@ def peak_gib(fn: tp.Callable[[], tp.Any]) -> float:
 
 
 def _water(num_atoms: int, dev: torch.device) -> tp.Tuple[torch.Tensor, ...]:
+    from torchani_tpu_torch.testing import make_water_box
+
     species, coords, cell = make_water_box(num_atoms)
     return (
         torch.as_tensor(species, device=dev),
@@ -209,6 +316,10 @@ def _water(num_atoms: int, dev: torch.device) -> tp.Tuple[torch.Tensor, ...]:
 
 
 def main() -> None:
+    from torchani_tpu_torch.grad import energies_and_forces
+    from torchani_tpu_torch.models import ANI2x
+    from torchani_tpu_torch.neighbors import CellList
+
     dev = torch.device("cuda")
     model = ANI2x(pretrained=False, seed=0, device=dev)
     model.neighborlist = CellList(capacity=96)
@@ -304,6 +415,9 @@ def _profile(
 def md_report(model, species, coords, cell) -> None:
     """The MD step of `MolecularDynamics` with its defaults: stage times, and
     the profiled window."""
+    from torchani_tpu_torch.md import MolecularDynamics, _batch1, _refresh_neighbors
+    from torchani_tpu_torch.neighbors import narrow_to_cutoff
+
     md = MolecularDynamics(model, species, cell=cell, pbc=True)
     state = md.init(coords, temperature=300.0, generator=torch.Generator().manual_seed(0))
     state = md.run_nve(state, 5)
@@ -387,11 +501,13 @@ def md_report(model, species, coords, cell) -> None:
     heating_report(md, coords)
 
 
-def heating_report(md: MolecularDynamics, coords, max_steps: int = 100) -> None:
+def heating_report(md, coords, max_steps: int = 100) -> None:
     """Run NVE from 300 K until the forces stop being finite (or
     ``max_steps``) and print, every 10 steps and at the end, what the
     random weights do to the box: temperature, the closest pair, and the
     fullest angular row against the AEV's angular capacity."""
+    from torchani_tpu_torch.md import _refresh_neighbors, kinetic_temperature
+
     aevc = md.model.aev_computer
     r_ang = aevc.angular.cutoff
     cap = aevc._angular_capacity(md.capacity)
@@ -430,6 +546,11 @@ DR_VARIANTS = {
 def dr_report() -> None:
     """The ANI-2dr MD step three ways: stage times per potential and the
     profiled window."""
+    from torchani_tpu_torch.bucket_refresh import vals_select_bwd, vals_select_fwd
+    from torchani_tpu_torch.md import MolecularDynamics, _batch1, _refresh_neighbors, _slice_lanes
+    from torchani_tpu_torch.models import ANI2dr
+    from torchani_tpu_torch.neighbors import narrow_to_cutoff
+
     dev = torch.device("cuda")
     model = ANI2dr(pretrained=False, seed=0, device=dev)
     species, coords, cell, _ = _water(ATOMS, dev)

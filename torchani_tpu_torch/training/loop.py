@@ -29,6 +29,7 @@ from torchani_tpu_torch.annotations import Tensor
 from torchani_tpu_torch.arch import ANI, as_tensor
 from torchani_tpu_torch.grad import energies_and_forces_for_training
 from torchani_tpu_torch.md import _shallow_copy, _with_aev_fields
+from torchani_tpu_torch.profiling import scope
 from torchani_tpu_torch.training.schedules import OptimizerFactory
 from torchani_tpu_torch.utils import _host
 
@@ -220,28 +221,32 @@ def make_train_step(
         return TrainState(networks, optimizer(list(networks.parameters())), 0)
 
     def step_fn(state: TrainState, batch: Batch) -> tp.Tuple[TrainState, tp.Dict[str, Tensor]]:
-        model = _model_with_networks(model_template, state.networks)
-        b = _device_batch(batch, model.device)
-        params = list(state.networks.parameters())
-        if force_training and force_grad_mode == "fwdrev":
-            loss, surrogate = _force_loss_fwdrev(
-                model, b["species"], b["coordinates"], b["energies"], b["forces"], force_weight
-            )
-        else:
-            loss = surrogate = energy_force_loss(
-                model, b["species"], b["coordinates"], b["energies"],
-                b["forces"] if force_training else None, force_weight=force_weight,
-            )
-        grads = torch.autograd.grad(surrogate, params, allow_unused=True)
-        mesh = getattr(state.networks, "mesh", None)
-        if mesh is None:
-            mesh = getattr(batch, "mesh", None)
-        if mesh is not None:
-            n = b["species"].shape[0]
-            loss, grads = _data_parallel(mesh, batch, loss, n, params, grads)
-        _apply_grads(state.opt_state, params, grads)
-        state.step += 1
-        return state, {"loss": loss.detach()}
+        with scope("train.step"):
+            model = _model_with_networks(model_template, state.networks)
+            with scope("train.batch"):
+                b = _device_batch(batch, model.device)
+            params = list(state.networks.parameters())
+            if force_training and force_grad_mode == "fwdrev":
+                loss, surrogate = _force_loss_fwdrev(
+                    model, b["species"], b["coordinates"], b["energies"], b["forces"], force_weight
+                )
+            else:
+                loss = surrogate = energy_force_loss(
+                    model, b["species"], b["coordinates"], b["energies"],
+                    b["forces"] if force_training else None, force_weight=force_weight,
+                )
+            with scope("train.backward"):
+                grads = torch.autograd.grad(surrogate, params, allow_unused=True)
+            mesh = getattr(state.networks, "mesh", None)
+            if mesh is None:
+                mesh = getattr(batch, "mesh", None)
+            if mesh is not None:
+                n = b["species"].shape[0]
+                loss, grads = _data_parallel(mesh, batch, loss, n, params, grads)
+            with scope("train.optimizer"):
+                _apply_grads(state.opt_state, params, grads)
+            state.step += 1
+            return state, {"loss": loss.detach()}
 
     return init_fn, step_fn
 

@@ -10,6 +10,7 @@ import torch
 
 from torchani_tpu_torch.annotations import DeviceArg, Symbols, Tensor
 from torchani_tpu_torch.constants import ATOMIC_NUMBER, MASS, PERIODIC_TABLE
+from torchani_tpu_torch.profiling import scope
 
 __all__ = [
     "ATOMIC_KEYS",
@@ -275,9 +276,12 @@ def map_to_central(coords: Tensor, cell: Tensor, pbc: Tensor) -> Tensor:
     """Wrap atoms into the central cell along periodic axes.
 
     Fractionalise, wrap into [0, 1) where ``pbc`` is set, convert back.
-    Differentiable (the wrap's ``floor`` has zero gradient).
+    Differentiable (the wrap's ``floor`` has zero gradient).  The inverse
+    reads its singularity check back to the host: a wait for a card.
     """
-    frac = coords @ torch.linalg.inv(cell)
+    with scope("utils.cell_inverse", wait=True):
+        inverse = torch.linalg.inv(cell)
+    frac = coords @ inverse
     frac = frac - torch.floor(frac) * pbc.to(frac.dtype)
     return frac @ cell
 
