@@ -146,9 +146,16 @@ ANI-2x MD on the 10,002-atom box with its cell sheared (b += 0.2 a, c +=
 0.1 a + 0.15 b), 10 NVE steps through each refresh (gather, slot-row with
 K1 and K2, atom-packed with K5f and K5b) with exact launches, the four
 refresh kernels against their plain versions at the sheared tables, and the
-slot and packed coordinates against the gather run's.  Every number it
+slot and packed coordinates against the gather run's.  Then phase 56
+(`radial_phases`): K6, K6b and K6bb, the radial AEV's kernels, once an E+F
+(2,560 chain molecules of up to 60 atoms, the E+F cell's shape), once a
+step of NVE on the 59,049-atom box (the MD cell's), K6bb once a force
+training step and in a Hessian; each kernel against its plain version at
+the E+F and MD tables, its ms beside its bound and the plain version's, the
+memory a call allocates (its outputs only), and E+F and the MD step against
+the plain radial sums (ms, peak memory, forces, coordinates).  Every number it
 prints was measured or computed in the run.  It prints a ``kernels`` JSON
-line (all nine kernels; K3, K3b and K3bb also at the training batch; K1 and
+line (all twelve kernels; K3, K3b and K3bb also at the training batch; K1 and
 K2 also at the shards' buckets; K1, K2, K5f and K5b also at the sheared
 box's tables) and,
 last, ``{"ok": true, "device": {...}}``.  Any failed check raises, and the script exits non-zero without that last line; so does
@@ -2316,6 +2323,272 @@ def triclinic_phases(card: str, kernels_fn: dict, reset_counts, read_counts) -> 
                       for n_, v in step_ms.items()))
     print(f"new phase (55, triclinic MD): {time.perf_counter() - t_phase:.1f} s of wall time")
     return {"launches": launches, "kernels": kernels, "step_ms": step_ms}
+
+
+#: the radial kernels (phase 56): the E+F cell's shape (2,560 chain molecules
+#: of up to 60 atoms over ANI-2x's seven elements, the angular table tuned to
+#: the batch) and the MD cell's 59,049-atom water box; each kernel against
+#: its plain version at |k - p| <= RADIAL_ATOL max|p| + RADIAL_RTOL |p| (f32
+#: sums over lanes or shifts in another order), exact zeros on masked lanes
+RADIAL_EF_BATCH, RADIAL_EF_ATOMS, RADIAL_MD_ATOMS, RADIAL_MD_STEPS = 2560, 60, 59049, 10
+RADIAL_ATOL, RADIAL_RTOL = 1e-6, 1e-5
+ANI2X_ZNUMS = (1, 6, 7, 8, 9, 16, 17)
+
+
+def radial_bound_ms(which: str, dist: torch.Tensor, species: torch.Tensor, nr: int,
+                    ns: int) -> tuple:
+    """The least time of K6, K6b or K6bb at a table: bytes (each lane's
+    species at the 4 B that K3 takes them in, not the 8 B of the int64 table
+    these kernels read; the valid lanes' distance and K6bb's direction; the
+    output or cotangent rows: those of the rows with a valid lane where
+    read) over the HBM peak, or its special-function instructions (an exp a
+    valid lane and shift, K6bb two; a cos, K6b and K6bb also a sin) over
+    their peak; ``(ms, "bytes" or "sfu")``."""
+    n, k = dist.shape
+    valid = int((species >= 0).sum())
+    rows = int((species >= 0).any(dim=1).sum())
+    row_bytes = 4 * ns * nr
+    nbytes = {
+        "K6": 4 * n * k + 4 * valid + n * row_bytes,
+        "K6b": 4 * n * k + 4 * valid + rows * row_bytes + 4 * n * k,
+        "K6bb": 4 * n * k + 8 * valid + rows * row_bytes + n * row_bytes + 4 * n * k,
+    }[which]
+    sfu = valid * {"K6": nr + 1, "K6b": nr + 2, "K6bb": 2 * nr + 2}[which]
+    by_bytes, by_sfu = nbytes / PEAK_HBM_BYTES * 1e3, sfu / PEAK_SFU_OPS * 1e3
+    return (by_bytes, "bytes") if by_bytes >= by_sfu else (by_sfu, "sfu")
+
+
+def radial_errors(out: torch.Tensor, ref: torch.Tensor, what: str) -> float:
+    err = (out - ref).abs()
+    print(f"{what}: max abs err {float(err.max()):.3e} (max |plain| {float(ref.abs().max()):.3e})")
+    check(bool(torch.isfinite(out).all()), f"{what}: finite")
+    check(bool((err <= RADIAL_ATOL * ref.abs().max() + RADIAL_RTOL * ref.abs()).all()),
+          f"{what}: within tolerance of its plain version")
+    return float(err.max())
+
+
+def radial_phases(card: str) -> dict:
+    """Phase 56: K6, K6b and K6bb (`aev.radial_kernels`).  Their launches on
+    the E+F, MD, force-training and Hessian paths (one K6 an evaluation, one
+    K6b a force evaluation, one K6bb a force-training step; 3 K6, 6 K6b and
+    3 K6bb a Hessian of 90 atoms, one K6 and K6bb and two K6b a pass), each kernel against its plain version at the E+F and MD
+    tables that those paths hand it, its card ms beside its bound and the
+    plain version's, the device memory a call adds (no ``(N, K, R)``
+    tensor), and E+F and the MD step with the radial sums of the plain path
+    (the route before these kernels: K3 and K3b unchanged) against the
+    kernels' route: ms, peak memory, forces.  Returns ``kernels`` entries
+    and ``launches`` by path."""
+    from torchani_tpu_torch import csrc, training
+    from torchani_tpu_torch.aev import computer as aev_computer
+    from torchani_tpu_torch.aev.radial_kernels import (
+        radial_aev,
+        radial_aev_bwd,
+        radial_aev_bwd_bwd,
+        radial_aev_bwd_bwd_reference,
+        radial_aev_bwd_reference,
+        radial_aev_reference,
+    )
+    from torchani_tpu_torch.grad import energies_and_forces, hessians
+    from torchani_tpu_torch.md import MolecularDynamics
+    from torchani_tpu_torch.models import ANI2x
+    from torchani_tpu_torch.profiling import peak_gib, wall_times_ms
+    from torchani_tpu_torch.testing import make_chain_molecs, make_water_box
+    from torchani_tpu_torch.training import make_train_step
+
+    log = csrc.build(["radial_aev"]).get("radial_aev")
+    if log:
+        print("phase 56: radial_aev.cu, nvcc -Xptxas=-v:\n" + log)
+    wrappers = {"radial_aev": radial_aev, "radial_aev_bwd": radial_aev_bwd,
+                "radial_aev_bwd_bwd": radial_aev_bwd_bwd}
+
+    def read():
+        return {name: fn.launches for name, fn in wrappers.items()}
+
+    def since(before):
+        torch.cuda.synchronize()
+        return {name: n - before[name] for name, n in read().items()}
+
+    def want(k6, k6b, k6bb):
+        return {"radial_aev": k6, "radial_aev_bwd": k6b, "radial_aev_bwd_bwd": k6bb}
+
+    tables = {}
+    real = aev_computer.radial_aev
+
+    def spy(dist, species, **kw):
+        if spy.tag is not None and spy.tag not in tables:
+            tables[spy.tag] = (dist.detach(), species, kw)
+        return real(dist, species, **kw)
+
+    spy.tag = None
+    launches = {}
+    dev = torch.device("cuda")
+    aev_computer.radial_aev = spy
+    try:
+        # E+F at the E+F cell's shape
+        sp, co = make_chain_molecs(RADIAL_EF_BATCH, RADIAL_EF_ATOMS, seed=0, znums=ANI2X_ZNUMS)
+        batch = {"species": torch.as_tensor(sp, device=dev),
+                 "coordinates": torch.as_tensor(co, device=dev)}
+        model = training.tune_angular_capacity(ANI2x(seed=0, device=dev), [batch])
+
+        def ef():
+            return energies_and_forces(model, batch["species"], batch["coordinates"])
+
+        ef()
+        before, spy.tag = read(), "ef"
+        e_k, f_k = ef()
+        spy.tag = None
+        launches["ef"] = since(before)
+        check(launches["ef"] == want(1, 1, 0), "phase 56: one E+F launches K6 and K6b once")
+        ef_ms = float(np.median(wall_times_ms(ef, reps=5)))
+        ef_peak = peak_gib(ef)
+        model.aev_computer._use_radial_kernel = lambda t: False  # the plain radial sums
+        e_p, f_p = ef()
+        ef_plain_ms = float(np.median(wall_times_ms(ef, reps=5)))
+        ef_plain_peak = peak_gib(ef)
+        del model.aev_computer._use_radial_kernel
+        ef_df = float((f_k - f_p).abs().max())
+        ef_de = float(((e_k - e_p).abs() / e_p.abs()).max())
+        print(f"{card}: phase 56: E+F of {RADIAL_EF_BATCH} chain molecules ({int((sp >= 0).sum())} "
+              f"atoms, {sp.size} rows): radial kernels {ef_ms:.3f} ms, peak {ef_peak:.3f} GiB; "
+              f"plain radial sums {ef_plain_ms:.3f} ms, peak {ef_plain_peak:.3f} GiB; max |dF| "
+              f"{ef_df:.3e} Ha/A, max |dE|/|E| {ef_de:.3e}")
+        check(ef_df <= FORCE_ATOL and ef_de <= 1e-6, "phase 56: E+F forces equal the plain sums'")
+        check(ef_peak < ef_plain_peak, "phase 56: E+F peak memory below the plain sums'")
+
+        # force training at the same batch
+        batch["energies"] = torch.as_tensor(
+            np.random.RandomState(1).randn(RADIAL_EF_BATCH).astype(np.float32), device=dev)
+        batch["forces"] = torch.zeros(co.shape, device=dev)
+        tmodel = ANI2x(seed=0, device=dev)
+        tmodel.energy_shifter.enabled = False
+        tmodel = training.tune_angular_capacity(tmodel, [batch])
+        init, step = make_train_step(tmodel, training.adamw_with_plateau(TRAIN_LR)[0],
+                                     force_training=True)
+        state = init()
+        state, _ = step(state, batch)
+        before = read()
+        state, m = step(state, batch)
+        launches["train_force_step"] = since(before)
+        check(launches["train_force_step"] == want(1, 1, 1) and bool(torch.isfinite(m["loss"])),
+              "phase 56: a force-training step launches K6, K6b and K6bb once each")
+        del state, init, step, tmodel
+
+        # the MD cell's box
+        box_sp, box_co, cell = make_water_box(RADIAL_MD_ATOMS)
+        md = MolecularDynamics(ANI2x(seed=0, device=dev), box_sp, cell=cell, pbc=True, device=dev)
+        spy.tag = "md"
+        state = md.init(box_co, temperature=300.0, generator=torch.Generator().manual_seed(0))
+        spy.tag = None
+        before = read()
+        end = md.run_nve(state, RADIAL_MD_STEPS)
+        launches["md"] = since(before)
+        check(launches["md"] == want(RADIAL_MD_STEPS, RADIAL_MD_STEPS, 0)
+              and bool(torch.isfinite(end.coords).all()),
+              f"phase 56: {RADIAL_MD_STEPS} NVE steps launch K6 and K6b once a step")
+        md_ms = float(np.median(wall_times_ms(lambda: md.run_nve(state, RADIAL_MD_STEPS),
+                                              reps=3))) / RADIAL_MD_STEPS
+        md_peak = peak_gib(lambda: md.run_nve(state, 1))
+        md.model.aev_computer._use_radial_kernel = lambda t: False
+        end_p = md.run_nve(state, RADIAL_MD_STEPS)
+        md_plain_ms = float(np.median(wall_times_ms(lambda: md.run_nve(state, RADIAL_MD_STEPS),
+                                                    reps=3))) / RADIAL_MD_STEPS
+        md_plain_peak = peak_gib(lambda: md.run_nve(state, 1))
+        del md.model.aev_computer._use_radial_kernel
+        md_dx = float((end.coords - end_p.coords).abs().max())
+        print(f"{card}: phase 56: NVE on the {RADIAL_MD_ATOMS}-atom box: radial kernels "
+              f"{md_ms:.3f} ms a step, peak {md_peak:.3f} GiB; plain radial sums "
+              f"{md_plain_ms:.3f} ms a step, peak {md_plain_peak:.3f} GiB; max |dx| after "
+              f"{RADIAL_MD_STEPS} steps {md_dx:.3e} A")
+        check(md_dx <= MD_COORD_ATOL, f"phase 56: MD coordinates within {MD_COORD_ATOL} A of "
+              f"the plain sums' run")
+        del md, state, end, end_p
+
+        # a Hessian of the 30-water cluster's size
+        h_sp, h_co, _ = make_water_box(90)
+        h_model = ANI2x(seed=0, device=dev)
+        hessians(h_model, h_sp, h_co)
+        before = read()
+        hess = hessians(h_model, h_sp, h_co)
+        launches["hessian"] = since(before)
+        check(launches["hessian"] == want(3, 6, 3) and bool(torch.isfinite(hess).all()),
+              "phase 56: a Hessian of 90 atoms (3 passes) launches 3 K6, 6 K6b and 3 K6bb")
+    finally:
+        aev_computer.radial_aev = real
+    print(f"phase 56: launches by path {launches}")
+
+    # the kernels at the tables the E+F and MD paths handed K6
+    results = {}
+    for at, (dist, species, kw) in tables.items():
+        n, k = dist.shape
+        nr, ns = len(kw["shifts"]), kw["num_species"]
+        rng = np.random.RandomState(56)
+        g = torch.as_tensor(rng.randn(n, ns * nr + 1008).astype(np.float32), device=dev)
+        g = g[:, :ns * nr]  # the AEV cotangent's radial columns
+        w = torch.as_tensor(rng.randn(n, k).astype(np.float32), device=dev)
+        gc = g.contiguous()
+        masked = species < 0
+        errs, ms, plain, bounds, added = {}, {}, {}, {}, {}
+        calls = {
+            "K6": (lambda: radial_aev(dist, species, **kw),
+                   lambda: radial_aev_reference(dist, species, **kw)),
+            "K6b": (lambda: radial_aev_bwd(g, dist, species, **kw),
+                    lambda: radial_aev_bwd_reference(gc, dist, species, **kw)),
+            "K6bb": (lambda: radial_aev_bwd_bwd(g, dist, species, w, **kw),
+                     lambda: radial_aev_bwd_bwd_reference(gc, dist, species, w, **kw)),
+        }
+        for short, (kern, ref_fn) in calls.items():
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            out = kern()
+            torch.cuda.synchronize()
+            added[short] = torch.cuda.max_memory_allocated() - base
+            ref = ref_fn()
+            outs = out if isinstance(out, tuple) else (out,)
+            refs = ref if isinstance(ref, tuple) else (ref,)
+            errs[short] = max(radial_errors(o, r, f"phase 56: {short} at the {at} tables "
+                                                  f"({n} x {k})")
+                              for o, r in zip(outs, refs))
+            if short != "K6":
+                lane_out = outs[-1]
+                check(bool((lane_out[masked] == 0).all()),
+                      f"phase 56: {short} writes exact zeros on masked lanes")
+            out_bytes = sum(o.numel() * o.element_size() for o in outs)
+            check(added[short] <= out_bytes + (1 << 20),
+                  f"phase 56: {short} allocates its outputs and nothing else")
+            ms[short] = kernels_ms(kern, reps=20)
+            plain[short] = kernels_ms(ref_fn, reps=3)
+            bounds[short] = radial_bound_ms(short, dist, species, nr, ns)
+            print(f"{card}: phase 56: {short} at the {at} tables ({n} x {k}, "
+                  f"{int((~masked).sum())} valid lanes, {int((~masked).any(dim=1).sum())} rows "
+                  f"with one): {ms[short]:.4f} ms, bound {bounds[short][0]:.4f} ms by "
+                  f"{bounds[short][1]} ({bounds[short][0] / ms[short]:.1%}), plain "
+                  f"{plain[short]:.3f} ms; {added[short] / 2**20:.1f} MiB allocated "
+                  f"(outputs {out_bytes / 2**20:.1f} MiB; one (N, K, R) f32 tensor "
+                  f"{n * k * nr * 4 / 2**20:.1f} MiB)")
+        results[at] = {"err": errs, "ms": ms, "plain": plain, "bound": bounds, "added": added,
+                       "n": n, "k": k}
+    check(set(results) == {"ef", "md"}, "phase 56: tables captured on the E+F and MD paths")
+
+    source = "torchani_tpu_torch/csrc/radial_aev.cu"
+    replaces = "none: the JAX package leaves the radial terms to XLA's fusion"
+    entries = []
+    for short, name in (("K6", "radial_aev"), ("K6b", "radial_aev_bwd"),
+                        ("K6bb", "radial_aev_bwd_bwd")):
+        entries.append({
+            "name": name, "route": "cuda", "source": source, "replaces": replaces,
+            "launches_by_path": {path: c[name] for path, c in launches.items()},
+            **{f"at_{at}": {"max_abs_err": r["err"][short], "ms": r["ms"][short],
+                            "plain_ms": r["plain"][short], "bound_ms": r["bound"][short][0],
+                            "bound_by": r["bound"][short][1], "rows": r["n"], "lanes": r["k"],
+                            "allocated_bytes": r["added"][short]}
+               for at, r in results.items()},
+        })
+    return {"kernels": entries, "launches": launches,
+            "ef": {"ms": ef_ms, "plain_ms": ef_plain_ms, "peak_gib": ef_peak,
+                   "plain_peak_gib": ef_plain_peak},
+            "md": {"ms": md_ms, "plain_ms": md_plain_ms, "peak_gib": md_peak,
+                   "plain_peak_gib": md_plain_peak}}
 
 
 def main() -> int:
@@ -4630,6 +4903,7 @@ def main() -> int:
     # ---- 55. triclinic MD through the three refreshes (`triclinic_phases`) ----
     torch.cuda.empty_cache()
     tri = triclinic_phases(card, kernels_fn, reset_counts, read_counts)
+    radial = radial_phases(card)
 
     def entry(name, source, replaces, err, ms, plain, bound, by, library):
         return {
@@ -4761,6 +5035,7 @@ def main() -> int:
     # K1, K2, K5f and K5b at the sheared box's tables (phase 55)
     for name, at in tri["kernels"].items():
         next(k_ for k_ in kernels if k_["name"] == name)["at_triclinic"] = at
+    kernels.extend(radial["kernels"])  # K6, K6b and K6bb (phase 56)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({
         "ok": True,

@@ -251,7 +251,7 @@ def test_md_wants_the_models_device():
 
 def test_kernel_build_settings():
     assert set(csrc.sources()) == {
-        "angular_aev", "bucket_select", "vals_select", "packed_select"
+        "angular_aev", "bucket_select", "vals_select", "packed_select", "radial_aev"
     }
     flags = " ".join(csrc.NVCC_FLAGS)
     assert "arch=compute_90a,code=sm_90a" in flags

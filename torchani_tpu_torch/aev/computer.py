@@ -24,6 +24,16 @@ Angular strategies:
 - ``"auto"``: ``"cuda"`` for CUDA tensors with a term and a cutoff the
   kernel evaluates, ``"plain"`` otherwise (the routing of the JAX package,
   whose Pallas path takes the same terms and cutoffs).
+
+The radial terms take the same route where their kernels evaluate them
+(`ANIRadial` with the cosine or the default smooth cutoff, at most
+``MAX_RADIAL_SPECIES`` species and ``MAX_RADIAL_SHIFTS`` shifts): K6
+(`radial_aev`) forward, K6b (`radial_aev_bwd`) backward and K6bb
+(`radial_aev_bwd_bwd`) for a second derivative, one launch each
+(`_RadialAEVFunction`; on CPU tensors under ``"cuda"`` their plain
+versions); a third and higher derivative differentiates a plain recompute.
+Any other radial term keeps the plain masked sums under every strategy,
+``"cuda"`` included: the JAX package leaves them all to XLA.
 """
 
 import math
@@ -40,8 +50,18 @@ from torchani_tpu_torch.aev.kernels import (
     angular_grid,
     lane_species,
 )
+from torchani_tpu_torch.aev.radial_kernels import (
+    MAX_RADIAL_SHIFTS,
+    MAX_RADIAL_SPECIES,
+    radial_aev,
+    radial_aev_bwd,
+    radial_aev_bwd_bwd,
+    radial_aev_reference,
+    species_sums,
+)
 from torchani_tpu_torch.aev.terms import (
     ANIAngular,
+    ANIRadial,
     AngularArg,
     BaseAngular,
     BaseRadial,
@@ -247,6 +267,76 @@ def _bwd_bwd_vjp(
     return [torch.cat(p) for p in zip(*parts)]
 
 
+class _RadialAEVFunction(torch.autograd.Function):
+    """K6 forward and K6b backward, one launch each on CUDA tensors; on CPU
+    tensors their plain versions.  The backward is `_RadialAEVBwdFunction`,
+    so that a second derivative runs K6bb."""
+
+    @staticmethod
+    def forward(ctx, dist, species, kwargs):
+        ctx.save_for_backward(dist, species)
+        ctx.kwargs = kwargs
+        return radial_aev(dist, species, **kwargs)
+
+    @staticmethod
+    def backward(ctx, grad):
+        dist, species = ctx.saved_tensors
+        if grad.stride(-1) != 1 or grad.stride(0) < grad.shape[1]:
+            grad = grad.contiguous()  # an expanded cotangent (the gradient of a sum)
+        return _RadialAEVBwdFunction.apply(grad, dist, species, ctx.kwargs), None, None
+
+
+class _RadialAEVBwdFunction(torch.autograd.Function):
+    """K6b as a differentiable function of the cotangent ``g`` and ``dist``:
+    its backward is K6bb (`_RadialAEVBwdBwdFunction`), one launch, which
+    gives the cotangents of both."""
+
+    @staticmethod
+    def forward(ctx, g, dist, species, kwargs):
+        ctx.save_for_backward(g, dist, species)
+        ctx.kwargs = kwargs
+        return radial_aev_bwd(g, dist, species, **kwargs)
+
+    @staticmethod
+    def backward(ctx, w):
+        g, dist, species = ctx.saved_tensors
+        gg, gdist = _RadialAEVBwdBwdFunction.apply(g, dist, species, w.contiguous(), ctx.kwargs)
+        return gg, gdist, None, None
+
+
+class _RadialAEVBwdBwdFunction(torch.autograd.Function):
+    """K6bb (`radial_aev_bwd_bwd`).  Its backward, a third derivative of the
+    radial AEV, is autograd through a plain recompute (`radial_aev_reference`
+    differentiated twice), differentiable again where the caller asks for a
+    graph, as `_bwd_bwd_vjp` is for the angular terms."""
+
+    @staticmethod
+    def forward(ctx, g, dist, species, w, kwargs):
+        ctx.save_for_backward(g, dist, species, w)
+        ctx.kwargs = kwargs
+        return radial_aev_bwd_bwd(g, dist, species, w, **kwargs)
+
+    @staticmethod
+    def backward(ctx, v_gg, v_gdist):
+        g, dist, species, w = ctx.saved_tensors
+        create_graph = torch.is_grad_enabled()
+        inputs = (g, dist, w)
+        with torch.enable_grad():
+            # fresh views: the gradients stop at them, not where ``g``'s own
+            # history meets ``dist``
+            ins = [t.view_as(t) if create_graph and t.requires_grad
+                   else t.detach().requires_grad_() for t in inputs]
+            g_, dist_, w_ = ins
+            aev = radial_aev_reference(dist_, species, **ctx.kwargs)
+            (gdist,) = torch.autograd.grad(aev, dist_, g_, create_graph=True)
+            phi = torch.sum(gdist * w_)
+            outs = torch.autograd.grad(phi, (g_, dist_), create_graph=True)
+            psi = torch.sum(outs[0] * v_gg) + torch.sum(outs[1] * v_gdist)
+            grads = torch.autograd.grad(psi, ins, create_graph=create_graph, allow_unused=True)
+        grads = [torch.zeros_like(t) if x is None else x for x, t in zip(grads, inputs)]
+        return grads[0], grads[1], None, grads[2], None
+
+
 class AEVComputer(torch.nn.Module):
     """Computes atomic environment vectors for batches of molecules.
 
@@ -312,6 +402,8 @@ class AEVComputer(torch.nn.Module):
         self.angular_capacity = None if angular_capacity is None else int(angular_capacity)
         self._kernel_kwargs: tp.Optional[tp.Dict[str, tp.Any]] = None
         self._kernel_kwargs_key: tp.Optional[tp.Tuple] = None
+        self._radial_kwargs: tp.Optional[tp.Dict[str, tp.Any]] = None
+        self._radial_kwargs_key: tp.Optional[tp.Tuple] = None
 
     # ---- dims ----
     @property
@@ -389,11 +481,9 @@ class AEVComputer(torch.nn.Module):
         """AEVs from a padded neighbor table; NaN if the table overflowed.
 
         ``present`` names the species of ``elem_idxs`` for a caller that
-        knows them; by default they are read from the tensor, which waits
-        for the device."""
+        knows them; by default the plain radial path reads them from the
+        tensor, which waits for the device (the radial kernel needs none)."""
         c, a = elem_idxs.shape
-        if present is None:
-            present = self._present_species(elem_idxs)
         radial_nbrs, angular_nbrs, overflow = self.flat_tables(elem_idxs, neighbors)
         # silent truncation would give plausibly-wrong physics: poison instead
         poison = torch.where(overflow, math.nan, 1.0).to(neighbors.dist.dtype)
@@ -480,6 +570,22 @@ class AEVComputer(torch.nn.Module):
             self._kernel_kwargs_key = key
         return self._kernel_kwargs
 
+    def radial_kernel_kwargs(self) -> tp.Dict[str, tp.Any]:
+        """Static arguments of `radial_aev` for this computer's radial term,
+        read and cached as `kernel_kwargs` reads the angular term's."""
+        rad = self.radial
+        key = tuple((t.data_ptr(), t._version) for t in (rad.eta, rad.shifts))
+        if key != self._radial_kwargs_key:
+            self._radial_kwargs = dict(
+                eta=float(rad.eta[0]),
+                shifts=tuple(rad.shifts.tolist()),
+                cutoff=float(rad.cutoff),
+                cutoff_kind=_cutoff_kind(rad.cutoff_fn),
+                num_species=self.num_species,
+            )
+            self._radial_kwargs_key = key
+        return self._radial_kwargs
+
     def _present_species(self, elem: Tensor) -> tp.Tuple[int, ...]:
         """Species present in the element array (a host decision)."""
         with scope("aev.present_species", wait=True):
@@ -511,6 +617,23 @@ class AEVComputer(torch.nn.Module):
         ang = self.angular
         return type(ang) is ANIAngular and _cutoff_kind(ang.cutoff_fn) is not None
 
+    def _radial_kernel_evaluates(self) -> bool:
+        """Whether K6 evaluates this computer's radial term: `ANIRadial` (not
+        a subclass) with the cosine or default smooth cutoff, at widths the
+        kernel takes."""
+        rad = self.radial
+        return (
+            type(rad) is ANIRadial
+            and _cutoff_kind(rad.cutoff_fn) is not None
+            and rad.num_feats <= MAX_RADIAL_SHIFTS
+            and self.num_species <= MAX_RADIAL_SPECIES
+        )
+
+    def _use_radial_kernel(self, t: Tensor) -> bool:
+        if self.strategy == "plain" or not self._radial_kernel_evaluates():
+            return False
+        return self.strategy == "cuda" or t.is_cuda
+
     def _use_kernel(self, t: Tensor) -> bool:
         if self.strategy == "plain":
             return False
@@ -530,25 +653,24 @@ class AEVComputer(torch.nn.Module):
         elem_flat: Tensor,  # (N,)
         radial_nbrs: Neighbors,  # (N, K)
         angular_nbrs: Neighbors,  # (N, Ka)
-        present: tp.Tuple[int, ...],
+        present: tp.Optional[tp.Tuple[int, ...]] = None,
         packed_prefix: bool = False,
     ) -> Tensor:
         n = radial_nbrs.idx.shape[0]
         s = self.num_species
 
-        # radial: per-species masked sums over lanes, absent species are zero
         rmask = radial_nbrs.mask
-        rterms = self.radial(radial_nbrs.dist) * rmask[..., None]  # (N, K, R)
         relem = torch.where(rmask, radial_nbrs.nbr_elem(elem_flat), -1)
-        zeros = rterms.new_zeros((n, self.radial.num_feats))
-        radial_aev = torch.stack(
-            [
-                torch.sum(rterms * (relem == t)[..., None], dim=1)
-                if t in present else zeros
-                for t in range(s)
-            ],
-            dim=1,
-        ).reshape(n, self.radial_len)
+        if self._use_radial_kernel(radial_nbrs.dist):
+            radial_aev = _RadialAEVFunction.apply(
+                radial_nbrs.dist.contiguous(), relem.to(torch.int64).contiguous(),
+                self.radial_kernel_kwargs(),
+            )
+        else:
+            # per-species sums over the valid lanes, absent species are zero
+            if present is None:
+                present = self._present_species(elem_flat)
+            radial_aev = species_sums(self.radial(radial_nbrs.dist), relem, s, present)
 
         # angular
         adist, adiff, amask, aoh = self.angular_inputs(elem_flat, angular_nbrs)
